@@ -43,3 +43,10 @@ def _clear_jax_caches_per_module():
     """
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (fos_tpu_torch's hand-written kernels); "
+        "skips without one")
