@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive fos_tpu_torch's conic solve on one NVIDIA H100 through its
-hand-written CUDA kernels, and check it.
+"""Drive fos_tpu_torch on one NVIDIA H100 through its hand-written CUDA
+kernels, and check it.
 
     python3 chip_smoke.py
 
@@ -8,23 +8,33 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
 
 0. the card (``nvidia-smi`` name and power limit, torch/CUDA versions), a
    check that it is sm_90, and the nvcc build of ``fos_tpu_torch/csrc``;
-1. each pair kernel against its plain PyTorch version on the card, at the
-   shapes the solves below give it: max error, the median time of a call
-   (CUDA events, host launch cost included) and the device time of a call
-   (profiler) of both;
-2. the dense 1000x1000 certificate LP through K1 (``pallas=True``) to
-   Optimal at eps=1e-5, continued to eps=1e-6 for the objective gate,
-   then 300 iterations at 4000x4000;
-3. the block-tridiagonal LP with ~1e7 nonzeros (32768x32768) through K2;
-4. a scattered block-sparse LP (one diagonal and three random tiles per
-   block row) through K3.
+1. each kernel against its plain PyTorch version on the card, at the
+   shapes the paths below give it: max error, repeatability, the median
+   time of a call (CUDA events, host launch cost included), the device
+   time of a call (profiler) of both, the least time the card could take
+   (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s) and, where one
+   PyTorch call computes the same function, that call's time.  K1-K3 (the
+   pairs); K4/K5 over the A tables (``mv``) and the A' tables (``rmv``),
+   against a block-sparse ``torch.sparse_bsr_tensor`` matvec;
+2. the conic path: the dense 1000x1000 certificate LP through K1
+   (``pallas=True``) to Optimal at eps=1e-5, continued to eps=1e-6 for the
+   objective gate, 300 iterations at 4000x4000; the block-tridiagonal LP
+   with ~1e7 nonzeros (32768x32768) through K2; a scattered block-sparse LP
+   (one diagonal and three random tiles per block row) through K3;
+3. the set-feasibility path: ``Ax + s = b, x in [0,1]^n, s >= 0`` on the
+   same two 32768x32768 tables, through ``AffinePlusLinearProjector`` and
+   K4 (banded) / K5 (scattered), to Optimal with a residual gate computed
+   in f64 on the host; then the reference's testfeasibility problem (50x100
+   dense) with all seven algorithms;
+4. the launch probe: P1/P2 bit-equal to their plain versions, then every
+   line of ``fos_tpu_torch.tools.launch_probe.main()``.
 
-The launch counters are zeroed just before phases 2-4 and read just after:
-every kernel must have been launched by the solves.  Then one profiled
-200-iteration solve each of the dense and the banded LP shows the device's
-busy and idle time and its top kernels.  The line before the
-last lists the kernels; the last line is the run's result.  Needs one
-CUDA card; fails without one.
+The launch counters are zeroed just before each path (2, 3, 4) and read
+just after it: every kernel must have been launched by its path (launches
+made to compare a kernel with its plain version are not counted).  Then
+short profiled solves show the device's busy and idle time and its top
+kernels.  The line before the last lists the kernels; the last line is the
+run's result.  Needs one CUDA card; fails without one.
 """
 
 from __future__ import annotations
@@ -40,6 +50,19 @@ import numpy as np
 TILE = 128
 # |kernel - plain| <= ATOL + RTOL * |plain|: f32 sums taken in another order
 RTOL, ATOL = 2e-5, 2e-4
+# the card's peaks (NVIDIA H100 SXM data sheet), for each kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# Feasibility eps, in units of the affine projection's CG floor (m + n)
+# eps_f32 (affine.py).  The test is absolute (||z_k - z_{k-1}|| <= eps) and
+# in f32 the consecutive-iterate distance of a converged solve sits at the
+# CG floor's scale: run on the CPU in f32 at nrb = 8 and 16 (both packages,
+# the same construction) and at nrb = 32-128 (the port), it stayed at or
+# below 0.8x the floor from the first check on, so 2x the floor is reached
+# by both packages at every size tried; the residual gate below, not eps,
+# is what holds the answer to account.
+FEAS_EPS_FLOORS = 2.0
+FEAS_RESID = 1e-4   # ||A x + s - b||_inf <= FEAS_RESID (1 + ||b||_inf), f64
 GATE_EPS = 1e-5
 GATE_OBJ = 1e-3
 DENSE_N = 1000      # the dense LP (bench.py's main point)
@@ -117,6 +140,30 @@ def scattered_tables(nrb=NRB, seed=23, extra=3, bs=TILE):
         others = rng.choice(nrb - 1, extra, replace=False)
         cols[i, 1:] = others + (others >= i)
     return blocks, cols, _certificate_vectors(rng, nrb * bs, nrb * bs)
+
+
+def host_tile_mv(blocks, col_of_slot, x):
+    """y = A x in f64 on the host from the numpy tiles: blocks (nrb, k, bs,
+    bs), col_of_slot (nrb, k) each tile's block column, x (n,).  Padding
+    tiles are zeros; x is zero-padded to the columns the tiles reach."""
+    bs = blocks.shape[-1]
+    ncb = max(int(col_of_slot.max()) + 1, -(-x.shape[0] // bs))
+    xb = np.zeros(ncb * bs)
+    xb[: x.shape[0]] = x
+    xb = xb.reshape(ncb, bs)
+    y = np.zeros((blocks.shape[0], bs))
+    for k in range(blocks.shape[1]):
+        y += np.einsum("rij,rj->ri", blocks[:, k].astype(np.float64),
+                       xb[col_of_slot[:, k]])
+    return y.reshape(-1)
+
+
+def feasibility_vectors(m, n, seed=29):
+    """(x0, s0): x0 ~ U(0.1, 0.9) inside the box, s0 = max(0, N(0, 0.5)),
+    f64, so that b = A x0 + s0 makes {Ax + s = b, x in [0,1]^n, s >= 0}
+    feasible by construction."""
+    rng = np.random.default_rng(seed)
+    return rng.uniform(0.1, 0.9, n), np.maximum(0.0, rng.normal(0.0, 0.5, m))
 
 
 def lp_from_operator(op, vectors, device):
@@ -233,6 +280,50 @@ def timed_solve(solve_fn):
     return sol, time.perf_counter() - t0
 
 
+def bound(nbytes, flops):
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the f32 operations over the f32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def tile_bound(stored_tiles, pair, xb, yb):
+    """Bound of a tile-table kernel: each stored tile read once, the input
+    vectors read once and the outputs written once; 2 (4 for a pair) flops
+    per tile entry."""
+    entries = stored_tiles * TILE * TILE
+    nbytes = 4 * entries + sum(4 * t.numel() for t in (*xb, *yb))
+    return bound(nbytes, (4 if pair else 2) * entries)
+
+
+def _stored(col_of_slot, counts):
+    """(row block, slot, column) of each stored tile, columns ascending
+    within a row block."""
+    k = np.arange(col_of_slot.shape[1])
+    r, s = np.nonzero(k[None, :] < counts[:, None])
+    c = col_of_slot[r, s]
+    order = np.lexsort((c, r))
+    return r[order], s[order], c[order]
+
+
+def library_mv(blocks, col_of_slot, counts, ncols, dev):
+    """One PyTorch call computing y = A x over a tile table's stored tiles,
+    the yardstick for K4/K5 (timed here, never called by the port): a
+    block-sparse ``torch.sparse_bsr_tensor`` matvec (cuSPARSE)."""
+    import torch
+
+    r, s, c = _stored(col_of_slot, counts)
+    nrb = blocks.shape[0]
+    vals = blocks[torch.as_tensor(r, device=dev), torch.as_tensor(s, device=dev)]
+    crow = np.zeros(nrb + 1, np.int64)
+    np.cumsum(np.bincount(r, minlength=nrb), out=crow[1:])
+    bsr = torch.sparse_bsr_tensor(torch.as_tensor(crow, device=dev),
+                                  torch.as_tensor(c, device=dev), vals,
+                                  (nrb * TILE, ncols * TILE))
+    return lambda x: bsr @ x
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -240,14 +331,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from fos_tpu_torch import DR, BandedBlockOp, BlockedEllOp, nonneg, solve
+    from fos_tpu_torch import (DR, GAP, AP, GAPA, GAPP, FISTA, Dykstra,
+                               AffinePlusLinearProjector, AffineSet,
+                               BandedBlockOp, BlockSet, BlockedEllOp, Box,
+                               Feasibility, NonNeg, nonneg, solve,
+                               solve_feasibility)
     from fos_tpu_torch.config import require_hopper
     from fos_tpu_torch.linalg import _cuda
     from fos_tpu_torch.linalg.dense_pair import fused_matvec, fused_matvec_plain
-    from fos_tpu_torch.linalg.sparse_ell import (band_mv_pair,
+    from fos_tpu_torch.linalg.sparse_ell import (band_mv, band_mv_pair,
                                                  band_mv_pair_plain,
+                                                 band_mv_plain, bell_mv,
                                                  bell_mv_pair,
-                                                 bell_mv_pair_plain)
+                                                 bell_mv_pair_plain,
+                                                 bell_mv_plain)
+    from fos_tpu_torch.tools import launch_probe
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -268,14 +366,22 @@ def main() -> int:
     N1, N4 = DENSE_N, SCALING_N
     A1, b1, c1, opt1 = certificate_lp(N1, N1, seed=7)
     A4, b4, c4 = scaling_lp(N4)
-    blk, cs, vec_band = banded_tables()
-    m = n = blk.shape[0] * TILE
-    band = BandedBlockOp.from_arrays(blk, cs, m, n, device=dev)
+    blk_band, cs, vec_band = banded_tables()
+    m = n = blk_band.shape[0] * TILE
+    band = BandedBlockOp.from_arrays(blk_band, cs, m, n, transpose_table=True,
+                                     device=dev)
     b_band, c_band, opt_band = lp_from_operator(band, vec_band, dev)
-    blk, cols, vec_ell = scattered_tables()
-    ell = BlockedEllOp.from_arrays(blk, cols, m, n, device=dev)
+    blk_ell, cols, vec_ell = scattered_tables()
+    ell = BlockedEllOp.from_arrays(blk_ell, cols, m, n, transpose_table=True,
+                                   device=dev)
     b_ell, c_ell, opt_ell = lp_from_operator(ell, vec_ell, dev)
-    del blk
+    # the feasibility right-hand sides, b = A x0 + s0 in f64 on the host
+    x0f, s0f = feasibility_vectors(m, n)
+    band_slots = cs[:, None] + np.arange(blk_band.shape[1])
+    feas = {"band": (band, blk_band, band_slots,
+                     host_tile_mv(blk_band, band_slots, x0f) + s0f),
+            "bell": (ell, blk_ell, cols,
+                     host_tile_mv(blk_ell, cols, x0f) + s0f)}
 
     # --- phase 1: each kernel against its plain version, on the card
     rng = np.random.default_rng(3)
@@ -284,41 +390,84 @@ def main() -> int:
         return torch.as_tensor(rng.standard_normal(k, dtype=np.float32),
                                device=dev)
 
-    kernels = []
+    kernels = {}
     for name, A in (("fused_matvec", A1), ("fused_matvec_4000", A4)):
         At = torch.as_tensor(A, device=dev)
         x1, x2 = vec(At.shape[1]), vec(At.shape[0])
         res = compare(name, lambda: fused_matvec(At, x1, x2),
                       lambda: fused_matvec_plain(At, x1, x2))
-        emit({"phase": "kernel", "name": name, "shape": list(At.shape), **res})
+        M, N = At.shape
+        res.update(bound(4 * (M * N + 2 * M + 2 * N), 4 * M * N),
+                   library_ms=None)
+        emit({"phase": "kernel", "name": name, "shape": [M, N], **res})
         if name == "fused_matvec":
-            kernels.append({"name": "fused_matvec", "route": "cuda",
-                            "replaces": "fos_tpu/linalg/pallas_kernels.py:72",
-                            "shape": list(At.shape), **res})
+            kernels[name] = {"source": "fos_tpu_torch/csrc/pair_kernels.cu",
+                             "replaces": "fos_tpu/linalg/pallas_kernels.py:72",
+                             "shape": [M, N], **res}
         del At
     # x as mv_pair pads it: band windows need S zero blocks past the end
     nrb, S = band.blocks.shape[:2]
     xb = vec((band._ncb() + S) * TILE).reshape(-1, TILE)
     zb = vec(nrb * TILE).reshape(nrb, TILE)
-    inverse = (band.inv_ptr, band.inv_idx)
-    band_run = (lambda: band_mv_pair(band.cs, band.blocks, xb, zb, inverse),
-                lambda: band_mv_pair_plain(band.cs, band.blocks, xb, zb))
     xe = xb[: ell._ncb()]
-    inverse_e = (ell.inv_ptr, ell.inv_idx)
-    ell_run = (lambda: bell_mv_pair(ell.cols, ell.blocks, xe, zb, ell.counts,
-                                    inverse_e),
-               lambda: bell_mv_pair_plain(ell.cols, ell.blocks, xe, zb))
-    for name, op, (kern, plain), replaces in (
-            ("band_mv_pair", band, band_run, "fos_tpu/linalg/sparse_ell.py:249"),
-            ("bell_mv_pair", ell, ell_run, "fos_tpu/linalg/sparse_ell.py:333")):
+    stored_ell = int(ell.counts.sum())
+    pairs = (
+        ("band_mv_pair", band, nrb * S, "fos_tpu/linalg/sparse_ell.py:249",
+         lambda: band_mv_pair(band.cs, band.blocks, xb, zb,
+                              (band.inv_ptr, band.inv_idx)),
+         lambda: band_mv_pair_plain(band.cs, band.blocks, xb, zb), (xb, zb)),
+        ("bell_mv_pair", ell, stored_ell, "fos_tpu/linalg/sparse_ell.py:333",
+         lambda: bell_mv_pair(ell.cols, ell.blocks, xe, zb, ell.counts,
+                              (ell.inv_ptr, ell.inv_idx)),
+         lambda: bell_mv_pair_plain(ell.cols, ell.blocks, xe, zb), (xe, zb)))
+    for name, op, tiles, replaces, kern, plain, ins in pairs:
         res = compare(name, kern, plain)
-        table_mib = op.blocks.numel() * 4 / 2**20
+        res.update(tile_bound(tiles, True, ins, kern()), library_ms=None)
         emit({"phase": "kernel", "name": name, "table": list(op.blocks.shape),
-              "table_mib": table_mib, **res})
-        kernels.append({"name": name, "route": "cuda", "replaces": replaces,
-                        "shape": list(op.blocks.shape), **res})
+              "table_mib": op.blocks.numel() * 4 / 2**20, **res})
+        kernels[name] = {"source": "fos_tpu_torch/csrc/pair_kernels.cu",
+                         "replaces": replaces,
+                         "shape": list(op.blocks.shape), **res}
+    # K4/K5: mv over the A table, rmv over the A' table, with the padding
+    # the operators give their inputs
+    yb = vec((nrb + band.blocks_t.shape[1]) * TILE).reshape(-1, TILE)
+    ye = yb[:nrb]
+    singles = (
+        ("band_mv", "mv", band.blocks, band.cs, None, xb),
+        ("band_mv", "rmv", band.blocks_t, band.cs_t, None, yb),
+        ("bell_mv", "mv", ell.blocks, ell.cols, ell.counts, xe),
+        ("bell_mv", "rmv", ell.blocks_t, ell.cols_t, ell.counts_t, ye))
+    for name, direction, blocks, index, counts, xin in singles:
+        if counts is None:
+            kern = lambda: (band_mv(index, blocks, xin),)  # noqa: E731
+            plain = lambda: (band_mv_plain(index, blocks, xin),)  # noqa: E731
+            slots = index.cpu().numpy()[:, None] + np.arange(blocks.shape[1])
+            cnt = np.full(blocks.shape[0], blocks.shape[1])
+        else:
+            kern = lambda: (bell_mv(index, blocks, xin, counts),)  # noqa: E731
+            plain = lambda: (bell_mv_plain(index, blocks, xin),)  # noqa: E731
+            slots, cnt = index.cpu().numpy(), counts.cpu().numpy()
+        res = compare(f"{name}.{direction}", kern, plain)
+        res.update(tile_bound(int(cnt.sum()), False, (xin,), kern()))
+        lib_fn = library_mv(blocks, slots, cnt, xin.shape[0], dev)
+        x_flat = xin.reshape(-1)
+        res["library_ms"] = median_ms(lambda: lib_fn(x_flat))
+        res["library_device_ms"] = device_ms(lambda: lib_fn(x_flat))
+        res["library"] = "torch.sparse_bsr_tensor @ x"
+        res["library_max_abs_err"] = float(
+            (lib_fn(x_flat) - plain()[0].reshape(-1)).abs().max())
+        emit({"phase": "kernel", "name": name, "direction": direction,
+              "table": list(blocks.shape), "stored_tiles": int(cnt.sum()),
+              "table_mib": blocks.numel() * 4 / 2**20, **res})
+        if direction == "mv":
+            kernels[name] = {
+                "source": "fos_tpu_torch/csrc/tile_mv.cu",
+                "replaces": ("fos_tpu/linalg/sparse_ell.py:156"
+                             if name == "band_mv"
+                             else "fos_tpu/linalg/sparse_ell.py:89"),
+                "shape": list(blocks.shape), **res}
 
-    # --- phases 2-4: the solves, the path the launch counts must show
+    # --- phase 2: the conic path, the path K1-K3's launch counts must show
     _cuda.reset_launch_counts()
     f32 = torch.float32
 
@@ -370,7 +519,7 @@ def main() -> int:
         before = _cuda.LAUNCHES[key]
         sol, secs = timed_solve(lambda: solve(
             op, b, c, nonneg(m), nonneg(n), alg=DR(), eps=GATE_EPS,
-            max_iters=10000, verbose=0))
+            max_iters=10000, verbose=0, device=dev))
         rel = abs(sol.objval - opt) / abs(opt)
         emit({"phase": phase, "shape": [m, n], "table": list(op.blocks.shape),
               "status": sol.status, "iters": sol.iters, "seconds": secs,
@@ -380,15 +529,118 @@ def main() -> int:
         if sol.status != "Optimal" or rel > GATE_OBJ:
             raise AssertionError(f"{phase}: {sol.status}, rel obj err {rel}")
     launches = dict(_cuda.LAUNCHES)
-    for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
-        entry["source"] = "fos_tpu_torch/csrc/pair_kernels.cu"
-    missing = [k for k, v in launches.items() if v == 0]
+    for name in ("fused_matvec", "band_mv_pair", "bell_mv_pair"):
+        kernels[name]["launches"] = launches[name]
+
+    # --- phase 3: the set-feasibility path, through K4 and K5
+    _cuda.reset_launch_counts()
+    eps_f32 = float(np.finfo(np.float32).eps)
+    for phase, kind in (("banded_feasibility", "band"),
+                        ("scattered_feasibility", "bell")):
+        op, blocks_np, slots, b = feas[kind]
+        key = f"{kind}_mv"
+        S1 = AffinePlusLinearProjector.create(op, b.astype(np.float32), 0.0,
+                                              -1, device=dev)
+        S2 = BlockSet([(Box(0.0, 1.0), n), (NonNeg(), m)])
+        eps = FEAS_EPS_FLOORS * (m + n) * eps_f32
+        before = _cuda.LAUNCHES[key]
+        sol, secs = timed_solve(lambda: solve_feasibility(
+            Feasibility(S1, S2, n + m), DR(), eps=eps, max_iters=10000,
+            verbose=0, device=dev))
+        z = sol.x
+        inside = (bool((z[:n] >= 0).all()) and bool((z[:n] <= 1).all())
+                  and bool((z[n:] >= 0).all()))
+        zh = z.double().cpu().numpy()
+        resid = float(np.abs(host_tile_mv(blocks_np, slots, zh[:n]) + zh[n:]
+                             - b).max())
+        gate = FEAS_RESID * (1.0 + float(np.abs(b).max()))
+        cg = sol.state.s1_state
+        projections = int(cg.call_idx) - 1
+        emit({"phase": phase, "shape": [m, n], "table": list(op.blocks.shape),
+              "table_t": list(op.blocks_t.shape), "eps": eps,
+              "status": sol.status, "iters": sol.iters, "seconds": secs,
+              "iters_per_s": sol.iters / secs,
+              "cg_iters_per_projection": int(cg.total_iters) / projections,
+              "inside_box_and_s_nonneg": inside, "resid_inf": resid,
+              "resid_gate": gate, f"{key}_launches": _cuda.LAUNCHES[key] - before})
+        if sol.status != "Optimal" or not inside or resid > gate:
+            raise AssertionError(f"{phase}: {sol.status}, inside {inside}, "
+                                 f"residual {resid} (gate {gate})")
+        if _cuda.LAUNCHES[key] == before:
+            raise AssertionError(f"{phase} never launched {key}")
+
+    # the reference's testfeasibility problem (bench.py's feasibility tier):
+    # every algorithm in f32 at eps=1e-6, reported; in f32 the consecutive-
+    # iterate distance of a converged solve sits near eps_f32 ||x|| ~ 1e-6
+    # (both packages on the CPU), so the statuses are rounding-determined
+    # there, and the gate the reference's tests set (test_feasibility.py:
+    # DR, GAPA and GAPP Optimal) is held in f64 at their eps=1e-8
+    rngf = np.random.default_rng(2)
+    xsol = np.abs(rngf.standard_normal(100))
+    Af = rngf.standard_normal((50, 100))
+    bf = Af @ xsol
+    algs = (("gap", GAP()), ("dr", DR()), ("ap", AP()), ("gapa", GAPA()),
+            ("gapp", GAPP()), ("fista", FISTA()), ("dykstra", Dykstra()))
+    for dtype, eps, gated in ((np.float32, 1e-6, ()),
+                              (np.float64, 1e-8, ("dr", "gapa", "gapp"))):
+        A_t, b_t = Af.astype(dtype), bf.astype(dtype)
+        prob = Feasibility(AffineSet.create(A_t, b_t, device=dev), NonNeg(),
+                           100)
+        tier = {}
+        for name, alg in algs:
+            sol, secs = timed_solve(lambda: solve_feasibility(
+                prob, alg, max_iters=5000, checki=100, eps=eps, verbose=0,
+                device=dev))
+            x = sol.x.double().cpu().numpy()
+            tier[name] = {"status": sol.status, "iters": sol.iters,
+                          "seconds": secs,
+                          "feas_err": float(np.abs(A_t.astype(np.float64) @ x
+                                                   - b_t).max())}
+        emit({"phase": "algorithm_tier", "dtype": np.dtype(dtype).name,
+              "eps": eps, "shape": [50, 100], **tier})
+        bad = [k for k in gated if tier[k]["status"] != "Optimal"]
+        if bad:
+            raise AssertionError(f"algorithm tier ({np.dtype(dtype).name}): "
+                                 f"{bad} not Optimal")
+    launches = dict(_cuda.LAUNCHES)
+    for name in ("band_mv", "bell_mv"):
+        kernels[name]["launches"] = launches[name]
+
+    # --- phase 4: the launch probe, through P1 and P2
+    xp = torch.ones((8, 128), device=dev) * 1.5
+    idx = torch.arange(8, dtype=torch.int32, device=dev)
+    for name, kern, plain, extra in (
+            ("probe_tiny", lambda: (launch_probe.probe_tiny(xp),),
+             lambda: (launch_probe.probe_tiny_plain(xp),), 0),
+            ("probe_prefetch", lambda: (launch_probe.probe_prefetch(idx, xp),),
+             lambda: (launch_probe.probe_prefetch_plain(idx, xp),), 32)):
+        res = compare(name, kern, plain)
+        res["bit_equal"] = bool(torch.equal(kern()[0], plain()[0]))
+        if not res["bit_equal"]:
+            raise AssertionError(f"{name} is not bit-equal to its plain version")
+        res.update(bound(2 * xp.numel() * 4 + extra, xp.numel()))
+        res["library_ms"] = median_ms(lambda: torch.mul(xp, launch_probe.SCALE))
+        emit({"phase": "kernel", "name": name, "shape": list(xp.shape), **res})
+        kernels[name] = {"source": "fos_tpu_torch/csrc/probe.cu",
+                         "replaces": ("tools/launch_probe.py:55"
+                                      if name == "probe_tiny"
+                                      else "tools/launch_probe.py:68"),
+                         "shape": list(xp.shape), **res}
+    _cuda.reset_launch_counts()
+    rows = launch_probe.main(dev)
+    emit({"phase": "launch_probe", "rows": rows})
+    for name in ("probe_tiny", "probe_prefetch"):
+        kernels[name]["launches"] = _cuda.LAUNCHES[name]
+    missing = [k for k, e in kernels.items() if e["launches"] == 0]
     if missing:
-        raise AssertionError(f"kernels never launched by the solves: {missing}")
+        raise AssertionError(f"kernels never launched by their path: {missing}")
 
     # where the time goes: one short profiled solve of each kind (after the
     # launch counts were read, so these launches are not counted)
+    op, _, _, b = feas["band"]
+    S1 = AffinePlusLinearProjector.create(op, b.astype(np.float32), 0.0, -1,
+                                          device=dev)
+    S2 = BlockSet([(Box(0.0, 1.0), n), (NonNeg(), m)])
     for phase, run in (
             ("profile_dense", lambda: solve(
                 A1, b1, c1, nonneg(N1), nonneg(N1), alg=DR(), eps=GATE_EPS,
@@ -396,17 +648,23 @@ def main() -> int:
                 verbose=0)),
             ("profile_banded", lambda: solve(
                 band, b_band, c_band, nonneg(m), nonneg(n), alg=DR(),
-                eps=GATE_EPS, max_iters=200, verbose=0))):
+                eps=GATE_EPS, max_iters=200, verbose=0, device=dev)),
+            ("profile_banded_feasibility", lambda: solve_feasibility(
+                Feasibility(S1, S2, n + m), DR(), eps=0.0, max_iters=200,
+                verbose=0, device=dev))):
         sol, prof = profile_solve(run)
         emit({"phase": phase, "iters": sol.iters, **prof})
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "device_ms", "plain_device_ms", "shape",
-            "max_rel_err", "deterministic")
-    emit({"kernels": [{k: e[k] for k in keys} for e in kernels]})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "plain_device_ms", "shape", "max_rel_err",
+            "deterministic")
+    emit({"kernels": [{k: e.get(k) for k in keys}
+                      for e in ({"name": name, "route": "cuda", **entry}
+                                for name, entry in kernels.items())]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

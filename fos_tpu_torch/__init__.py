@@ -1,15 +1,24 @@
 """fos_tpu_torch: the fos_tpu conic solver ported to PyTorch and CUDA.
 
-The same DR/HSDE solve as the JAX package ``fos_tpu``, with the fused
-``(A @ x, A' @ z)`` pair carried by hand-written CUDA kernels for Hopper
-(``csrc/pair_kernels.cu``): dense A (``solve(..., pallas=True)``), banded
-and blocked-ELL tile tables (:class:`BandedBlockOp`, :class:`BlockedEllOp`).
-On the CPU the same functions run in plain PyTorch.  This package imports
-neither jax nor fos_tpu.
+The same solves as the JAX package ``fos_tpu``, on the card unless the
+caller asks for the CPU (``device="cpu"``):
+
+* the DR/HSDE conic solve, ``solve``, with the fused ``(A @ x, A' @ z)``
+  pair carried by hand-written CUDA kernels for Hopper
+  (``csrc/pair_kernels.cu``): dense A (``solve(..., pallas=True)``), banded
+  and blocked-ELL tile tables (:class:`BandedBlockOp`,
+  :class:`BlockedEllOp`);
+* the set-feasibility solve, ``solve_feasibility``, with the GAP family
+  (GAP, DR, AP, GAPA, GAPP, FISTA, Dykstra), the sets library and
+  :class:`AffinePlusLinearProjector`, whose CG runs the tile operators'
+  single products through hand-written kernels (``csrc/tile_mv.cu``).
+
+On CPU tensors the same functions run their plain PyTorch versions.  This
+package imports neither jax nor fos_tpu.
 
     from fos_tpu_torch import solve, DR, nonneg
     sol = solve(A, b, c, nonneg(m), nonneg(n), alg=DR(), eps=1e-5,
-                dtype=torch.float32, pallas=True, device="cuda")
+                dtype=torch.float32, pallas=True)
 """
 
 from fos_tpu_torch import config as config  # noqa: F401  (pins full-f32 matmuls)
@@ -26,9 +35,15 @@ from fos_tpu_torch.cones import (  # noqa: F401
     soc,
     zero,
 )
-from fos_tpu_torch.solvers import AP, DR, GAP, Status  # noqa: F401
+from fos_tpu_torch.solvers import (  # noqa: F401
+    AP, DR, FISTA, GAP, GAPA, GAPP, Dykstra, Status)
 from fos_tpu_torch.problems import ConicProblem, Solution, conic_problem  # noqa: F401
+from fos_tpu_torch.problems.feasibility import Feasibility  # noqa: F401
+from fos_tpu_torch.linalg.affine import AffinePlusLinearProjector  # noqa: F401
 from fos_tpu_torch.linalg.sparse_ell import BandedBlockOp, BlockedEllOp  # noqa: F401
-from fos_tpu_torch.interface import solve  # noqa: F401
+from fos_tpu_torch.sets import (  # noqa: F401
+    AffineSet, Ball, BlockSet, Box, ConeSet, FunctionSet, Halfspace, NonNeg,
+    NonPos, Point)
+from fos_tpu_torch.interface import solve, solve_feasibility  # noqa: F401
 
 __version__ = "0.1.0"

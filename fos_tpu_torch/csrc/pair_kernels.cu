@@ -32,18 +32,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kTile = 128;               // sparse tile side; dense column tile
-constexpr int kThreads = 256;            // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kTile / kWarps;  // 16
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // Load one 128-row tile into registers (lane l holds columns l + 32k of
 // the warp's 16 rows; rows >= nrows and columns >= ncols read as 0), then

@@ -1,1 +1,1 @@
-from fos_tpu_torch.interface.api import solve  # noqa: F401
+from fos_tpu_torch.interface.api import solve, solve_feasibility  # noqa: F401

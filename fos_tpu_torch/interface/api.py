@@ -1,6 +1,7 @@
 """Public solver API.
 
     sol = solve(A, b, c, K1=zero(m), K2=nonneg(n), alg=DR(), eps=1e-8)
+    sol = solve_feasibility(Feasibility(S1, S2, n), alg=DR(), eps=1e-6)
 
 Options (max_iters / eps / checki / verbose / debug / initx) follow the
 FirstOrderSolvers.jl defaults (solverwrapper.jl:4-10); keyword options
@@ -11,22 +12,42 @@ from __future__ import annotations
 
 import time
 
-import torch
-
-from fos_tpu_torch.config import as_dtype
+from fos_tpu_torch.config import as_dtype, as_tensor, default_device
 from fos_tpu_torch.cones.spec import ConeSpec
-from fos_tpu_torch.problems.conic import ConicProblem, as_tensor, conic_problem
+from fos_tpu_torch.problems.conic import ConicProblem, conic_problem
 from fos_tpu_torch.problems.hsde import HSDEForm, Solution, populate_solution
 from fos_tpu_torch.solvers import engine
 from fos_tpu_torch.solvers.base import DR
 
 
-def _default_device(A):
-    """The device of a tensor or operator ``A``; CPU for numpy and scipy."""
-    if isinstance(A, torch.Tensor):
-        return A.device
-    dev = getattr(A, "device", None)
-    return torch.device(dev) if dev is not None else torch.device("cpu")
+def solve_feasibility(problem, alg=None, initx=None, *, dtype=None,
+                      device=None, **options):
+    """Solve ``find x in S1 ∩ S2`` (reference: Feasibility.jl:51-55).
+
+    ``problem`` is a :class:`~fos_tpu_torch.problems.feasibility.
+    Feasibility`.  The iterate lives on ``device`` (default: the card; pass
+    ``device="cpu"`` for the CPU), where the sets' data must live too, in
+    ``dtype`` (default: the dtype of the sets' data).  Keyword options
+    override options stored on the algorithm (Feasibility.jl:33-36).
+    """
+    from fos_tpu_torch.problems.feasibility import (
+        Feasibility, FeasibilityForm, populate_feasibility_solution)
+
+    t0 = time.time()
+    if not isinstance(problem, Feasibility):
+        raise TypeError(f"expected a Feasibility problem, got {type(problem)}")
+    if alg is None:
+        alg = DR()
+    opts = dict(alg.options)
+    opts.update(options)
+    form = FeasibilityForm.build(problem, as_dtype(dtype),
+                                 default_device(device))
+    init_duration = time.time() - t0
+    if initx is not None:
+        initx = as_tensor(initx, form.dtype, form.device)
+    res = engine.run(form, alg, initx=initx, init_duration=init_duration, **opts)
+    return populate_feasibility_solution(form, res.guess, res.status, res.iters,
+                                         res.history, res.state)
 
 
 def solve(A=None, b=None, c=None, K1: ConeSpec = None, K2: ConeSpec = None,
@@ -35,10 +56,10 @@ def solve(A=None, b=None, c=None, K1: ConeSpec = None, K2: ConeSpec = None,
     """Solve ``min c'x s.t. Ax + s = b, s in K1, x in K2`` via the HSDE.
 
     ``dtype`` casts the problem data (e.g. ``torch.float32``); by default
-    the dtype of the inputs is kept.  ``device`` is where the solve runs;
-    it defaults to the device of ``A`` when ``A`` is a tensor or an
-    operator, and to the CPU for numpy and scipy input.  Nothing moves
-    between devices on its own.
+    the dtype of the inputs is kept.  ``device`` is where the solve runs:
+    the card unless given (``device="cpu"`` for the CPU; without a card and
+    without ``device`` it raises).  Tensor data moves to it; an operator
+    ``A`` must already live there.
 
     Sparse ``A`` (scipy.sparse) options: ``densify`` and ``sparse_format``,
     as documented at :meth:`HSDEForm.build`.  ``pallas=True`` runs dense A
@@ -55,8 +76,7 @@ def solve(A=None, b=None, c=None, K1: ConeSpec = None, K2: ConeSpec = None,
             raise ValueError("warm_start solution carries no raw_z iterate")
         initx = warm_start.raw_z
     if problem is None:
-        device = torch.device(device) if device is not None else _default_device(A)
-        problem = conic_problem(A, b, c, K1, K2, device=device,
+        problem = conic_problem(A, b, c, K1, K2, device=default_device(device),
                                 dtype=as_dtype(dtype))
     if alg is None:
         alg = DR()

@@ -28,14 +28,20 @@ def cone_spec_from_blocks(blocks, params=()) -> ConeSpec:
                     tuple(tuple(p) for p in params))
 
 
-def tile_op_from_numpy(kind: str, blocks, index, m: int, n: int, device=None):
+def tile_op_from_numpy(kind: str, blocks, index, m: int, n: int, device=None,
+                       *, blocks_t=None, index_t=None):
     """A port tile operator from a JAX op's tables:
     ``np.asarray(op.blocks)`` and ``np.asarray(op.cs)`` (kind "band") or
-    ``np.asarray(op.cols)`` (kind "bell")."""
+    ``np.asarray(op.cols)`` (kind "bell"), and optionally its A' tables
+    ``op.blocks_t`` with ``op.cs_t`` / ``op.cols_t`` (for ``rmv``)."""
     if kind == "band":
-        return BandedBlockOp.from_arrays(blocks, index, m, n, device=device)
+        return BandedBlockOp.from_arrays(blocks, index, m, n,
+                                         blocks_t=blocks_t, cs_t=index_t,
+                                         device=device)
     if kind == "bell":
-        return BlockedEllOp.from_arrays(blocks, index, m, n, device=device)
+        return BlockedEllOp.from_arrays(blocks, index, m, n,
+                                        blocks_t=blocks_t, cols_t=index_t,
+                                        device=device)
     raise ValueError(f"kind must be 'band' or 'bell', got {kind!r}")
 
 
@@ -46,23 +52,42 @@ def _t(a, device, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
-def solver_state_from_numpy(*, x, i, z_check, z_check_prev, s1_state,
-                            device=None, aux=()) -> SolverState:
-    """A port :class:`SolverState` (HSDE S1 state as a :class:`CGState`,
-    stateless S2) from numpy leaves.  ``s1_state`` maps CGState field names
-    to arrays; absent or None fields stay None."""
+def _leaves(a, device):
+    """numpy arrays (alone or in tuples) as tensors on ``device``."""
+    if isinstance(a, (tuple, list)):
+        return tuple(_leaves(v, device) for v in a)
+    return _t(a, device)
+
+
+def _cg_state(s, device):
+    """A :class:`CGState` from a dict of CGState field names to arrays
+    (absent or None fields stay None); anything else (a direct-mode set's
+    ``()``, a tuple of member states) converts leaf by leaf."""
+    if not isinstance(s, dict):
+        return tuple(_cg_state(v, device) for v in s)
     i32 = torch.int32
-    cg = CGState(
-        warm=_t(s1_state["warm"], device),
-        initialized=_t(s1_state["initialized"], device, torch.bool),
-        call_idx=_t(s1_state["call_idx"], device, i32),
-        last_iters=_t(s1_state["last_iters"], device, i32),
-        floor=_t(s1_state.get("floor"), device),
-        win_score=_t(s1_state.get("win_score"), device),
-        total_iters=_t(s1_state.get("total_iters"), device, i32),
-        v_warm=_t(s1_state.get("v_warm"), device),
+    return CGState(
+        warm=_t(s["warm"], device),
+        initialized=_t(s["initialized"], device, torch.bool),
+        call_idx=_t(s["call_idx"], device, i32),
+        last_iters=_t(s["last_iters"], device, i32),
+        floor=_t(s.get("floor"), device),
+        win_score=_t(s.get("win_score"), device),
+        total_iters=_t(s.get("total_iters"), device, i32),
+        v_warm=_t(s.get("v_warm"), device),
     )
-    return SolverState(x=_t(x, device), i=_t(i, device, i32),
+
+
+def solver_state_from_numpy(*, x, i, z_check, z_check_prev, s1_state,
+                            s2_state=(), device=None, aux=()) -> SolverState:
+    """A port :class:`SolverState` from numpy leaves.  A set state is a dict
+    of CGState field names to arrays (``v_warm`` only for the HSDE
+    projector), ``()`` for a stateless set, or a tuple of those (a
+    BlockSet's members); ``aux`` is an array or a tuple of arrays (GAPA's
+    a12, FISTA's (t, y, x_old), Dykstra's (p, q))."""
+    return SolverState(x=_t(x, device), i=_t(i, device, torch.int32),
                        z_check=_t(z_check, device),
                        z_check_prev=_t(z_check_prev, device),
-                       s1_state=cg, s2_state=(), aux=aux)
+                       s1_state=_cg_state(s1_state, device),
+                       s2_state=_cg_state(s2_state, device),
+                       aux=_leaves(aux, device))

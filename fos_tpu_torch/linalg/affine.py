@@ -1,20 +1,74 @@
-"""The HSDE affine projector (the S1 set of the conic solve).
+"""Affine-subspace projectors (the S1 sets of the solvers).
 
-Projection onto ``{(u, v) : Q u = v}`` by warm-started CG on the SPD system
-``(I + Q'Q) u = u0 - Q v0`` with the decreasing-accuracy tolerance of
-FirstOrderSolvers.jl (affinepluslinear.jl:83-126, HSDEAffine.jl:105-126),
-tracking ``v = Q u`` through the CG recurrence.  The direct (QR) back end
-is not ported yet (ROADMAP, queue 1 "Direct mode").
+* :class:`HSDEAffineProjector`, the conic solve's S1: projection onto
+  ``{(u, v) : Q u = v}`` by warm-started CG on the SPD system
+  ``(I + Q'Q) u = u0 - Q v0`` with the decreasing-accuracy tolerance of
+  FirstOrderSolvers.jl (affinepluslinear.jl:83-126, HSDEAffine.jl:105-126),
+  tracking ``v = Q u`` through the CG recurrence.  Its direct (QR) back end
+  is not ported yet (ROADMAP, queue 1 "Direct mode").
+* :class:`AffinePlusLinearProjector`, an S1 set of the set-feasibility
+  solve: the prox of ``q'x + ind(Ax - beta z = b)``, by CG on ``I + AA'``
+  (indirect) or by a cached host QR (direct, :func:`_ls_projection_fac`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from fos_tpu_torch.config import eps_of
+from fos_tpu_torch.config import as_dtype, as_tensor, default_device, eps_of
 from fos_tpu_torch.linalg import hsde_ops
-from fos_tpu_torch.linalg.cg import (CGState, conjugate_gradient_tracked,
+from fos_tpu_torch.linalg.cg import (CGState, conjugate_gradient,
+                                     conjugate_gradient_tracked,
                                      decreasing_tolerance)
+
+
+def _ls_projection_fac(Mtop, *, eye_first, dtype=None, device=None):
+    """Cached least-squares map ``P = Q_f R^{-T}`` of ``QR([I; Mtop])``
+    (``eye_first=True``), ``QR([Mtop; I])`` (``eye_first=False``), or
+    ``QR(Mtop)`` with no identity stack (``eye_first=None``); ``Mtop`` may
+    carry a leading batch axis.
+
+    The reference pays one host QR at load time (HSDE.jl:15 via
+    ProximalOperators' ``IndAffine``); so does this: scipy's QR in f64 on
+    the host (representation error only), cast once to ``dtype`` (default:
+    ``Mtop``'s) and moved to ``device`` (default: ``Mtop``'s, the CPU for
+    numpy).  QR touches cond(M) once where a Cholesky of the normal matrix
+    would square it.  P is dense, (rows + k, k): direct mode is for problems
+    whose dense factor fits; a 32768x32768 sparse A runs indirect.
+    """
+    import scipy.linalg
+
+    if isinstance(Mtop, torch.Tensor):
+        dtype = dtype or Mtop.dtype
+        device = device or Mtop.device
+        Mh = Mtop.detach().cpu().numpy().astype(np.float64)
+    else:
+        Mh = np.asarray(Mtop, dtype=None)
+        dtype = dtype or as_dtype(Mh.dtype)
+        Mh = Mh.astype(np.float64)
+    batched = Mh.ndim == 3
+    if not batched:
+        Mh = Mh[None]
+    k = Mh.shape[-1]
+    eye = np.eye(k)
+    out = np.empty((Mh.shape[0], Mh.shape[1] + (0 if eye_first is None else k),
+                    k))
+    for i in range(Mh.shape[0]):
+        if eye_first is None:
+            M = Mh[i]
+        else:
+            M = np.zeros((Mh.shape[1] + k, k))
+            sl = slice(0, k) if eye_first else slice(Mh.shape[1], None)
+            np.fill_diagonal(M[sl], 1.0)
+            M[slice(k, None) if eye_first else slice(0, Mh.shape[1])] = Mh[i]
+        Qf, R = scipy.linalg.qr(M, mode="economic", check_finite=False,
+                                overwrite_a=eye_first is not None)
+        out[i] = Qf @ scipy.linalg.solve_triangular(R.T, eye, lower=True,
+                                                    check_finite=False)
+    if not batched:
+        out = out[0]
+    return torch.from_numpy(out).to(dtype=dtype, device=device)
 
 
 def _default_floor(size: int, dtype) -> float:
@@ -127,3 +181,129 @@ class HSDEAffineProjector:
                              call_idx=cg.call_idx + 1, last_iters=res.iters,
                              total_iters=total)
         return torch.cat([res.x, res.Qx]), new_cg
+
+
+def _matrix(A, device):
+    """A as the projector keeps it: an operator (``mv``/``rmv``) as it is,
+    array data as a tensor on ``device``."""
+    if hasattr(A, "mv") and hasattr(A, "rmv"):
+        return A
+    return as_tensor(A, device=device)
+
+
+def _dense(A):
+    if hasattr(A, "todense"):
+        A = A.todense()
+    if isinstance(A, torch.Tensor) and A.layout == torch.sparse_coo:
+        A = A.to_dense()
+    return A
+
+
+class AffinePlusLinearProjector:
+    """Prox of ``f([x; z]) = q'x + ind(Ax - beta*z = b)`` with ``beta = ±1``
+    (affinepluslinear.jl:58-126).
+
+    Solved through the m x m SPD system ``(I + AA') lam = A(x1 - q) -
+    beta*x2 - b``, then ``y1 = x1 - q - A'lam`` and ``y2 = x2 + beta*lam``.
+    Indirect mode runs warm-started CG on ``I + AA'`` (:func:`hsde_ops.
+    kkt_normal_mul`: one ``rmv`` and one ``mv`` per iteration, the tile
+    kernels K4/K5 on a tile operator built with ``transpose_table=True``),
+    to the absolute tolerance ``(m + n) eps`` (``decreasing_accuracy``
+    starts looser).  Direct mode applies a cached ``P`` of ``QR([A'; I])``.
+    """
+
+    #: the projection map is affine (offset from b and q)
+    projection_is_affine = True
+    projection_offset_free = False
+
+    #: CG iterations per host check of the stopping test; masked steps past
+    #: convergence change nothing, so iterates and counts are unroll=1's
+    CG_UNROLL = 2
+
+    def __init__(self, A, b, q, beta: int, fac=None, *, direct=False,
+                 decreasing_accuracy=False, cg_max_iters=1000):
+        if beta not in (1, -1):
+            raise ValueError(f"beta must be 1 or -1, got {beta}")
+        self.A = A
+        self.b = b
+        self.q = q
+        self.beta = beta
+        self.fac = fac  # (n+m, m) P = Q_f R^{-T} of QR([A'; I]) (direct mode)
+        self.direct = direct
+        self.decreasing_accuracy = decreasing_accuracy
+        self.cg_max_iters = cg_max_iters
+
+    @classmethod
+    def create(cls, A, b, q, beta, *, direct=False, decreasing_accuracy=False,
+               cg_max_iters=1000, device=None):
+        """``A``: an operator (a tile operator; it must live on ``device``)
+        or array data (a dense or torch sparse COO tensor, a numpy array);
+        ``b`` (m,); ``q`` (n,) or a scalar, broadcast to (n,).  The data keep their dtype and move to
+        ``device`` (default: the card).  ``direct`` factors ``[A'; I]`` on
+        the host (dense A only in practice)."""
+        device = default_device(device)
+        A = _matrix(A, device)
+        b = as_tensor(b, device=device)
+        n = A.shape[1]
+        q = (torch.full((n,), float(q), dtype=b.dtype, device=device)
+             if np.ndim(q) == 0 else as_tensor(q, b.dtype, device))
+        fac = None
+        if direct:
+            # lam = argmin ||[A'; I] lam - [x1-q; -(beta x2 + b)]||^2
+            fac = _ls_projection_fac(_dense(A).T, eye_first=False,
+                                     dtype=b.dtype, device=device)
+        return cls(A, b, q, beta, fac, direct=direct,
+                   decreasing_accuracy=decreasing_accuracy,
+                   cg_max_iters=cg_max_iters)
+
+    @property
+    def m(self) -> int:
+        return self.b.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.q.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.m + self.n
+
+    @property
+    def dtype(self):
+        return self.b.dtype
+
+    def init_cg_state(self, dtype) -> CGState:
+        return CGState.create(self.m, dtype, self.b.device)
+
+    init_state = init_cg_state  # set protocol
+
+    def project(self, x, cg: CGState):
+        n = self.n
+        x1 = x[:n]
+        x2 = x[n:]
+        if self.direct:
+            zls = torch.cat([x1 - self.q, -(self.beta * x2 + self.b)])
+            lam = torch.matmul(self.fac.T, zls)
+            new_cg = cg._replace(call_idx=cg.call_idx + 1,
+                                 last_iters=torch.zeros_like(cg.last_iters))
+        else:
+            rhs = hsde_ops.mv(self.A, x1 - self.q) - self.beta * x2 - self.b
+            warm = torch.where(cg.initialized, cg.warm, torch.zeros_like(rhs))
+            floor = (self.m + self.n) * eps_of(x.dtype)
+            if self.decreasing_accuracy:
+                tol = decreasing_tolerance(cg.call_idx, floor, x.dtype)
+            else:
+                tol = floor
+            res = conjugate_gradient(
+                lambda lam: hsde_ops.kkt_normal_mul(self.A, lam), rhs, warm,
+                tol=tol, max_iters=self.cg_max_iters, unroll=self.CG_UNROLL)
+            lam = res.x
+            total = (None if cg.total_iters is None
+                     else cg.total_iters + res.iters)
+            new_cg = cg._replace(warm=lam,
+                                 initialized=torch.ones_like(cg.initialized),
+                                 call_idx=cg.call_idx + 1,
+                                 last_iters=res.iters, total_iters=total)
+        y1 = x1 - self.q - hsde_ops.rmv(self.A, lam)
+        y2 = x2 + self.beta * lam
+        return torch.cat([y1, y2]), new_cg

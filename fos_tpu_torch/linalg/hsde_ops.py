@@ -11,6 +11,9 @@ pair and rank-1 ``b``/``c`` terms.  The affine projection solves the SPD
 system ``(I + Q'Q) u = u0 - Q v0`` and sets ``v = Q u`` (see
 :mod:`fos_tpu_torch.linalg.affine`).
 
+The set-feasibility solve's affine projection applies ``I + AA'``
+instead (:func:`kkt_normal_mul`), through single products.
+
 ``A`` is duck-typed: an operator with ``mv_pair`` (the hand-written pair
 kernels: :class:`~fos_tpu_torch.linalg.dense_pair.PaddedDenseOp`,
 :class:`~fos_tpu_torch.linalg.sparse_ell.BandedBlockOp`,
@@ -92,3 +95,10 @@ def q_dense(A, b, c):
 def hsde_normal_mul(A, b, c, u):
     """(I + Q'Q) u = u - Q(Q u), using the skew-symmetry of Q."""
     return u - q_mul(A, b, c, q_mul(A, b, c, u))
+
+
+def kkt_normal_mul(A, lam):
+    """(I + A A') lam: the SPD reduction of the ``[I A'; A -I]`` KKT
+    operator (affinepluslinear.jl:4-52), as ``mv(A, rmv(A, lam))`` -- on a
+    tile operator the single-product kernels K4/K5, not the pair."""
+    return lam + mv(A, rmv(A, lam))

@@ -1,25 +1,32 @@
-"""Sparse A as a table of dense 128x128 tiles, with fused pair kernels.
+"""Sparse A as a table of dense 128x128 tiles, with hand-written kernels.
 
 A sparse A is cut into (bm, bn) = (128, 128) tiles and only the tiles that
 hold nonzeros are stored, in one of two layouts:
 
 * :class:`BandedBlockOp`: row block r stores the contiguous window of tile
   columns ``[cs[r], cs[r] + S)``, so A x reads one contiguous slice of x;
-* :class:`BlockedEllOp`: row block r stores up to ``kmax`` tiles with their
+* :class:`BlockedEllOp`: row block r stores ``counts[r]`` tiles with their
   block columns in ``cols[r]``; padding slots alias column 0 and hold zeros.
 
-``mv_pair`` computes ``(A @ x, A' @ z)`` from ONE read of the tile table,
-which is all the HSDE solve needs (the A' table is never packed).  On a
-CUDA tensor it launches the hand-written kernels K2
-(:func:`band_mv_pair`, the port of ``fos_tpu.linalg.sparse_ell.
-_band_mv_pair``) and K3 (:func:`bell_mv_pair`, of ``_bell_mv_pair``); on a
-CPU tensor the plain PyTorch versions beside them.  The kernels sum the
-transposed products of each column block in a fixed order, listed by an
-inverse table that ``create``/``from_arrays`` build once on the host.
+Two kinds of product run over a table, each a hand-written CUDA kernel on a
+CUDA tensor and its plain PyTorch version on a CPU tensor:
+
+* ``mv_pair`` computes ``(A @ x, A' @ z)`` from ONE read of the A table,
+  which is all the HSDE solve needs: K2 (:func:`band_mv_pair`, the port of
+  ``fos_tpu.linalg.sparse_ell._band_mv_pair``) and K3
+  (:func:`bell_mv_pair`, of ``_bell_mv_pair``).  They sum the transposed
+  products of each column block in a fixed order, listed by an inverse
+  table that ``from_arrays`` builds once on the host.
+* ``mv`` and ``rmv`` compute one product each, ``A @ x`` over the A table
+  and ``A' @ y`` over the A' table (packed only with
+  ``transpose_table=True``), as the set-feasibility solve's affine
+  projection needs them: K4 (:func:`band_mv`, of ``_band_mv``) and K5
+  (:func:`bell_mv`, of ``_bell_mv``).
 
 The host builders are numpy and produce tables bit-identical to the JAX
-package's.  Standalone ``mv``/``rmv`` need the single-product kernels K4
-and K5, which are not ported yet.
+package's builders; ``from_arrays(..., transpose_table=True)`` packs the A'
+table from the A table's tiles, bit-identical to what ``create`` packs from
+the same matrix.
 """
 
 from __future__ import annotations
@@ -29,10 +36,8 @@ import math
 import numpy as np
 import torch
 
+from fos_tpu_torch.config import default_device
 from fos_tpu_torch.linalg import _cuda
-
-_K45 = ("standalone mv/rmv need kernels K4/K5 (_band_mv, _bell_mv), not "
-        "ported yet: ROADMAP queue 2; use mv_pair")
 
 
 # ------------------------------------------------------------ host builders
@@ -154,6 +159,50 @@ def inverse_table(col_of_slot, valid, ncb_out):
     return ptr.astype(np.int32), slots[order].astype(np.int32)
 
 
+def _transposed_tiles(blocks, col_of_slot, valid, nrb):
+    """The A' tiles of a tile table: (tj, ti, tiles) with one entry per
+    tile position (ti, tj) of A that holds a nonzero, ordered by (tj, ti),
+    each tile transposed (duplicate positions summed)."""
+    blocks = np.asarray(blocks)
+    col = np.asarray(col_of_slot, np.int64)
+    occ = np.asarray(valid, bool) & (blocks != 0).any(axis=(2, 3))
+    ti, k = np.nonzero(occ)
+    key, inv = np.unique(col[ti, k] * nrb + ti, return_inverse=True)
+    tiles = np.zeros((key.size,) + blocks.shape[2:][::-1], blocks.dtype)
+    np.add.at(tiles, inv, blocks[ti, k].transpose(0, 2, 1))
+    return key // nrb, key % nrb, tiles
+
+
+def _band_from_tiles(tj, ti, tiles, nrb_t):
+    """Banded A' table (blocks_t, cs_t) from :func:`_transposed_tiles`,
+    laid out as ``_build_band_arrays`` lays out the transposed COO."""
+    lo = np.full(nrb_t, np.iinfo(np.int64).max, np.int64)
+    hi = np.full(nrb_t, -1, np.int64)
+    np.minimum.at(lo, tj, ti)
+    np.maximum.at(hi, tj, ti)
+    lo = np.where(hi >= 0, lo, 0)
+    S = max(int((hi - lo + 1).max()) if tj.size else 1, 1)
+    blocks = np.zeros((nrb_t, S) + tiles.shape[1:], tiles.dtype)
+    blocks[tj, ti - lo[tj]] = tiles
+    return blocks, lo.astype(np.int32)
+
+
+def _ell_from_tiles(tj, ti, tiles, nrb_t):
+    """Blocked-ELL A' table (blocks_t, cols_t, counts_t) from
+    :func:`_transposed_tiles`, laid out as ``_build_ell_arrays`` lays out
+    the transposed COO."""
+    counts = np.bincount(tj, minlength=nrb_t)
+    kmax = _ell_kmax(int(counts.max()) if counts.size else 0)
+    row_start = np.zeros(nrb_t + 1, np.int64)
+    np.cumsum(counts, out=row_start[1:])
+    slot = np.arange(tj.size) - row_start[tj]
+    blocks = np.zeros((nrb_t, kmax) + tiles.shape[1:], tiles.dtype)
+    cols = np.zeros((nrb_t, kmax), np.int32)
+    blocks[tj, slot] = tiles
+    cols[tj, slot] = ti
+    return blocks, cols, counts
+
+
 # --------------------------------------------------------------- K2 and K3
 def band_mv_pair_plain(cs, blocks, xb, zb):
     """Plain PyTorch K2: cs (nrb,); blocks (nrb, S, bm, bn); xb (ncb+S, bn);
@@ -268,6 +317,77 @@ def bell_mv_pair(cols, blocks, xb, zb, counts=None, inverse=None):
     return y1, y2
 
 
+# --------------------------------------------------------------- K4 and K5
+def band_mv_plain(cs, blocks, xb):
+    """Plain PyTorch K4: cs (nrb,); blocks (nrb, S, bm, bn); xb (rows, bn)
+    with every window [cs[r], cs[r] + S) inside it -> y (nrb, bm) = A x."""
+    S = blocks.shape[1]
+    win = cs.long()[:, None] + torch.arange(S, device=cs.device)
+    return torch.matmul(blocks, xb[win].unsqueeze(-1)).squeeze(-1).sum(1)
+
+
+def bell_mv_plain(cols, blocks, xb):
+    """Plain PyTorch K5: cols (nrb, kmax); blocks (nrb, kmax, bm, bn);
+    xb (ncb, bn) -> y (nrb, bm).  Padding slots hold zero tiles, so every
+    slot is summed."""
+    return torch.matmul(blocks, xb[cols.long()].unsqueeze(-1)).squeeze(-1).sum(1)
+
+
+def _mv_launch_checks(name, blocks, xb, **tables):
+    dev = blocks.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    _cuda.require_cuda_f32(name, dev, blocks=blocks, xb=xb, **tables)
+    _cuda.require_aligned(name, blocks=blocks, xb=xb)
+    side = _cuda.TILE
+    if blocks.dim() != 4 or tuple(blocks.shape[2:]) != (side, side):
+        raise ValueError(f"{name}: tiles must be {side}x{side}, got "
+                         f"{tuple(blocks.shape)}")
+    if xb.dim() != 2 or xb.shape[1] != side:
+        raise ValueError(f"{name}: xb {tuple(xb.shape)} is not (rows, {side})")
+    if blocks.shape[0] == 0:
+        raise ValueError(f"{name}: empty tile table")
+    return dev
+
+
+def band_mv(cs, blocks, xb):
+    """K4: ``y = A x`` over a banded tile table.  ``cs`` must keep every
+    window inside ``xb`` (the operators check it when they are built); the
+    kernel reads each stored tile once."""
+    if _on_cpu(cs, blocks, xb):
+        return band_mv_plain(cs, blocks, xb)
+    dev = _mv_launch_checks("band_mv", blocks, xb, cs=cs)
+    nrb, S = blocks.shape[:2]
+    if tuple(cs.shape) != (nrb,) or xb.shape[0] < S:
+        raise ValueError("band_mv: cs / xb do not fit the table")
+    y = torch.empty((nrb, _cuda.TILE), dtype=torch.float32, device=dev)
+    rc = _cuda.library().fos_band_mv(blocks.data_ptr(), cs.data_ptr(), nrb, S,
+                                     xb.data_ptr(), y.data_ptr(),
+                                     _cuda.stream_ptr(dev))
+    _cuda.check(rc, "band_mv")
+    _cuda.LAUNCHES["band_mv"] += 1
+    return y
+
+
+def bell_mv(cols, blocks, xb, counts):
+    """K5: ``y = A x`` over a blocked-ELL tile table; on the card only the
+    ``counts[r]`` stored slots of each row block are read."""
+    if _on_cpu(cols, blocks, xb, counts):
+        return bell_mv_plain(cols, blocks, xb)
+    dev = _mv_launch_checks("bell_mv", blocks, xb, cols=cols, counts=counts)
+    nrb, kmax = blocks.shape[:2]
+    if tuple(cols.shape) != (nrb, kmax) or tuple(counts.shape) != (nrb,):
+        raise ValueError("bell_mv: cols / counts do not fit the table")
+    y = torch.empty((nrb, _cuda.TILE), dtype=torch.float32, device=dev)
+    rc = _cuda.library().fos_bell_mv(blocks.data_ptr(), cols.data_ptr(),
+                                     counts.data_ptr(), nrb, kmax,
+                                     xb.data_ptr(), y.data_ptr(),
+                                     _cuda.stream_ptr(dev))
+    _cuda.check(rc, "bell_mv")
+    _cuda.LAUNCHES["bell_mv"] += 1
+    return y
+
+
 # ---------------------------------------------------------------- operators
 def _tensor(a, dtype, device):
     if isinstance(a, torch.Tensor):
@@ -275,16 +395,22 @@ def _tensor(a, dtype, device):
     return torch.from_numpy(np.array(a)).to(dtype=dtype, device=device)
 
 
-def _reject_transpose_table(transpose_table):
-    if transpose_table:
-        raise NotImplementedError(
-            "transpose_table=True serves standalone rmv, which needs kernel "
-            "K4/K5: not ported yet (ROADMAP queue 2)")
+def _host(a, dtype=np.int64):
+    """A numpy copy of an array or tensor (tensors come to the host)."""
+    return (a.cpu().numpy() if isinstance(a, torch.Tensor)
+            else np.asarray(a)).astype(dtype, copy=False)
+
+
+def _check_index(name, idx, shape, hi, inclusive=False):
+    if idx.shape != shape:
+        raise ValueError(f"{name} has shape {idx.shape}, expected {shape}")
+    if idx.size and not (0 <= idx.min() and (idx.max() <= hi if inclusive
+                                              else idx.max() < hi)):
+        raise ValueError(f"{name} indexes tiles outside the table")
 
 
 class _TileOp:
-    """What the two layouts share: shape, padding of x and z, and the
-    standalone products that are not ported."""
+    """What the two layouts share: shape, device, padding of vectors."""
 
     bm = bn = 128
 
@@ -301,7 +427,8 @@ class _TileOp:
         return self.blocks.device
 
     def _ncb(self) -> int:
-        """Column-block count: the _pad8 formula of the table builder."""
+        """Column-block count: the _pad8 formula of the table builder (also
+        the A' table's row count)."""
         return _pad8(math.ceil(self.n / self.bn))
 
     def _pad(self, v, nblocks, width):
@@ -309,60 +436,109 @@ class _TileOp:
         out[: v.shape[0]] = v
         return out.reshape(nblocks, width)
 
-    def mv(self, x):
-        raise NotImplementedError(_K45)
+    def _no_transpose_table(self):
+        name = type(self).__name__
+        return TypeError(
+            f"this {name} was built with transpose_table=False (no A' tile "
+            f"table): use mv_pair for A'z, or rebuild with {name}.create(A, "
+            "transpose_table=True) for standalone rmv")
 
-    def rmv(self, y):
-        raise NotImplementedError(_K45)
+    def _transposed(self, blocks, col_of_slot, valid):
+        """A' tiles of the A table given on the host (see
+        :func:`_transposed_tiles`), checked to stay inside the A' table."""
+        nrb = blocks.shape[0]
+        tj, ti, tiles = _transposed_tiles(_host(blocks, np.float32),
+                                          col_of_slot, valid, nrb)
+        if tj.size and tj.max() >= self._ncb():
+            raise ValueError("the A table holds nonzero tiles past column n")
+        return tj, ti, tiles
 
 
 class BandedBlockOp(_TileOp):
-    """Banded tile table: row block r holds tile columns [cs[r], cs[r]+S)."""
+    """Banded tile table: row block r holds tile columns [cs[r], cs[r]+S).
+    The optional A' table (``blocks_t``, ``cs_t``) is packed the same way
+    from A' and serves :meth:`rmv`."""
 
-    def __init__(self, blocks, cs, m, n, inv_ptr, inv_idx):
+    def __init__(self, blocks, cs, m, n, inv_ptr, inv_idx, blocks_t=None,
+                 cs_t=None):
         self.blocks = blocks        # (nrb, S, bm, bn) f32
         self.cs = cs                # (nrb,) int32 first tile column
         self.m = m
         self.n = n
         self.inv_ptr = inv_ptr      # (ncb + S + 1,) int32
         self.inv_idx = inv_idx      # (nrb * S,) int32
+        self.blocks_t = blocks_t    # (ncb, S_t, bn, bm) f32 or None
+        self.cs_t = cs_t            # (ncb,) int32 or None
 
     @classmethod
     def create(cls, A, *, transpose_table=False, device=None):
-        """Pack a scipy.sparse matrix (the A' table is never packed: the
-        pair computes A'z from the A table)."""
-        _reject_transpose_table(transpose_table)
+        """Pack a scipy.sparse matrix.  ``transpose_table=True`` also packs
+        the A' table for :meth:`rmv`; the HSDE solve never needs it (the
+        pair computes A'z from the A table), so it is off by default."""
         rows, cols, vals, m, n = _coo_parts(A)
-        blocks, cs, _ = _build_band_arrays(m, n, rows, cols,
-                                           vals.astype(np.float32),
-                                           cls.bm, cls.bn)
-        return cls.from_arrays(blocks, cs, m, n, device=device)
+        vals = vals.astype(np.float32)
+        blocks, cs, _ = _build_band_arrays(m, n, rows, cols, vals, cls.bm,
+                                           cls.bn)
+        blocks_t = cs_t = None
+        if transpose_table:
+            blocks_t, cs_t, _ = _build_band_arrays(n, m, cols, rows, vals,
+                                                   cls.bn, cls.bm)
+        return cls.from_arrays(blocks, cs, m, n, blocks_t=blocks_t, cs_t=cs_t,
+                               device=device)
 
     @classmethod
-    def from_arrays(cls, blocks, cs, m, n, *, device=None):
+    def from_arrays(cls, blocks, cs, m, n, *, transpose_table=False,
+                    blocks_t=None, cs_t=None, device=None):
         """Wrap a tile table (numpy or tensors): blocks (nrb, S, 128, 128),
-        cs (nrb,); the inverse table is built here, on the host."""
+        cs (nrb,), moved to ``device`` (default: the card).  The A' table is
+        ``blocks_t``/``cs_t`` when given, else with ``transpose_table=True``
+        it is packed here, on the host, from the A table's nonzero tiles.
+        The inverse table of the pair kernel is built here too."""
+        device = default_device(device)
         nrb, S = blocks.shape[:2]
         ncb = _pad8(math.ceil(n / cls.bn))
-        cs_h = (cs.cpu().numpy() if isinstance(cs, torch.Tensor)
-                else np.asarray(cs)).astype(np.int64)
-        if tuple(blocks.shape[2:]) != (cls.bm, cls.bn) or cs_h.shape != (nrb,):
-            raise ValueError(f"tables {tuple(blocks.shape)} / {cs_h.shape}")
-        if nrb * cls.bm < m or (cs_h.size and not (0 <= cs_h.min()
-                                                   and cs_h.max() <= ncb)):
-            raise ValueError("banded tables do not cover A / windows leave x")
-        ptr, idx = inverse_table(cs_h[:, None] + np.arange(S),
-                                 np.ones((nrb, S), bool), ncb + S)
-        device = device if device is not None else (
-            blocks.device if isinstance(blocks, torch.Tensor) else "cpu")
-        return cls(_tensor(blocks, torch.float32, device),
+        cs_h = _host(cs)
+        if tuple(blocks.shape[2:]) != (cls.bm, cls.bn) or nrb * cls.bm < m:
+            raise ValueError(f"tile table {tuple(blocks.shape)} does not "
+                             f"cover a {m}x{n} matrix")
+        _check_index("cs", cs_h, (nrb,), ncb, inclusive=True)
+        win = cs_h[:, None] + np.arange(S)
+        ptr, idx = inverse_table(win, np.ones((nrb, S), bool), ncb + S)
+        self = cls(_tensor(blocks, torch.float32, device),
                    _tensor(cs_h, torch.int32, device), m, n,
                    _tensor(ptr, torch.int32, device),
                    _tensor(idx, torch.int32, device))
+        if blocks_t is None and transpose_table:
+            blocks_t, cs_t = _band_from_tiles(
+                *self._transposed(blocks, win, np.ones((nrb, S), bool)), ncb)
+        if blocks_t is not None:
+            cs_t_h = _host(cs_t)
+            if tuple(blocks_t.shape[::2]) != (ncb, cls.bn) or \
+                    blocks_t.shape[3] != cls.bm:
+                raise ValueError(f"A' table {tuple(blocks_t.shape)} does not "
+                                 f"cover a {n}x{m} matrix")
+            _check_index("cs_t", cs_t_h, (ncb,), nrb, inclusive=True)
+            self.blocks_t = _tensor(blocks_t, torch.float32, device)
+            self.cs_t = _tensor(cs_t_h, torch.int32, device)
+        return self
+
+    def mv(self, x):
+        """A @ x over the A table (K4).  x carries S zero blocks at its end
+        so that every window stays in range."""
+        S = self.blocks.shape[1]
+        xb = self._pad(x, self._ncb() + S, self.bn)
+        return band_mv(self.cs, self.blocks, xb).reshape(-1)[: self.m]
+
+    def rmv(self, y):
+        """A' @ y over the A' table (K4)."""
+        if self.blocks_t is None:
+            raise self._no_transpose_table()
+        nrb, S_t = self.blocks.shape[0], self.blocks_t.shape[1]
+        yb = self._pad(y, nrb + S_t, self.bm)
+        return band_mv(self.cs_t, self.blocks_t, yb).reshape(-1)[: self.n]
 
     def mv_pair(self, x, z):
-        """(A @ x, A' @ z) from one read of the tile table (K2).  x carries
-        S zero blocks at its end so that every window stays in range."""
+        """(A @ x, A' @ z) from one read of the A table (K2)."""
         nrb, S = self.blocks.shape[:2]
         xb = self._pad(x, self._ncb() + S, self.bn)
         zb = self._pad(z, nrb, self.bm)
@@ -384,9 +560,11 @@ class BandedBlockOp(_TileOp):
 class BlockedEllOp(_TileOp):
     """Blocked-ELL tile table: row block r holds ``counts[r]`` tiles at tile
     columns ``cols[r, :counts[r]]``; the remaining slots are zero padding
-    aliasing column 0."""
+    aliasing column 0.  The optional A' table (``blocks_t``, ``cols_t``,
+    ``counts_t``) is packed the same way from A' and serves :meth:`rmv`."""
 
-    def __init__(self, blocks, cols, counts, m, n, inv_ptr, inv_idx):
+    def __init__(self, blocks, cols, counts, m, n, inv_ptr, inv_idx,
+                 blocks_t=None, cols_t=None, counts_t=None):
         self.blocks = blocks        # (nrb, kmax, bm, bn) f32
         self.cols = cols            # (nrb, kmax) int32
         self.counts = counts        # (nrb,) int32 stored tiles per row block
@@ -394,48 +572,88 @@ class BlockedEllOp(_TileOp):
         self.n = n
         self.inv_ptr = inv_ptr      # (ncb + 1,) int32
         self.inv_idx = inv_idx      # (stored tiles,) int32
+        self.blocks_t = blocks_t    # (ncb, kmax_t, bn, bm) f32 or None
+        self.cols_t = cols_t        # (ncb, kmax_t) int32 or None
+        self.counts_t = counts_t    # (ncb,) int32 or None
 
     @classmethod
     def create(cls, A, *, transpose_table=False, device=None):
-        """Pack a scipy.sparse matrix (A table only, as for BandedBlockOp)."""
-        _reject_transpose_table(transpose_table)
+        """Pack a scipy.sparse matrix (the A' table only with
+        ``transpose_table=True``, as for :class:`BandedBlockOp`)."""
         rows, cols, vals, m, n = _coo_parts(A)
-        blocks, cols_tab, counts = _build_ell_arrays(
-            m, n, rows, cols, vals.astype(np.float32), cls.bm, cls.bn)
+        vals = vals.astype(np.float32)
+        blocks, cols_tab, counts = _build_ell_arrays(m, n, rows, cols, vals,
+                                                     cls.bm, cls.bn)
+        blocks_t = cols_t = counts_t = None
+        if transpose_table:
+            blocks_t, cols_t, counts_t = _build_ell_arrays(
+                n, m, cols, rows, vals, cls.bn, cls.bm)
         return cls.from_arrays(blocks, cols_tab, m, n, counts=counts,
-                               device=device)
+                               blocks_t=blocks_t, cols_t=cols_t,
+                               counts_t=counts_t, device=device)
 
     @classmethod
-    def from_arrays(cls, blocks, cols, m, n, *, counts=None, device=None):
+    def from_arrays(cls, blocks, cols, m, n, *, counts=None,
+                    transpose_table=False, blocks_t=None, cols_t=None,
+                    counts_t=None, device=None):
         """Wrap a tile table (numpy or tensors): blocks (nrb, kmax, 128,
         128), cols (nrb, kmax), and optionally counts (nrb,) — without it
         every slot is treated as stored (padding tiles are zeros, so the
-        result is the same)."""
+        result is the same) — moved to ``device`` (default: the card).  The
+        A' table is ``blocks_t``/``cols_t``/``counts_t`` when given, else
+        with ``transpose_table=True`` it is packed here, on the host, from
+        the A table's nonzero tiles."""
+        device = default_device(device)
         nrb, kmax = blocks.shape[:2]
         ncb = _pad8(math.ceil(n / cls.bn))
-        host = lambda a: (a.cpu().numpy() if isinstance(a, torch.Tensor)  # noqa: E731
-                          else np.asarray(a)).astype(np.int64)
-        cols_h = host(cols)
+        cols_h = _host(cols)
         counts_h = (np.full(nrb, kmax, np.int64) if counts is None
-                    else host(counts))
-        if (tuple(blocks.shape[2:]) != (cls.bm, cls.bn)
-                or cols_h.shape != (nrb, kmax) or counts_h.shape != (nrb,)):
-            raise ValueError(f"tables {tuple(blocks.shape)} / {cols_h.shape}")
-        if nrb * cls.bm < m or (cols_h.size and not (
-                0 <= cols_h.min() and cols_h.max() < ncb)) or (
-                counts_h.size and not (0 <= counts_h.min()
-                                       and counts_h.max() <= kmax)):
-            raise ValueError("ELL tables do not cover A / columns leave x")
+                    else _host(counts))
+        if tuple(blocks.shape[2:]) != (cls.bm, cls.bn) or nrb * cls.bm < m:
+            raise ValueError(f"tile table {tuple(blocks.shape)} does not "
+                             f"cover a {m}x{n} matrix")
+        _check_index("cols", cols_h, (nrb, kmax), ncb)
+        _check_index("counts", counts_h, (nrb,), kmax, inclusive=True)
         valid = np.arange(kmax)[None, :] < counts_h[:, None]
         ptr, idx = inverse_table(cols_h, valid, ncb)
-        device = device if device is not None else (
-            blocks.device if isinstance(blocks, torch.Tensor) else "cpu")
         t = lambda a: _tensor(a, torch.int32, device)  # noqa: E731
-        return cls(_tensor(blocks, torch.float32, device), t(cols_h),
+        self = cls(_tensor(blocks, torch.float32, device), t(cols_h),
                    t(counts_h), m, n, t(ptr), t(idx))
+        if blocks_t is None and transpose_table:
+            blocks_t, cols_t, counts_t = _ell_from_tiles(
+                *self._transposed(blocks, cols_h, valid), ncb)
+        if blocks_t is not None:
+            kmax_t = blocks_t.shape[1]
+            cols_t_h = _host(cols_t)
+            counts_t_h = (np.full(ncb, kmax_t, np.int64) if counts_t is None
+                          else _host(counts_t))
+            if tuple(blocks_t.shape[::2]) != (ncb, cls.bn) or \
+                    blocks_t.shape[3] != cls.bm:
+                raise ValueError(f"A' table {tuple(blocks_t.shape)} does not "
+                                 f"cover a {n}x{m} matrix")
+            _check_index("cols_t", cols_t_h, (ncb, kmax_t), nrb)
+            _check_index("counts_t", counts_t_h, (ncb,), kmax_t,
+                         inclusive=True)
+            self.blocks_t = _tensor(blocks_t, torch.float32, device)
+            self.cols_t, self.counts_t = t(cols_t_h), t(counts_t_h)
+        return self
+
+    def mv(self, x):
+        """A @ x over the A table (K5)."""
+        xb = self._pad(x, self._ncb(), self.bn)
+        return bell_mv(self.cols, self.blocks, xb,
+                       self.counts).reshape(-1)[: self.m]
+
+    def rmv(self, y):
+        """A' @ y over the A' table (K5)."""
+        if self.blocks_t is None:
+            raise self._no_transpose_table()
+        yb = self._pad(y, self.blocks.shape[0], self.bm)
+        return bell_mv(self.cols_t, self.blocks_t, yb,
+                       self.counts_t).reshape(-1)[: self.n]
 
     def mv_pair(self, x, z):
-        """(A @ x, A' @ z) from one read of the tile table (K3)."""
+        """(A @ x, A' @ z) from one read of the A table (K3)."""
         nrb = self.blocks.shape[0]
         xb = self._pad(x, self._ncb(), self.bn)
         zb = self._pad(z, nrb, self.bm)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from fos_tpu_torch.cones.spec import ConeSpec
+from fos_tpu_torch.config import as_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,19 +48,6 @@ class ConicProblem:
 
 def _is_operator(A) -> bool:
     return hasattr(A, "mv_pair")
-
-
-def as_tensor(v, dtype=None, device=None) -> torch.Tensor:
-    """numpy / list / tensor -> tensor, keeping the input's float dtype
-    unless ``dtype`` is given."""
-    if isinstance(v, torch.Tensor):
-        return v.to(device=device if device is not None else v.device,
-                    dtype=dtype if dtype is not None else v.dtype)
-    arr = np.asarray(v)
-    if not np.issubdtype(arr.dtype, np.floating):
-        arr = arr.astype(np.float64)
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
 def conic_problem(A, b, c, K1: ConeSpec, K2: ConeSpec, *, device=None,

@@ -355,9 +355,12 @@ class HSDEForm:
                                  chk.kappa / chk.tau, t_s,
                                  cgiter=self._cgiter(st))
 
-    def record(self, hist, st, chk: HSDECheck, i: int, t_s: float, debug: int):
+    def record(self, hist, st, chk: HSDECheck, i: int, t_s: float, debug: int,
+               extra=None):
         """History rows (HSDEStatus.jl:125-139): p,d,g,ctx,bty,kappa,tau,t;
-        debug>1 also x,y,s.  ``chk`` holds host values."""
+        debug>1 also x,y,s.  ``chk`` holds host values.  ``extra`` is
+        ignored: the reference's HSDE logextra is a no-op
+        (HSDEStatus.jl:18-20)."""
         if hist is None or debug <= 0:
             return
         for key in ("p", "d", "g", "ctx", "bty", "kappa", "tau"):

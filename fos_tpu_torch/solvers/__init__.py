@@ -3,7 +3,11 @@ from fos_tpu_torch.solvers.base import (  # noqa: F401
     Algorithm,
     ConeSet,
     DR,
+    Dykstra,
+    FISTA,
     GAP,
+    GAPA,
+    GAPP,
     SolverState,
     TwoSets,
     init_solver_state,

@@ -7,9 +7,11 @@ sets S1 and S2: an object with ``init_state(dtype)`` (or
 post-S2-projection point of each step is kept as ``z_check``, the point the
 convergence check runs on (FirstOrderSolvers.jl src/solvers/gap.jl:53-59).
 
-Ported so far: GAP and its two named cases DR = GAP(0.5, 2, 2) and
-AP = GAP(1, 1, 1).  GAPA, GAPP, FISTA, Dykstra and the wrappers' plane
-capture are ROADMAP queue 1, "The other algorithms".
+Ported: GAP and its two named cases DR = GAP(0.5, 2, 2) and AP =
+GAP(1, 1, 1), GAPA, GAPP, FISTA and Dykstra.  ``step(sets, st, i)`` gets
+``i``, the host's count of the steps already taken (``st.i`` without a
+device read); only GAPP branches on it.  The wrappers' plane capture
+(``step_capture``) waits for the wrappers (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -83,8 +85,15 @@ class Algorithm:
     def coeffs(self, aux) -> Tuple[Any, Any]:
         raise NotImplementedError
 
-    def step(self, sets: TwoSets, st: SolverState) -> SolverState:
+    def step(self, sets: TwoSets, st: SolverState, i: int = None) -> SolverState:
         raise NotImplementedError
+
+    def step_logged(self, sets: TwoSets, st: SolverState, i: int = None):
+        """Step plus the ``logextra`` snapshots: the (x, P_S1 x, relaxed)
+        triple the reference records at check iterations of feasibility
+        problems (FeasibilityStatus.jl:19-25; only GAP's and GAPA's S1!
+        record it, gap.jl:44-49, gapa.jl:63-68).  Others return None."""
+        return self.step(sets, st, i), None
 
     def getsol(self, sets: TwoSets, st: SolverState):
         """Final solution guess ``P_S2(P_S1(x))`` (gap.jl:82-87)."""
@@ -93,8 +102,16 @@ class Algorithm:
         return y2, st._replace(s1_state=s1_state, s2_state=s2_state)
 
 
-def _gap_like_step(alg, sets, st):
-    """The shared two-relaxed-projections step (gap.jl:61-80)."""
+def _advance(st, x, z, s1_state, s2_state, **aux):
+    """The state after one step: ``z`` is the step's post-S2 point."""
+    return st._replace(x=x, i=st.i + 1, z_check=z, z_check_prev=st.z_check,
+                       s1_state=s1_state, s2_state=s2_state, **aux)
+
+
+def _gap_like_step(alg, sets, st, snap=False):
+    """The shared two-relaxed-projections step (gap.jl:61-80); returns the
+    new state, the two relaxed points and, with ``snap``, the S1-stage
+    snapshots."""
     alpha = alg.alpha
     a1, a2 = alg.coeffs(st.aux)
     y1, s1_state = sets.s1.project(st.x, st.s1_state)
@@ -102,14 +119,8 @@ def _gap_like_step(alg, sets, st):
     z, s2_state = sets.s2.project(tmp1, st.s2_state)
     tmp2 = a2 * z + (1.0 - a2) * tmp1
     x_new = alpha * tmp2 + (1.0 - alpha) * st.x
-    return st._replace(
-        x=x_new,
-        i=st.i + 1,
-        z_check=z,
-        z_check_prev=st.z_check,
-        s1_state=s1_state,
-        s2_state=s2_state,
-    )
+    snaps = torch.stack([st.x, y1, tmp1]) if snap else None
+    return _advance(st, x_new, z, s1_state, s2_state), tmp1, tmp2, snaps
 
 
 @dataclass(frozen=True)
@@ -128,8 +139,12 @@ class GAP(Algorithm):
     def coeffs(self, aux):
         return self.alpha1, self.alpha2
 
-    def step(self, sets, st):
-        return _gap_like_step(self, sets, st)
+    def step(self, sets, st, i=None):
+        return _gap_like_step(self, sets, st)[0]
+
+    def step_logged(self, sets, st, i=None):
+        st, _, _, snaps = _gap_like_step(self, sets, st, snap=True)
+        return st, snaps
 
 
 def DR(alpha: float = 0.5, *, direct: bool = False, **kwargs) -> GAP:
@@ -140,3 +155,140 @@ def DR(alpha: float = 0.5, *, direct: bool = False, **kwargs) -> GAP:
 def AP(alpha: float = 1.0, *, direct: bool = False, **kwargs) -> GAP:
     """Alternating Projections = GAP(alpha, 1, 1) (solvers.jl:11)."""
     return GAP(alpha, 1.0, 1.0, direct, tuple(kwargs.items()))
+
+
+@dataclass(frozen=True)
+class GAPA(Algorithm):
+    """Adaptive GAP (gapa.jl): alpha1 = alpha2 = a12, carried in ``aux`` and
+    adapted from an estimate of the Friedrichs angle between the sets
+    (gapa.jl:80-105): ``scl = |<tmp2-tmp1, tmp1-x>| / (||tmp2-tmp1||
+    ||tmp1-x||)`` (NaN -> 0, then clamped to [0, 1]),
+    ``aopt = 2/(1+sqrt(1-scl^2))``, ``a12 = (1-beta) aopt + 2 beta``.
+    """
+
+    alpha: float = 1.0
+    beta: float = 0.0
+    direct: bool = False
+    options: Tuple[Tuple[str, Any], ...] = ()
+
+    def init_aux(self, x0):
+        return torch.tensor(2.0, dtype=x0.dtype, device=x0.device)
+
+    def coeffs(self, aux):
+        return aux, aux
+
+    def step(self, sets, st, i=None):
+        return self._step(sets, st)[0]
+
+    def step_logged(self, sets, st, i=None):
+        return self._step(sets, st, snap=True)
+
+    def _step(self, sets, st, snap=False):
+        st2, tmp1, tmp2, snaps = _gap_like_step(self, sets, st, snap=snap)
+        d1 = tmp2 - tmp1
+        d2 = tmp1 - st.x
+        num = torch.abs(torch.dot(d1, d2))
+        den = torch.sqrt(torch.dot(d1, d1) * torch.dot(d2, d2))
+        scl = num / den
+        # 0/0 when the step stands still: NaN -> 0 first, then the clip
+        scl = torch.where(torch.isnan(scl), 0.0, torch.clamp(scl, 0.0, 1.0))
+        aopt = 2.0 / (1.0 + torch.sqrt(1.0 - scl ** 2))
+        a12 = (1.0 - self.beta) * aopt + 2.0 * self.beta
+        return st2._replace(aux=a12.to(st.x.dtype)), snaps
+
+
+@dataclass(frozen=True)
+class GAPP(Algorithm):
+    """Projected GAP (Fält & Giselsson 2016; gapproj.jl).
+
+    Every ``iproj``-th step computes the residual direction ``res =
+    P_S1(P_S2(P_S1 x)) - P_S1(x)`` and steps to ``tmp1 + a* res``, ``a*``
+    minimising the S2 fixed-point residual over ``a = 2^k, k = 0..20`` (one
+    batched S2 projection); the other steps are GAP's.  Which step is which
+    follows the host's iteration count, so the choice costs no device read.
+    """
+
+    alpha: float = 0.8
+    alpha1: float = 1.8
+    alpha2: float = 1.8
+    iproj: int = 100
+    direct: bool = True
+    options: Tuple[Tuple[str, Any], ...] = ()
+
+    def coeffs(self, aux):
+        return self.alpha1, self.alpha2
+
+    def step(self, sets, st, i=None):
+        if i is None:
+            i = int(st.i)
+        if (i + 1) % self.iproj != 0:
+            return _gap_like_step(self, sets, st)[0]
+        a2 = self.alpha2
+        tmp1, s1_state = sets.s1.project(st.x, st.s1_state)
+        tmp2, s2_state = sets.s2.project(tmp1, st.s2_state)
+        p1, s1_state = sets.s1.project(tmp2, s1_state)
+        res = p1 - tmp1
+        alphas = 2.0 ** torch.arange(21, dtype=st.x.dtype, device=st.x.device)
+        cands = tmp1[None, :] + alphas[:, None] * res[None, :]
+        projs, _ = sets.s2.project(cands, s2_state)
+        norms = torch.linalg.vector_norm(projs - cands, dim=-1)
+        t1 = tmp1 + alphas[torch.argmin(norms)] * res
+        z, s2_state = sets.s2.project(t1, s2_state)
+        x_new = a2 * z + (1.0 - a2) * t1
+        return _advance(st, x_new, z, s1_state, s2_state)
+
+
+@dataclass(frozen=True)
+class FISTA(Algorithm):
+    """FISTA-accelerated alternating projections (fista.jl).
+
+    aux = (t, y, x_old); ``t+ = (1+sqrt(1+4 t^2))/2``,
+    ``y = x + ((t-1)/t+) (x - x_old)``.
+    """
+
+    alpha: float = 1.0
+    direct: bool = False
+    options: Tuple[Tuple[str, Any], ...] = ()
+
+    def init_aux(self, x0):
+        # y starts at x0 (the reference's i == 1 special case, fista.jl:35-37)
+        return (torch.tensor(1.0, dtype=x0.dtype, device=x0.device), x0,
+                torch.zeros_like(x0))
+
+    def coeffs(self, aux):
+        return self.alpha, 1.0
+
+    def step(self, sets, st, i=None):
+        t, y, _ = st.aux
+        y1, s1_state = sets.s1.project(y, st.s1_state)
+        tmp1 = self.alpha * y1 + (1.0 - self.alpha) * y
+        x_new, s2_state = sets.s2.project(tmp1, st.s2_state)
+        t_new = (1.0 + torch.sqrt(1.0 + 4.0 * t ** 2)) / 2.0
+        y_new = x_new + ((t - 1.0) / t_new) * (x_new - st.x)
+        return _advance(st, x_new, x_new, s1_state, s2_state,
+                        aux=(t_new, y_new, st.x))
+
+
+@dataclass(frozen=True)
+class Dykstra(Algorithm):
+    """Boyle-Dykstra alternating projections with correction vectors
+    (dykstra.jl:26-37): ``y = P_S1(x+p); p += x-y; x = P_S2(y+q); q += y-x``.
+    """
+
+    direct: bool = False
+    options: Tuple[Tuple[str, Any], ...] = ()
+
+    def init_aux(self, x0):
+        return (torch.zeros_like(x0), torch.zeros_like(x0))
+
+    def coeffs(self, aux):
+        return 1.0, 1.0
+
+    def step(self, sets, st, i=None):
+        p, q = st.aux
+        xp = st.x + p
+        y, s1_state = sets.s1.project(xp, st.s1_state)
+        yq = y + q
+        x_new, s2_state = sets.s2.project(yq, st.s2_state)
+        return _advance(st, x_new, x_new, s1_state, s2_state,
+                        aux=(xp - y, yq - x_new))

@@ -55,15 +55,30 @@ def _refresh_s1(sets, st: SolverState) -> SolverState:
     return st
 
 
-def _run_steps(alg, form, st: SolverState, nsteps: int) -> SolverState:
-    for _ in range(nsteps):
-        st = alg.step(form.sets, st)
+def _run_steps(alg, form, st: SolverState, nsteps: int,
+               i0: int = None) -> SolverState:
+    """``nsteps`` steps from ``st``; ``i0`` is the host's count of
+    ``st.i`` (read from the device once when not given)."""
+    i0 = int(st.i) if i0 is None else i0
+    for k in range(nsteps):
+        st = alg.step(form.sets, st, i0 + k)
     return st
 
 
-def _run_chunk(alg, form, st: SolverState, nsteps: int, eps: float):
-    st = _refresh_s1(form.sets, _run_steps(alg, form, st, nsteps))
-    return st, form.check(st.z_check, eps, prev=st.z_check_prev)
+def _run_chunk(alg, form, st: SolverState, nsteps: int, eps: float, i0: int,
+               logged: bool = False):
+    """``nsteps`` steps, the chunk-end re-anchor and the check.  With
+    ``logged`` the last step, the check iteration (i % checki == 0 in the
+    reference), runs as ``step_logged`` and its S1-stage snapshots come
+    back with the check; else the snapshots are None."""
+    snaps = None
+    if logged:
+        st = _run_steps(alg, form, st, nsteps - 1, i0)
+        st, snaps = alg.step_logged(form.sets, st, i0 + nsteps - 1)
+    else:
+        st = _run_steps(alg, form, st, nsteps, i0)
+    st = _refresh_s1(form.sets, st)
+    return st, form.check(st.z_check, eps, prev=st.z_check_prev), snaps
 
 
 class RunResult(NamedTuple):
@@ -115,6 +130,9 @@ def run(form, alg, *, initx=None, init_duration: float = 0.0,
     i = int(st.i) if resume_state is not None else 0
     i_start = i  # plateau budget anchor: a fresh max_iters applies from here
     checked = False
+    # logextra: feasibility runs at debug > 0 record the S1-stage snapshot
+    # triple at every check iteration (FeasibilityStatus.jl:19-25)
+    log_extra = debug > 0 and getattr(form, "wants_extra", False)
     # stall recovery: tighten the CG floor once when the gap-only signature
     # holds for 3 consecutive checks, or when the plateau test (once per
     # STALL_WINDOW checks) says the budget cannot reach the operating point
@@ -125,20 +143,22 @@ def run(form, alg, *, initx=None, init_duration: float = 0.0,
     W = getattr(form, "STALL_WINDOW", 10)
     nchunks, rem = divmod(max_iters, checki)
     for _ in range(nchunks):
-        st, chk = _run_chunk(alg, form, st, checki, eps)
+        st, chk, snaps = _run_chunk(alg, form, st, checki, eps, i, log_extra)
         chk = chk.to_host()
         i += checki
         checked = True
         status_code = chk.status
         ncheck += 1
-        if not tightened and status_code == Status.CONTINUE:
+        if (not tightened and status_code == Status.CONTINUE
+                and hasattr(form, "gap_stalled")):
             fire = False
             if form.gap_stalled(chk, eps):
                 stall_count += 1
                 fire = stall_count >= 3
             else:
                 stall_count = 0
-            if not fire and ncheck % W == 0:
+            if (not fire and hasattr(form, "plateau_stalled")
+                    and ncheck % W == 0):
                 remaining = max((i_start + max_iters - i) // checki, 1)
                 fire, win_score = form.plateau_stalled(chk, eps, win_score,
                                                        remaining)
@@ -153,7 +173,7 @@ def run(form, alg, *, initx=None, init_duration: float = 0.0,
         else:
             stall_count = 0
         t_elapsed = time.time() - t_init
-        form.record(hist, st, chk, i, t_elapsed, debug)
+        form.record(hist, st, chk, i, t_elapsed, debug, extra=snaps)
         if verbose > 0:
             print(form.row(st, chk, i, t_elapsed))
             if status_code == Status.OPTIMAL:
@@ -166,7 +186,7 @@ def run(form, alg, *, initx=None, init_duration: float = 0.0,
             break
     else:
         if rem > 0:
-            st = _run_steps(alg, form, st, rem)
+            st = _run_steps(alg, form, st, rem, i)
             i += rem
             checked = False
 

@@ -108,3 +108,68 @@ def test_kernels_raise_on_inputs_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="device"):
         fused_matvec(torch.zeros(8, 8, device=cuda), torch.zeros(8),
                      torch.zeros(8, device=cuda))
+
+
+def _ops(case, kind, cuda):
+    A = CASES[case]().astype(np.float32)
+    cls = tse.BandedBlockOp if kind == "band" else tse.BlockedEllOp
+    return A, cls.create(A, transpose_table=True, device=cuda)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("kind", ["band", "bell"])
+def test_tile_mv_kernels(cuda, case, kind):
+    """K4/K5 over the A table (mv) and the A' table (rmv): ragged ELL rows
+    (the scattered A' table), S > 8 (wide span), non-square shapes."""
+    A, op = _ops(case, kind, cuda)
+    m, n = A.shape
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(rng.standard_normal(n, dtype=np.float32), device=cuda)
+    y = torch.as_tensor(rng.standard_normal(m, dtype=np.float32), device=cuda)
+    key = "band_mv" if kind == "band" else "bell_mv"
+    before = _cuda.LAUNCHES[key]
+    got_mv, got_rmv = op.mv(x), op.rmv(y)
+    assert _cuda.LAUNCHES[key] == before + 2
+    _close((got_mv.cpu(), got_rmv.cpu()),
+           (torch.from_numpy(A @ x.cpu().numpy()),
+            torch.from_numpy(A.T @ y.cpu().numpy())))
+    assert torch.equal(op.mv(x), got_mv) and torch.equal(op.rmv(y), got_rmv)
+    # against the plain versions on the same padded CUDA inputs
+    if kind == "band":
+        xb = op._pad(x, op._ncb() + op.blocks.shape[1], 128)
+        _close((tse.band_mv(op.cs, op.blocks, xb),),
+               (tse.band_mv_plain(op.cs, op.blocks, xb),))
+    else:
+        yb = op._pad(y, op.blocks.shape[0], 128)
+        _close((tse.bell_mv(op.cols_t, op.blocks_t, yb, op.counts_t),),
+               (tse.bell_mv_plain(op.cols_t, op.blocks_t, yb),))
+
+
+def test_probe_kernels_bit_equal(cuda):
+    from fos_tpu_torch.tools import launch_probe as lp
+
+    x = torch.randn(8, 128, generator=torch.Generator().manual_seed(4)).to(cuda)
+    idx = torch.arange(8, dtype=torch.int32, device=cuda)
+    before = dict(_cuda.LAUNCHES)
+    assert torch.equal(lp.probe_tiny(x), lp.probe_tiny_plain(x))
+    assert torch.equal(lp.probe_prefetch(idx, x), lp.probe_prefetch_plain(idx, x))
+    assert _cuda.LAUNCHES["probe_tiny"] == before["probe_tiny"] + 1
+    assert _cuda.LAUNCHES["probe_prefetch"] == before["probe_prefetch"] + 1
+
+
+def test_tile_mv_raise_on_inputs_they_do_not_take(cuda):
+    _, op = _ops("band_1000x1200", "band", cuda)
+    xb = op._pad(torch.zeros(op.n, device=cuda), op._ncb() + op.blocks.shape[1],
+                 128)
+    with pytest.raises(TypeError, match="float32"):
+        tse.band_mv(op.cs, op.blocks, xb.double())
+    with pytest.raises(ValueError, match="device"):
+        tse.band_mv(op.cs, op.blocks, xb.cpu())
+    shifted = torch.zeros(xb.numel() + 1, device=cuda)[1:].view_as(xb)
+    with pytest.raises(ValueError, match="aligned"):
+        tse.band_mv(op.cs, op.blocks, shifted)
+    _, ell = _ops("scattered_700x900", "bell", cuda)
+    with pytest.raises(ValueError, match="device"):
+        tse.bell_mv(ell.cols, ell.blocks, torch.zeros(ell._ncb(), 128,
+                                                      device=cuda),
+                    ell.counts.cpu())

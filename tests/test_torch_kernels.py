@@ -93,7 +93,7 @@ def test_tile_pair_plain_vs_pallas(case, kind):
     jcls = jse.BandedBlockOp if kind == "band" else jse.BlockedEllOp
     tcls = tse.BandedBlockOp if kind == "band" else tse.BlockedEllOp
     jop = jcls.create(A, transpose_table=False)
-    top = tcls.create(A)
+    top = tcls.create(A, device="cpu")
     x, z = _vectors(m, n)
     jy1, jy2 = jop.mv_pair(jnp.asarray(x), jnp.asarray(z))
     ty1, ty2 = top.mv_pair(torch.from_numpy(x), torch.from_numpy(z))
@@ -103,7 +103,8 @@ def test_tile_pair_plain_vs_pallas(case, kind):
         np.testing.assert_allclose(got.numpy(), exact, rtol=RTOL, atol=ATOL)
     # the operator built from the JAX op's own tables gives the same pair
     index = np.asarray(jop.cs if kind == "band" else jop.cols)
-    iop = interop.tile_op_from_numpy(kind, np.asarray(jop.blocks), index, m, n)
+    iop = interop.tile_op_from_numpy(kind, np.asarray(jop.blocks), index, m, n,
+                                     device="cpu")
     iy1, iy2 = iop.mv_pair(torch.from_numpy(x), torch.from_numpy(z))
     np.testing.assert_allclose(iy1.numpy(), ty1.numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(iy2.numpy(), ty2.numpy(), rtol=RTOL, atol=ATOL)
@@ -129,20 +130,27 @@ def test_builders_bit_identical(case):
 
 def test_ell_padding_slots_and_counts():
     """Padding slots alias column 0 and hold zeros; from_arrays without
-    counts treats every slot as stored, which gives the same pair."""
+    counts treats every slot as stored, which gives the same pair and the
+    same single products.  rmv needs the A' table."""
     A = sp.csr_matrix((np.ones(3), ([5, 200, 399], [7, 0, 250])),
                       shape=(400, 300)).astype(np.float32)
-    op = tse.BlockedEllOp.create(A)
-    same = tse.BlockedEllOp.from_arrays(op.blocks, op.cols, 400, 300)
+    op = tse.BlockedEllOp.create(A, device="cpu")
+    same = tse.BlockedEllOp.from_arrays(op.blocks, op.cols, 400, 300,
+                                        transpose_table=True, device="cpu")
     x, z = _vectors(400, 300, seed=2)
     for o in (op, same):
         y1, y2 = o.mv_pair(torch.from_numpy(x), torch.from_numpy(z))
         np.testing.assert_allclose(y1.numpy(), A @ x, rtol=RTOL, atol=1e-5)
         np.testing.assert_allclose(y2.numpy(), A.T @ z, rtol=RTOL, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        op.mv(torch.from_numpy(x))
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        tse.BandedBlockOp.create(A, transpose_table=True)
+        np.testing.assert_allclose(o.mv(torch.from_numpy(x)).numpy(), A @ x,
+                                   rtol=RTOL, atol=1e-5)
+    np.testing.assert_allclose(same.rmv(torch.from_numpy(z)).numpy(), A.T @ z,
+                               rtol=RTOL, atol=1e-5)
+    with pytest.raises(TypeError, match="transpose_table=False"):
+        op.rmv(torch.from_numpy(z))
+    band = tse.BandedBlockOp.create(A, transpose_table=True, device="cpu")
+    np.testing.assert_allclose(band.rmv(torch.from_numpy(z)).numpy(), A.T @ z,
+                               rtol=RTOL, atol=1e-5)
 
 
 def test_inverse_table_lists_each_stored_tile_once():

@@ -267,7 +267,8 @@ def test_status_table_matches_jax(capsys):
     # a verbose solve prints the table with the JAX layout
     A, b, c = _lp(10, 15, 12)
     fos_tpu_torch.solve(A, b, c, fos_tpu_torch.nonneg(10),
-                        fos_tpu_torch.nonneg(15), max_iters=200, verbose=1)
+                        fos_tpu_torch.nonneg(15), max_iters=200, verbose=1,
+                        device="cpu")
     out = capsys.readouterr().out.splitlines()
     want = jprinting.hsde_header(0.0, False).splitlines()
     assert out[1:4] == want[1:4]

@@ -46,7 +46,7 @@ def test_dr_readme():
     n = A.shape[1]
     sol = fos_tpu_torch.solve(Ac, bc, c, _tspec(K1), _tspec(K2),
                               alg=fos_tpu_torch.DR(), eps=1e-8,
-                              max_iters=20000, verbose=0)
+                              max_iters=20000, verbose=0, device="cpu")
     assert sol.status == "Optimal"
     x = sol.x[:n].numpy()
     obj = np.sum((A @ x - b) ** 2)
@@ -71,7 +71,7 @@ def test_dense_lp_f32_through_the_pair_kernel():
     before = dict(_cuda.LAUNCHES)
     sol = fos_tpu_torch.solve(A, b, c, K1, K2, alg=fos_tpu_torch.DR(),
                               eps=1e-5, dtype=torch.float32, pallas=True,
-                              verbose=0)
+                              verbose=0, device="cpu")
     assert _cuda.LAUNCHES == before
     assert sol.status == "Optimal" and sol.x.dtype == torch.float32
     assert abs(sol.objval - opt) / abs(opt) < 1e-3
@@ -123,7 +123,8 @@ def test_sparse_lp_tile_ops(name, fmt, tol):
     sol = fos_tpu_torch.solve(A, b, c, fos_tpu_torch.nonneg(m),
                               fos_tpu_torch.nonneg(n), alg=fos_tpu_torch.DR(),
                               eps=1e-5, verbose=0, densify=False,
-                              sparse_format=fmt, max_iters=20000)
+                              sparse_format=fmt, max_iters=20000,
+                              device="cpu")
     assert sol.status == "Optimal"
     jsol = fos_tpu.solve(np.asarray(A.toarray()), b, c, jnonneg(m), jnonneg(n),
                          alg=fos_tpu.DR(), eps=1e-5, verbose=0,
@@ -161,11 +162,12 @@ def test_bench_banded_lp_through_the_band_pair():
     of the same matrix."""
     blk, cs, vectors = chip_smoke.banded_tables(nrb=8)
     m = n = 8 * 128
-    op = fos_tpu_torch.BandedBlockOp.from_arrays(blk, cs, m, n)
+    op = fos_tpu_torch.BandedBlockOp.from_arrays(blk, cs, m, n, device="cpu")
     b, c, opt = chip_smoke.lp_from_operator(op, vectors, "cpu")
     sol = fos_tpu_torch.solve(op, b, c, fos_tpu_torch.nonneg(m),
                               fos_tpu_torch.nonneg(n), alg=fos_tpu_torch.DR(),
-                              eps=1e-5, max_iters=10000, verbose=0)
+                              eps=1e-5, max_iters=10000, verbose=0,
+                              device="cpu")
     assert sol.status == "Optimal"
     assert abs(sol.objval - opt) / abs(opt) < 1e-3
     jsol = fos_tpu.solve(op.todense().numpy(), b.numpy(), c.numpy(),
@@ -184,4 +186,4 @@ def test_unported_options_raise():
                       (dict(epsilon=1e-3), "unknown")):
         with pytest.raises((NotImplementedError, TypeError), match=match):
             fos_tpu_torch.solve(A.toarray(), b, c, K, K, max_iters=10,
-                                verbose=0, **kw)
+                                verbose=0, device="cpu", **kw)
