@@ -10,12 +10,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    check that it is sm_90, and the nvcc build of ``fos_tpu_torch/csrc``;
 1. each kernel against its plain PyTorch version on the card, at the
    shapes the paths below give it: max error, repeatability, the median
-   time of a call (CUDA events, host launch cost included), the device
+   time of a call (CUDA events, host launch cost included) through the
+   route the path takes (the kernel bound to its operator), the device
    time of a call (profiler) of both, the least time the card could take
    (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s) and, where one
-   PyTorch call computes the same function, that call's time.  K1-K3 (the
-   pairs); K4/K5 over the A tables (``mv``) and the A' tables (``rmv``),
-   against a block-sparse ``torch.sparse_bsr_tensor`` matvec;
+   PyTorch call computes the same function, that call's time.  K1 at the
+   two dense shapes and at the tile-counting shapes of the card tests,
+   with its kernels per call (the tile kernel and its ordered sum) and
+   each one's device time, a 100-call bit repeat and a CUDA-graph replay; K2/K3 (the pairs);
+   K4/K5 over the A tables (``mv``) and the A' tables (``rmv``), against a
+   block-sparse ``torch.sparse_bsr_tensor`` matvec; the SOC/rotated-SOC
+   projection run twice on the card (bit-equal) against the CPU;
 2. the conic path: the dense 1000x1000 certificate LP through K1
    (``pallas=True``) to Optimal at eps=1e-5, continued to eps=1e-6 for the
    objective gate, 300 iterations at 4000x4000; the block-tridiagonal LP
@@ -27,7 +32,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    in f64 on the host; then the reference's testfeasibility problem (50x100
    dense) with all seven algorithms;
 4. the launch probe: P1/P2 bit-equal to their plain versions, then every
-   line of ``fos_tpu_torch.tools.launch_probe.main()``.
+   line of ``fos_tpu_torch.tools.launch_probe.main()``, and P1/P2's cost
+   in a dependent chain over torch's tiny multiply's (target <= 1.3).
 
 The launch counters are zeroed just before each path (2, 3, 4) and read
 just after it: every kernel must have been launched by its path (launches
@@ -40,6 +46,7 @@ run's result.  Needs one CUDA card; fails without one.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -68,6 +75,18 @@ GATE_OBJ = 1e-3
 DENSE_N = 1000      # the dense LP (bench.py's main point)
 SCALING_N = 4000    # the dense scaling point
 NRB = 256           # block rows of the sparse LPs: 32768 x 32768
+# K1's tile-counting shapes (tests/test_torch_cuda.py): one row of tiles,
+# one column of tiles, tall, wide
+K1_EDGE_SHAPES = ((1, 4000), (4000, 1), (5000, 300), (300, 5000))
+K1_KERNELS_PER_CALL = 2   # the tile kernel and its ordered sum
+K1_REPEATS = 100
+LAUNCH_ROUTE_TARGET = 1.3   # P1 per call in a chain / torch's tiny multiply
+# iterations of the same solves at commit b4f7f51 (on an NVIDIA H100 80GB
+# HBM3, 700 W), printed beside this run's: a changed sum order in a pair
+# kernel may move CG counts and so these (ROADMAP queue 3)
+REFERENCE_ITERS = {"dense_lp": 900, "dense_lp_continued": 4200,
+                    "dense_scaling": 300, "banded_lp": 2000,
+                    "scattered_lp": 2200}
 
 
 # ------------------------------------------------------------- problems
@@ -195,10 +214,8 @@ def median_ms(fn, reps=30, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=20):
-    """Device time of one call (ms): the kernels' own time from the
-    profiler's CUDA trace, without the host's launch cost; None when the
-    trace holds no device time."""
+def _profiled(fn, reps):
+    """The profiler's device rows over ``reps`` calls of fn (after one)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -209,8 +226,57 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in _device_events(prof))
+    return _device_events(prof)
+
+
+def device_ms(fn, reps=20):
+    """Device time of one call (ms): the kernels' own time from the
+    profiler's CUDA trace, without the host's launch cost; None when the
+    trace holds no device time."""
+    total_us = sum(e.self_device_time_total for e in _profiled(fn, reps))
     return total_us / reps / 1e3 if total_us > 0 else None
+
+
+def graph_us(fn, calls=50, reps=10):
+    """Per-call device time (us) of ``calls`` calls of fn captured in one
+    CUDA graph and replayed: launch gaps included, host excluded.  Returns
+    (us, the outputs of the graph's last call)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / (reps * calls), out
+
+
+def kernel_breakdown(fn, reps=20):
+    """(device kernels per call, device ms per call of each kernel by
+    name) from the profiler; memcpy and memset rows are not kernels."""
+    kernels = [e for e in _profiled(fn, reps)
+               if not e.key.lower().startswith(("memcpy", "memset"))]
+
+    def name(key):  # the function's name, without namespace or arguments
+        m = re.search(r"\w+(?=[<(])", key)
+        return m.group(0) if m else key[:40]
+
+    return (sum(e.count for e in kernels) / reps,
+            {name(e.key): e.self_device_time_total / reps / 1e3
+             for e in kernels})
 
 
 def _device_events(prof):
@@ -336,9 +402,12 @@ def main() -> int:
                                BandedBlockOp, BlockSet, BlockedEllOp, Box,
                                Feasibility, NonNeg, nonneg, solve,
                                solve_feasibility)
+    from fos_tpu_torch.cones import project
     from fos_tpu_torch.config import require_hopper
+    from fos_tpu_torch.interop import cone_spec_from_blocks
     from fos_tpu_torch.linalg import _cuda
-    from fos_tpu_torch.linalg.dense_pair import fused_matvec, fused_matvec_plain
+    from fos_tpu_torch.linalg.dense_pair import (PaddedDenseOp, fused_matvec,
+                                                 fused_matvec_plain)
     from fos_tpu_torch.linalg.sparse_ell import (band_mv, band_mv_pair,
                                                  band_mv_pair_plain,
                                                  band_mv_plain, bell_mv,
@@ -391,37 +460,91 @@ def main() -> int:
                                device=dev)
 
     kernels = {}
-    for name, A in (("fused_matvec", A1), ("fused_matvec_4000", A4)):
+    # K1 through the route the conic path takes: PaddedDenseOp.mv_pair, the
+    # kernel bound to A when the operator is made
+    grng = np.random.default_rng(13)
+    k1_shapes = [("fused_matvec", A1), ("fused_matvec_4000", A4)] + [
+        (f"fused_matvec_{M}x{N}",
+         grng.standard_normal((M, N), dtype=np.float32))
+        for M, N in K1_EDGE_SHAPES]
+    for name, A in k1_shapes:
         At = torch.as_tensor(A, device=dev)
+        op = PaddedDenseOp.create(At)
         x1, x2 = vec(At.shape[1]), vec(At.shape[0])
-        res = compare(name, lambda: fused_matvec(At, x1, x2),
+        res = compare(name, lambda: op.mv_pair(x1, x2),
                       lambda: fused_matvec_plain(At, x1, x2))
         M, N = At.shape
         res.update(bound(4 * (M * N + 2 * M + 2 * N), 4 * M * N),
                    library_ms=None)
+        first = op.mv_pair(x1, x2)
+        res["bit_repeat_100"] = all(
+            all(torch.equal(a, b) for a, b in zip(op.mv_pair(x1, x2), first))
+            for _ in range(K1_REPEATS))
+        res["kernels_per_call"], res["device_ms_by_kernel"] = \
+            kernel_breakdown(lambda: op.mv_pair(x1, x2))
+        res["free_function_ms"] = median_ms(lambda: fused_matvec(At, x1, x2))
+        res["tiles"] = list(op._pair.tiles)
+        # in a CUDA graph (launch gaps counted): the kernels keep no state
+        # between calls, so replays give the same bits
+        res["graph_us"], replayed = graph_us(lambda: op.mv_pair(x1, x2))
+        res["graph_bit_equal"] = all(torch.equal(a, b)
+                                     for a, b in zip(replayed, first))
         emit({"phase": "kernel", "name": name, "shape": [M, N], **res})
+        if (res["kernels_per_call"] != K1_KERNELS_PER_CALL
+                or not res["bit_repeat_100"]
+                or not res["graph_bit_equal"]):
+            raise AssertionError(f"{name}: {res['kernels_per_call']} kernels "
+                                 f"per call, 100-call repeat "
+                                 f"{res['bit_repeat_100']}, graph replay "
+                                 f"{res['graph_bit_equal']}")
         if name == "fused_matvec":
             kernels[name] = {"source": "fos_tpu_torch/csrc/pair_kernels.cu",
                              "replaces": "fos_tpu/linalg/pallas_kernels.py:72",
                              "shape": [M, N], **res}
-        del At
+        del At, op
+    # the SOC / rotated-SOC projection: no atomics, so it repeats bit for
+    # bit on the card; against the CPU projection in f64 (sums taken in
+    # another order: |d| <= 1e-12 + 1e-12 |cpu|)
+    srng = np.random.default_rng(31)
+    sizes = srng.integers(3, 300, 2000)
+    spec = cone_spec_from_blocks([("NONNEG", 1000)] + [
+        (("SOC", "SOC_ROTATED")[i % 2], int(d)) for i, d in enumerate(sizes)])
+    xs = torch.as_tensor(srng.standard_normal(spec.dim) * 3.0)
+    got = project(spec, xs.to(dev))
+    again = project(spec, xs.to(dev))
+    want = project(spec, xs)
+    soc = {"dim": spec.dim, "blocks": len(spec.blocks),
+           "bit_equal": bool(torch.equal(got, again)),
+           "max_abs_err_vs_cpu": float((got.cpu() - want).abs().max()),
+           "ms": median_ms(lambda: project(spec, xs.to(dev)))}
+    emit({"phase": "soc_projection", **soc})
+    if not soc["bit_equal"] or not bool(
+            ((got.cpu() - want).abs() <= 1e-12 + 1e-12 * want.abs()).all()):
+        raise AssertionError(f"SOC projection on the card: {soc}")
+
     # x as mv_pair pads it: band windows need S zero blocks past the end
     nrb, S = band.blocks.shape[:2]
     xb = vec((band._ncb() + S) * TILE).reshape(-1, TILE)
     zb = vec(nrb * TILE).reshape(nrb, TILE)
     xe = xb[: ell._ncb()]
     stored_ell = int(ell.counts.sum())
+    # the pairs through their operators' bound kernels (the route mv_pair
+    # takes), on inputs padded as mv_pair pads them; the free functions
+    # (tables checked per call) are timed beside
     pairs = (
         ("band_mv_pair", band, nrb * S, "fos_tpu/linalg/sparse_ell.py:249",
+         lambda: band._pair(xb, zb),
          lambda: band_mv_pair(band.cs, band.blocks, xb, zb,
                               (band.inv_ptr, band.inv_idx)),
          lambda: band_mv_pair_plain(band.cs, band.blocks, xb, zb), (xb, zb)),
         ("bell_mv_pair", ell, stored_ell, "fos_tpu/linalg/sparse_ell.py:333",
+         lambda: ell._pair(xe, zb),
          lambda: bell_mv_pair(ell.cols, ell.blocks, xe, zb, ell.counts,
                               (ell.inv_ptr, ell.inv_idx)),
          lambda: bell_mv_pair_plain(ell.cols, ell.blocks, xe, zb), (xe, zb)))
-    for name, op, tiles, replaces, kern, plain, ins in pairs:
+    for name, op, tiles, replaces, kern, free, plain, ins in pairs:
         res = compare(name, kern, plain)
+        res["free_function_ms"] = median_ms(free)
         res.update(tile_bound(tiles, True, ins, kern()), library_ms=None)
         emit({"phase": "kernel", "name": name, "table": list(op.blocks.shape),
               "table_mib": op.blocks.numel() * 4 / 2**20, **res})
@@ -433,21 +556,24 @@ def main() -> int:
     yb = vec((nrb + band.blocks_t.shape[1]) * TILE).reshape(-1, TILE)
     ye = yb[:nrb]
     singles = (
-        ("band_mv", "mv", band.blocks, band.cs, None, xb),
-        ("band_mv", "rmv", band.blocks_t, band.cs_t, None, yb),
-        ("bell_mv", "mv", ell.blocks, ell.cols, ell.counts, xe),
-        ("bell_mv", "rmv", ell.blocks_t, ell.cols_t, ell.counts_t, ye))
-    for name, direction, blocks, index, counts, xin in singles:
+        ("band_mv", "mv", band._mv, band.blocks, band.cs, None, xb),
+        ("band_mv", "rmv", band._rmv, band.blocks_t, band.cs_t, None, yb),
+        ("bell_mv", "mv", ell._mv, ell.blocks, ell.cols, ell.counts, xe),
+        ("bell_mv", "rmv", ell._rmv, ell.blocks_t, ell.cols_t, ell.counts_t,
+         ye))
+    for name, direction, bound_fn, blocks, index, counts, xin in singles:
+        kern = lambda: (bound_fn(xin),)  # noqa: E731
         if counts is None:
-            kern = lambda: (band_mv(index, blocks, xin),)  # noqa: E731
+            free = lambda: band_mv(index, blocks, xin)  # noqa: E731
             plain = lambda: (band_mv_plain(index, blocks, xin),)  # noqa: E731
             slots = index.cpu().numpy()[:, None] + np.arange(blocks.shape[1])
             cnt = np.full(blocks.shape[0], blocks.shape[1])
         else:
-            kern = lambda: (bell_mv(index, blocks, xin, counts),)  # noqa: E731
+            free = lambda: bell_mv(index, blocks, xin, counts)  # noqa: E731
             plain = lambda: (bell_mv_plain(index, blocks, xin),)  # noqa: E731
             slots, cnt = index.cpu().numpy(), counts.cpu().numpy()
         res = compare(f"{name}.{direction}", kern, plain)
+        res["free_function_ms"] = median_ms(free)
         res.update(tile_bound(int(cnt.sum()), False, (xin,), kern()))
         lib_fn = library_mv(blocks, slots, cnt, xin.shape[0], dev)
         x_flat = xin.reshape(-1)
@@ -479,6 +605,7 @@ def main() -> int:
           "status": sol.status, "iters": sol.iters, "seconds": secs,
           "iters_per_s": sol.iters / secs, "obj": sol.objval,
           "obj_certificate": opt1, "rel_obj_err": rel,
+          "iters_reference": REFERENCE_ITERS.get("dense_lp"),
           "fused_matvec_launches": _cuda.LAUNCHES["fused_matvec"]})
     if sol.status != "Optimal":
         raise AssertionError(f"dense LP at eps={GATE_EPS}: {sol.status}")
@@ -496,6 +623,7 @@ def main() -> int:
           "eps": GATE_EPS / 10, "status": sol.status, "iters": sol.iters,
           "seconds": secs, "iters_per_s": sol.iters / secs,
           "obj": sol.objval, "obj_certificate": opt1, "rel_obj_err": rel,
+          "iters_reference": REFERENCE_ITERS.get("dense_lp_continued"),
           "fused_matvec_launches": _cuda.LAUNCHES["fused_matvec"] - k1_before})
     if sol.status != "Optimal" or rel > GATE_OBJ:
         raise AssertionError(f"dense LP: {sol.status}, rel obj err {rel}")
@@ -508,6 +636,7 @@ def main() -> int:
     emit({"phase": "dense_scaling", "shape": [N4, N4], "status": sol.status,
           "iters": sol.iters, "seconds": secs, "iters_per_s": sol.iters / secs,
           "finite": finite,
+          "iters_reference": REFERENCE_ITERS.get("dense_scaling"),
           "fused_matvec_launches":
               _cuda.LAUNCHES["fused_matvec"] - k1_before})
     if not finite:
@@ -525,6 +654,7 @@ def main() -> int:
               "status": sol.status, "iters": sol.iters, "seconds": secs,
               "iters_per_s": sol.iters / secs, "obj": sol.objval,
               "obj_certificate": opt, "rel_obj_err": rel,
+              "iters_reference": REFERENCE_ITERS.get(phase),
               f"{key}_launches": _cuda.LAUNCHES[key] - before})
         if sol.status != "Optimal" or rel > GATE_OBJ:
             raise AssertionError(f"{phase}: {sol.status}, rel obj err {rel}")
@@ -629,6 +759,16 @@ def main() -> int:
     _cuda.reset_launch_counts()
     rows = launch_probe.main(dev)
     emit({"phase": "launch_probe", "rows": rows})
+    chain = {r["probe"]: r["us_per_call"] for r in rows}
+    torch_us = chain["torch tiny mul"]
+    route = {"torch_tiny_mul_us": torch_us,
+             "p1_us": chain["P1 probe_tiny"],
+             "p2_us": chain["P2 probe_prefetch"],
+             "p1_over_torch": chain["P1 probe_tiny"] / torch_us,
+             "p2_over_torch": chain["P2 probe_prefetch"] / torch_us,
+             "target": LAUNCH_ROUTE_TARGET}
+    emit({"phase": "launch_route", **route,
+          "p1_within_target": route["p1_over_torch"] <= LAUNCH_ROUTE_TARGET})
     for name in ("probe_tiny", "probe_prefetch"):
         kernels[name]["launches"] = _cuda.LAUNCHES[name]
     missing = [k for k, e in kernels.items() if e["launches"] == 0]
@@ -664,7 +804,7 @@ def main() -> int:
                                 for name, entry in kernels.items())]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": 1}})
+                                 "count": torch.cuda.device_count()}})
     return 0
 
 

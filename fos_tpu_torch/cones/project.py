@@ -5,8 +5,10 @@ projection runs as one pass over the whole vector:
 
 * all elementwise cones (Free/Zero/NonNeg/NonPos) are one clamp against
   precomputed lower/upper bound vectors;
-* all SOC blocks, of any sizes, are projected together with one segmented
-  sum (``index_add_``) instead of a loop over blocks;
+* all SOC blocks, of any sizes, are projected together instead of in a
+  loop over blocks: each block's tail norm is a row sum over a padded
+  table of its tail positions, one table per power-of-two tail width
+  (built once with the plan, so padding at most doubles the entries);
 * rotated-SOC blocks fold into the SOC pass through the orthogonal rotation
   ``H = [[1, 1], [1, -1]] / sqrt(2)`` of their first two entries.
 
@@ -14,8 +16,8 @@ PSD, exponential and power cones are not ported yet (ROADMAP queue 1, "The
 other cones"): a spec holding one raises when its plan is built, rather than
 projecting those entries as free.
 
-On a CUDA tensor the SOC segment sums use atomics, so their rounding is not
-bit-reproducible from run to run.
+Every sum is a plain reduction along an axis (no atomics), so the
+projection repeats bit for bit on the card as on the CPU.
 """
 
 from __future__ import annotations
@@ -73,19 +75,40 @@ def _build_plan(blocks: Tuple[Tuple[Cone, int], ...]):
         # positions (within the SOC value vector) of each rotated pair
         rot_pos = np.array([lookup[x] for pq in rot_pq for x in pq],
                            dtype=np.int64)
+        head = np.concatenate(soc_head)
         plan["soc"] = {
             "idx": idx,
             "seg": np.concatenate(soc_seg),
-            "head": np.concatenate(soc_head),
+            "head": head,
+            "head_pos": np.flatnonzero(head),
+            "tails": _tail_tables(np.flatnonzero(head), idx.size),
             "nseg": seg,
             "rot_pos": rot_pos,
         }
     return plan
 
 
-def _soc_project_flat(vals, seg, head, nseg):
+def _tail_tables(head_pos, size):
+    """The SOC blocks' tail positions (within the SOC value vector of
+    ``size`` entries, blocks back to back from ``head_pos``), as (segment
+    ids (k,), positions (k, w)) per power-of-two tail width w; padding
+    points at ``size``, a zero appended to the values."""
+    ends = np.append(head_pos[1:], size)
+    lengths = ends - head_pos - 1
+    widths = 1 << np.ceil(np.log2(np.maximum(lengths, 1))).astype(np.int64)
+    tables = []
+    for w in np.unique(widths):
+        segs = np.flatnonzero(widths == w)
+        pos = head_pos[segs, None] + 1 + np.arange(w)
+        pos[np.arange(w) >= lengths[segs, None]] = size
+        tables.append((segs, pos))
+    return tables
+
+
+def _soc_project_flat(vals, seg, head, head_pos, tails, nseg):
     """Project concatenated SOC blocks described by segment ids; ``vals`` is
-    (..., N) and the blocks run along the last axis.
+    (..., N) and the blocks run along the last axis.  ``tails`` are the
+    plan's padded tail tables (:func:`_tail_tables`), as tensors.
 
     SOC(t, x): if ||x|| <= t identity; if ||x|| <= -t zero; else
     ((t+||x||)/2) * (1, x/||x||).
@@ -95,9 +118,13 @@ def _soc_project_flat(vals, seg, head, nseg):
     zero = torch.zeros((), dtype=v.dtype, device=v.device)
     one = torch.ones((), dtype=v.dtype, device=v.device)
     tail = torch.where(head_b, zero, v)
-    acc = v.new_zeros((nseg,) + v.shape[1:])
-    t = acc.index_add(0, seg, torch.where(head_b, v, zero))
-    nx = torch.sqrt(acc.index_add(0, seg, tail * tail))
+    t = v[head_pos]
+    padded = torch.cat([v, v.new_zeros((1,) + v.shape[1:])])
+    nx2 = v.new_empty((nseg,) + v.shape[1:])
+    for segs, pos in tails:
+        x = padded[pos]
+        nx2[segs] = (x * x).sum(1)
+    nx = torch.sqrt(nx2)
 
     ident = nx <= t
     to_zero = nx <= -t
@@ -137,8 +164,10 @@ class _Projector:
                  "hi": torch.as_tensor(plan["hi"], dtype=dtype, device=device)}
             soc = plan["soc"]
             if soc is not None:
-                for k in ("idx", "seg", "head", "rot_pos"):
+                for k in ("idx", "seg", "head", "head_pos", "rot_pos"):
                     t[k] = torch.as_tensor(soc[k], device=device)
+                t["tails"] = [tuple(torch.as_tensor(a, device=device)
+                                    for a in table) for table in soc["tails"]]
             self._tensors[key] = t
         return t
 
@@ -155,7 +184,8 @@ class _Projector:
             rot = soc["rot_pos"].size > 0
             if rot:
                 vals = _rotate(vals, t["rot_pos"])
-            out = _soc_project_flat(vals, t["seg"], t["head"], soc["nseg"])
+            out = _soc_project_flat(vals, t["seg"], t["head"], t["head_pos"],
+                                    t["tails"], soc["nseg"])
             if rot:
                 out = _rotate(out, t["rot_pos"])
             y = y.clone() if y is x else y

@@ -9,25 +9,40 @@
 // and compute what they compute: f32 inputs, f32 products and f32 sums.
 //
 // What bounds them on the card: the bytes of A (K1) or of the tile table
-// (K2, K3).  Each element of A is read once, with coalesced loads (a warp
-// reads 128 contiguous floats of one row at a time), and reduced both ways
-// while it is in registers: along the row for A x, along the column for
-// A' z.  The vectors and the partial sums are a few percent of those bytes.
+// (K2, K3), at about 0.5 flop per byte, so no tensor cores.  Each element
+// is read once, coalesced, and reduced both ways while it is in registers:
+// along the row for A x, along the column for A' z.  The vectors and the
+// partial sums are a few percent of those bytes.  A dense A of up to
+// ~40 MB stays in the 50 MB L2 from one call to the next (the 1000^2 LP's
+// is 4 MB); there the floor is a chain of dependent L2 round trips and the
+// launches, not HBM.
 //
-// One CUDA block per 128x128 tile (K1: a tile of A, ragged edges masked;
-// K2, K3: a stored tile of the table), so thousands of blocks keep the
-// card's memory system busy.  Cross-block sums are deterministic: a block
-// never adds into another block's output.  Each tile writes its two
-// 128-vectors (A x and A' z contributions) to partial buffers, and a
-// second, small kernel sums the partials of each output in a fixed order
-// (K1: over column tiles for y and row tiles for z; K2, K3: over a row
-// block's tiles for y1, and over the tiles that land in a column block for
-// y2, listed by an inverse table built once on the host).  The same inputs
-// give the same bits, run after run.
+// K1, two launches.  The tile kernel: one 256-thread block per 32x128
+// tile of A (8 warps x 4 rows; ragged edges masked), so a 1000^2 A gives
+// 256 blocks on the 132 SMs and a 4000^2 A 4000; each thread issues its
+// 16 loads at once.  Each tile writes its two vectors to partial buffers
+// (A_ij x_j for row tile i, A_ij' z_i for column tile j).  The sum kernel
+// adds each output's partials in an order fixed by the shapes: a block
+// takes 32 consecutive outputs, each warp sums one contiguous range of
+// their partials (a warp's loads read 32 consecutive floats), and the
+// range sums are added in warp order.  Taller tiles (64, 128 rows) give
+// fewer partials but fewer blocks and more loads per thread; 16-row tiles
+// double the partials; 32 rows measured fastest at 1000^2 and 4000^2
+// (PERF.md, Findings).  The partial buffers are the operator's,
+// allocated once; nothing else persists between calls, so a call can be
+// captured in a CUDA graph.  A one-launch variant (the last block to
+// arrive sums each strip; arrival counters and a release fence) measured
+// slower on the H100: the fence and the counters' round trips cost more
+// than the kernel boundary they replace.
+//
+// K2, K3 (unchanged design): one CUDA block per stored 128x128 tile;
+// each tile writes its two 128-vectors to partial buffers, and a second,
+// small kernel sums the partials of each output in a fixed order (over a
+// row block's tiles for y1, and over the tiles that land in a column block
+// for y2, listed by an inverse table built once on the host).
 //
 // The TPU kernels' VMEM constants (8-tile slabs, 8-row-block batches, the
-// 512x512 dense padding) do not apply here.  Simple and correct first;
-// wgmma, TMA and persistent blocks are later work.
+// 512x512 dense padding) do not apply here.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,27 +52,33 @@
 namespace {
 
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsPerWarp = kTile / kWarps;  // 16
+constexpr int kRowsPerWarp = kTile / kWarps;  // 16: K2/K3 tile rows per warp
+constexpr int kDenseRows = 4;                 // K1 tile rows per warp
+constexpr int kDenseTileRows = kWarps * kDenseRows;
 
-// Load one 128-row tile into registers (lane l holds columns l + 32k of
-// the warp's 16 rows; rows >= nrows and columns >= ncols read as 0), then
-// reduce it both ways: ydot[i] = row i . x on lane i (< 16), and
-// zacc[k] = column (l + 32k) . z over the warp's rows.
+// -------------------------------------------------------- K1, K2, K3 -----
+// Load a warp's kRows rows of a 128-column tile into registers (lane l
+// holds columns l + 32k; with kEdge, rows >= nrows and columns >= ncols
+// read as 0), then reduce them both ways: ydot[i] = row i . x on lane i
+// (< kRows), and zacc[k] = column (l + 32k) . z over the warp's rows.
+// K2/K3 tiles are whole (kEdge false: no masks, fewer registers); K1
+// masks A's edges.
+template <bool kEdge, int kRows>
 __device__ __forceinline__ void tile_products(
     const float* __restrict__ T, size_t ld, int nrows, int ncols,
     const float* xr, const float* zr, int lane, float& ydot, float* zacc) {
-  float a[kRowsPerWarp][4];
+  float a[kRows][4];
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i)
+  for (int i = 0; i < kRows; ++i)
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      a[i][k] = (i < nrows && lane + 32 * k < ncols)
+      a[i][k] = (!kEdge || (i < nrows && lane + 32 * k < ncols))
                     ? __ldg(T + i * ld + lane + 32 * k) : 0.f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) zacc[k] = 0.f;
   ydot = 0.f;
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) {
+  for (int i = 0; i < kRows; ++i) {
     float d = 0.f;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -86,9 +107,9 @@ __device__ __forceinline__ float column_total(float (*zsh)[kTile],
 }
 
 // ---------------------------------------------------------------- K1 -----
-// grid (ceil(M / 128), ceil(N / 128)); block (row tile i, column tile j)
-// writes ypart[j, rows of i] = A_ij x1_j and zpart[i, cols of j] =
-// A_ij' x2_i.
+// grid (ceil(M / kDenseTileRows), ceil(N / 128)); block (row tile i,
+// column tile j) writes ypart[j, rows of i] = A_ij x1_j and zpart[i, cols
+// of j] = A_ij' x2_i.
 __global__ void __launch_bounds__(kThreads)
 dense_pair_tiles(const float* __restrict__ A, int M, int N,
                  const float* __restrict__ x1, const float* __restrict__ x2,
@@ -97,47 +118,63 @@ dense_pair_tiles(const float* __restrict__ A, int M, int N,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ti = blockIdx.x, tj = blockIdx.y;
   const int c0 = tj * kTile;
-  const int r0 = ti * kTile + warp * kRowsPerWarp;
-  const int ncols = min(kTile, N - c0), nrows = min(kRowsPerWarp, M - r0);
+  const int r0 = ti * kDenseTileRows + warp * kDenseRows;
+  const int ncols = min(kTile, N - c0), nrows = min(kDenseRows, M - r0);
 
-  float xr[4], zr[kRowsPerWarp], zacc[4], ydot;
+  float xr[4], zr[kDenseRows], zacc[4], ydot;
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     xr[k] = lane + 32 * k < ncols ? x1[c0 + lane + 32 * k] : 0.f;
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i) zr[i] = i < nrows ? x2[r0 + i] : 0.f;
-  tile_products(A + (size_t)r0 * N + c0, (size_t)N, nrows, ncols, xr, zr,
-                lane, ydot, zacc);
+  for (int i = 0; i < kDenseRows; ++i) zr[i] = i < nrows ? x2[r0 + i] : 0.f;
+  tile_products<true, kDenseRows>(A + (size_t)r0 * N + c0, (size_t)N, nrows,
+                                  ncols, xr, zr, lane, ydot, zacc);
   if (lane < nrows) ypart[(size_t)tj * M + r0 + lane] = ydot;
   const float zc = column_total(zsh, zacc, warp, lane);
   if (threadIdx.x < ncols) zpart[(size_t)ti * N + c0 + threadIdx.x] = zc;
 }
 
-// Sum n partial vectors of length len (stride len) in index order; the
-// loads are unrolled so that several are in flight at once.
-__device__ __forceinline__ float ordered_sum(const float* __restrict__ part,
-                                             int n, size_t len, size_t t) {
-  float s = 0.f;
-  int j = 0;
-  for (; j + 8 <= n; j += 8) {
-    float v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) v[u] = part[(size_t)(j + u) * len + t];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) s += v[u];
-  }
-  for (; j < n; ++j) s += part[(size_t)j * len + t];
-  return s;
-}
+// K1's ordered sum: a block sums kSumOutputs consecutive outputs of y
+// (blocks [0, yblocks)) or of z (the rest).  Warp w sums the w-th of
+// kWarps contiguous ranges of an output's n partials, in index order, up
+// to kSumLoads loads in flight (lane l takes output l, so a warp's loads
+// read 32 consecutive floats); then the first warp adds the kWarps range
+// sums in warp order.  The order depends on n alone, so the bits do.
+constexpr int kSumOutputs = 32;
+constexpr int kSumLoads = 16;
 
-// y[r] = sum_j ypart[j, r] and z[c] = sum_i zpart[i, c], in index order.
-__global__ void dense_pair_sum(const float* __restrict__ ypart, int ny, int M,
-                               float* __restrict__ y,
-                               const float* __restrict__ zpart, int nz, int N,
-                               float* __restrict__ z) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < M) y[t] = ordered_sum(ypart, ny, M, t);
-  else if (t < M + N) z[t - M] = ordered_sum(zpart, nz, N, t - M);
+__global__ void __launch_bounds__(kThreads)
+dense_pair_sum(const float* __restrict__ ypart, int ny, int M,
+               float* __restrict__ y, int yblocks,
+               const float* __restrict__ zpart, int nz, int N,
+               float* __restrict__ z) {
+  __shared__ float ranges[kWarps][kSumOutputs];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool is_y = blockIdx.x < (unsigned)yblocks;
+  const float* __restrict__ part = is_y ? ypart : zpart;
+  const int n = is_y ? ny : nz, len = is_y ? M : N;
+  const int o = (is_y ? blockIdx.x : blockIdx.x - yblocks) * kSumOutputs +
+                lane;
+  const int per = (n + kWarps - 1) / kWarps;
+  const int j0 = min(n, warp * per), j1 = min(n, j0 + per);
+  float s = 0.f;
+  for (int j = j0; j < j1; j += kSumLoads) {  // once while n <= 128
+    float v[kSumLoads];
+#pragma unroll
+    for (int u = 0; u < kSumLoads; ++u)
+      v[u] = o < len && j + u < j1 ? part[(size_t)(j + u) * len + o] : 0.f;
+#pragma unroll
+    for (int u = 0; u < kSumLoads; ++u)
+      if (j + u < j1) s += v[u];
+  }
+  ranges[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && o < len) {
+    float total = ranges[0][lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) total += ranges[w][lane];
+    (is_y ? y : z)[o] = total;
+  }
 }
 
 // ------------------------------------------------------------ K2, K3 -----
@@ -181,8 +218,9 @@ tile_pair(const float* __restrict__ blocks, Cols cols,
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i)
     zr[i] = zb[(size_t)r * kTile + row0 + i];
-  tile_products(blocks + t * (kTile * kTile) + (size_t)row0 * kTile, kTile,
-                kRowsPerWarp, kTile, xr, zr, lane, ydot, zacc);
+  tile_products<false, kRowsPerWarp>(
+      blocks + t * (kTile * kTile) + (size_t)row0 * kTile, kTile,
+      kRowsPerWarp, kTile, xr, zr, lane, ydot, zacc);
   if (lane < kRowsPerWarp) y1part[t * kTile + row0 + lane] = ydot;
   const float zc = column_total(zsh, zacc, warp, lane);
   if (threadIdx.x < kTile) y2part[t * kTile + threadIdx.x] = zc;
@@ -214,62 +252,82 @@ __global__ void tile_pair_sum(Cols cols, int nrb,
   }
 }
 
+template <class Cols>
+int tile_pair_launch(const float* blocks, Cols cols, int nrb, int slots,
+                     const int* inv_ptr, const int* inv_idx, int ncb_out,
+                     float* part, const float* xb, const float* zb, float* y1,
+                     float* y2, cudaStream_t st) {
+  float* y1part = part;
+  float* y2part = part + (size_t)nrb * slots * kTile;
+  tile_pair<Cols><<<nrb * slots, kThreads, 0, st>>>(blocks, cols, xb, zb,
+                                                    y1part, y2part);
+  tile_pair_sum<Cols><<<nrb + ncb_out, kTile, 0, st>>>(
+      cols, nrb, y1part, y1, y2part, inv_ptr, inv_idx, y2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int fos_tile_side(void) { return kTile; }
 
+int fos_dense_tile_rows(void) { return kDenseTileRows; }
+
 const char* fos_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// K1.  A (M, N) row-major; ypart (ceil(N/128), M); zpart (ceil(M/128), N).
-int fos_dense_pair(const float* A, int M, int N, const float* x1,
-                   const float* x2, float* y, float* z, float* ypart,
-                   float* zpart, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int nti = (M + kTile - 1) / kTile;
+// K1.  Record: 0 A (M, N) f32 contiguous, 1 M, 2 N, 3 part (ntj * M +
+// nti * N f32: ypart (ntj, M), then zpart (nti, N)), 4 x1 (N,), 5 x2
+// (M,), 6 y (M,), 7 z (N,), 8 stream; nti = ceil(M / kDenseTileRows)
+// (fos_dense_tile_rows), ntj = ceil(N / 128).
+int fos_dense_pair(const long long* slots) {
+  const Record a{slots};
+  const int M = a.num(1), N = a.num(2);
+  const int nti = (M + kDenseTileRows - 1) / kDenseTileRows;
   const int ntj = (N + kTile - 1) / kTile;
-  dense_pair_tiles<<<dim3(nti, ntj), kThreads, 0, st>>>(A, M, N, x1, x2,
-                                                        ypart, zpart);
-  const int total = M + N;
-  dense_pair_sum<<<(total + 255) / 256, 256, 0, st>>>(ypart, ntj, M, y,
-                                                      zpart, nti, N, z);
+  float* ypart = a.ptr<float>(3);
+  float* zpart = ypart + (size_t)ntj * M;
+  cudaStream_t st = a.stream(8);
+  dense_pair_tiles<<<dim3(nti, ntj), kThreads, 0, st>>>(
+      a.ptr<const float>(0), M, N, a.ptr<const float>(4),
+      a.ptr<const float>(5), ypart, zpart);
+  const int yblocks = (M + kSumOutputs - 1) / kSumOutputs;
+  const int zblocks = (N + kSumOutputs - 1) / kSumOutputs;
+  dense_pair_sum<<<yblocks + zblocks, kThreads, 0, st>>>(
+      ypart, ntj, M, a.ptr<float>(6), yblocks, zpart, nti, N,
+      a.ptr<float>(7));
   return (int)cudaGetLastError();
 }
 
-// K2.  blocks (nrb, S, 128, 128); cs (nrb,); xb (ncb_out, 128) with
-// ncb_out = ncb + S; zb (nrb, 128); y1 (nrb, 128); y2 (ncb_out, 128);
-// y1part, y2part (nrb, S, 128); inv_ptr (ncb_out + 1,); inv_idx (nrb * S,).
-int fos_band_pair(const float* blocks, const int* cs, int nrb, int S,
-                  const float* xb, const float* zb, float* y1, float* y2,
-                  float* y1part, float* y2part, const int* inv_ptr,
-                  const int* inv_idx, int ncb_out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const BandCols cols{cs, S};
-  tile_pair<BandCols><<<nrb * S, kThreads, 0, st>>>(blocks, cols, xb, zb,
-                                                    y1part, y2part);
-  tile_pair_sum<BandCols><<<nrb + ncb_out, kTile, 0, st>>>(
-      cols, nrb, y1part, y1, y2part, inv_ptr, inv_idx, y2);
-  return (int)cudaGetLastError();
+// K2.  Record: 0 blocks (nrb, S, 128, 128), 1 cs (nrb,), 2 nrb, 3 S,
+// 4 inv_ptr (ncb_out + 1,), 5 inv_idx (nrb * S,), 6 ncb_out (= ncb + S),
+// 7 part (2 * nrb * S * 128 f32), 8 xb (ncb_out, 128), 9 zb (nrb, 128),
+// 10 y1 (nrb, 128), 11 y2 (ncb_out, 128), 12 stream.
+int fos_band_pair(const long long* slots) {
+  const Record a{slots};
+  const BandCols cols{a.ptr<const int>(1), a.num(3)};
+  return tile_pair_launch(a.ptr<const float>(0), cols, a.num(2), a.num(3),
+                          a.ptr<const int>(4), a.ptr<const int>(5), a.num(6),
+                          a.ptr<float>(7), a.ptr<const float>(8),
+                          a.ptr<const float>(9), a.ptr<float>(10),
+                          a.ptr<float>(11), a.stream(12));
 }
 
-// K3.  blocks (nrb, kmax, 128, 128); cols (nrb, kmax); counts (nrb,):
-// slots past counts[r] are padding and are skipped; xb (ncb, 128);
-// y1part, y2part (nrb, kmax, 128); inv_ptr (ncb + 1,) lists stored slots.
-int fos_bell_pair(const float* blocks, const int* cols, const int* counts,
-                  int nrb, int kmax, const float* xb, const float* zb,
-                  float* y1, float* y2, float* y1part, float* y2part,
-                  const int* inv_ptr, const int* inv_idx, int ncb_out,
-                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const EllCols ell{cols, counts, kmax};
-  tile_pair<EllCols><<<nrb * kmax, kThreads, 0, st>>>(blocks, ell, xb, zb,
-                                                      y1part, y2part);
-  tile_pair_sum<EllCols><<<nrb + ncb_out, kTile, 0, st>>>(
-      ell, nrb, y1part, y1, y2part, inv_ptr, inv_idx, y2);
-  return (int)cudaGetLastError();
+// K3.  Record: 0 blocks (nrb, kmax, 128, 128), 1 cols (nrb, kmax), 2 counts
+// (nrb,): slots past counts[r] are padding and are skipped, 3 nrb, 4 kmax,
+// 5 inv_ptr (ncb + 1,) listing stored slots, 6 inv_idx, 7 ncb,
+// 8 part (2 * nrb * kmax * 128 f32), 9 xb (ncb, 128), 10 zb (nrb, 128),
+// 11 y1 (nrb, 128), 12 y2 (ncb, 128), 13 stream.
+int fos_bell_pair(const long long* slots) {
+  const Record a{slots};
+  const EllCols ell{a.ptr<const int>(1), a.ptr<const int>(2), a.num(4)};
+  return tile_pair_launch(a.ptr<const float>(0), ell, a.num(3), a.num(4),
+                          a.ptr<const int>(5), a.ptr<const int>(6), a.num(7),
+                          a.ptr<float>(8), a.ptr<const float>(9),
+                          a.ptr<const float>(10), a.ptr<float>(11),
+                          a.ptr<float>(12), a.stream(13));
 }
 
 }  // extern "C"

@@ -42,17 +42,21 @@ probe_prefetch(const int* __restrict__ idx, int nidx,
 
 extern "C" {
 
-// P1.  x, y (n,) f32.
-int fos_probe_tiny(const float* x, float* y, int n, void* stream) {
-  probe_tiny<<<1, kThreads, 0, (cudaStream_t)stream>>>(x, y, n);
+// P1.  Record: 0 n, 1 x (n,) f32, 2 y (n,) f32, 3 stream.
+int fos_probe_tiny(const long long* slots) {
+  const Record a{slots};
+  probe_tiny<<<1, kThreads, 0, a.stream(3)>>>(a.ptr<const float>(1),
+                                              a.ptr<float>(2), a.num(0));
   return (int)cudaGetLastError();
 }
 
-// P2.  idx (nidx,) int32 with nidx <= 256; x, y (n,) f32.
-int fos_probe_prefetch(const int* idx, int nidx, const float* x, float* y,
-                       int n, void* stream) {
-  probe_prefetch<<<1, kThreads, 0, (cudaStream_t)stream>>>(idx, nidx, x, y,
-                                                           n);
+// P2.  Record: 0 n, 1 nidx (<= 256), 2 idx (nidx,) int32, 3 x (n,) f32,
+// 4 y (n,) f32, 5 stream.
+int fos_probe_prefetch(const long long* slots) {
+  const Record a{slots};
+  probe_prefetch<<<1, kThreads, 0, a.stream(5)>>>(
+      a.ptr<const int>(2), a.num(1), a.ptr<const float>(3), a.ptr<float>(4),
+      a.num(0));
   return (int)cudaGetLastError();
 }
 

@@ -99,24 +99,26 @@ tile_mv(const float* __restrict__ blocks, Cols cols,
 
 extern "C" {
 
-// K4.  blocks (nrb, S, 128, 128); cs (nrb,) with cs[r] + S <= rows of xb;
-// xb (>= max cs + S, 128); y (nrb, 128).
-int fos_band_mv(const float* blocks, const int* cs, int nrb, int S,
-                const float* xb, float* y, void* stream) {
-  const BandWindow win{cs, S};
-  tile_mv<BandWindow><<<nrb, kThreads, 0, (cudaStream_t)stream>>>(
-      blocks, win, xb, y);
+// K4.  Record: 0 blocks (nrb, S, 128, 128), 1 cs (nrb,) with cs[r] + S <=
+// rows of xb, 2 nrb, 3 S, 4 xb (>= max cs + S, 128), 5 y (nrb, 128),
+// 6 stream.
+int fos_band_mv(const long long* slots) {
+  const Record a{slots};
+  const BandWindow win{a.ptr<const int>(1), a.num(3)};
+  tile_mv<BandWindow><<<a.num(2), kThreads, 0, a.stream(6)>>>(
+      a.ptr<const float>(0), win, a.ptr<const float>(4), a.ptr<float>(5));
   return (int)cudaGetLastError();
 }
 
-// K5.  blocks (nrb, kmax, 128, 128); cols (nrb, kmax); counts (nrb,): slots
-// at or past counts[r] are padding and are not read; xb (ncb, 128) with
-// every stored column < ncb; y (nrb, 128).
-int fos_bell_mv(const float* blocks, const int* cols, const int* counts,
-                int nrb, int kmax, const float* xb, float* y, void* stream) {
-  const EllSlots ell{cols, counts, kmax};
-  tile_mv<EllSlots><<<nrb, kThreads, 0, (cudaStream_t)stream>>>(
-      blocks, ell, xb, y);
+// K5.  Record: 0 blocks (nrb, kmax, 128, 128), 1 cols (nrb, kmax),
+// 2 counts (nrb,): slots at or past counts[r] are padding and are not
+// read, 3 nrb, 4 kmax, 5 xb (ncb, 128) with every stored column < ncb,
+// 6 y (nrb, 128), 7 stream.
+int fos_bell_mv(const long long* slots) {
+  const Record a{slots};
+  const EllSlots ell{a.ptr<const int>(1), a.ptr<const int>(2), a.num(4)};
+  tile_mv<EllSlots><<<a.num(3), kThreads, 0, a.stream(7)>>>(
+      a.ptr<const float>(0), ell, a.ptr<const float>(5), a.ptr<float>(6));
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 """Carry data and state across from the JAX package, as numpy arrays.
 
 Tests use these helpers to make both packages compute the same thing: a
-cone spec from ``(Cone.name, dim)`` pairs, a tile operator from the tables
-of a JAX tile operator, and a solver state from the leaves of a JAX
+cone spec from ``(Cone.name, dim)`` pairs, a dense or tile operator from
+the arrays of a JAX operator, and a solver state from the leaves of a JAX
 ``SolverState`` (run N steps in JAX, continue in the port).  Nothing here
 imports jax: the caller converts with ``np.asarray``.
 """
@@ -12,8 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fos_tpu_torch.config import default_device
 from fos_tpu_torch.cones.spec import Cone, ConeSpec
 from fos_tpu_torch.linalg.cg import CGState
+from fos_tpu_torch.linalg.dense_pair import PaddedDenseOp
 from fos_tpu_torch.linalg.sparse_ell import BandedBlockOp, BlockedEllOp
 from fos_tpu_torch.solvers.base import SolverState
 
@@ -26,6 +28,14 @@ def cone_spec_from_blocks(blocks, params=()) -> ConeSpec:
 
     return ConeSpec(tuple((cone(str(name)), int(d)) for name, d in blocks),
                     tuple(tuple(p) for p in params))
+
+
+def dense_op_from_numpy(A_pad, m: int, n: int, device=None) -> PaddedDenseOp:
+    """A port :class:`PaddedDenseOp` from a JAX op's padded matrix
+    ``np.asarray(op.A_pad)`` and its ``op.m``, ``op.n``: the (m, n) corner
+    holds A."""
+    A = np.ascontiguousarray(np.asarray(A_pad)[:m, :n])
+    return PaddedDenseOp.create(torch.from_numpy(A).to(default_device(device)))
 
 
 def tile_op_from_numpy(kind: str, blocks, index, m: int, n: int, device=None,

@@ -7,6 +7,27 @@ The library's name carries a hash of the sources, so an edit rebuilds it;
 it lives under ``build/fos_tpu_torch/`` at the root of the checkout.
 Nothing is built or loaded when the module is imported.
 
+The launch route, the same for every kernel wrapper (:class:`Kernel`):
+
+* a kernel is bound once to its fixed operands (the dense A, a tile table
+  and its index tables), which the binder checks once; a call checks only
+  its vectors (device, dtype, shape, contiguity) and raises on what the
+  kernel does not take;
+* every C entry point takes one argument, the address of its *launch
+  record*: a host array of int64 slots (pointers, sizes, the stream last).
+  The fixed slots are written when the kernel is bound; a call writes its
+  vectors' and outputs' pointers and the current stream, read as a raw
+  handle (``torch._C._cuda_getCurrentRawStream``, no Stream object), so a
+  launch is one foreign call with one argument;
+* the pair kernels' partial sums live in a scratch buffer that the
+  operator allocates once; a call allocates only its outputs.
+
+A bound kernel, its record and its scratch serve one host thread and one
+stream at a time, which is how the port runs.  The free wrapper functions,
+which take their fixed operands per call, keep the kernels they bound for
+the last few operands (:func:`bound_kernel`), so a loop over one matrix
+binds once.
+
 ``LAUNCHES`` counts, per kernel wrapper, the calls that launched the kernel
 (a plain integer each); a run reads it to show that its path went through
 the kernels.
@@ -14,6 +35,7 @@ the kernels.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -21,6 +43,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 SRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fos_tpu_torch"
@@ -32,6 +56,8 @@ LAUNCHES = {"fused_matvec": 0, "band_mv_pair": 0, "bell_mv_pair": 0,
 
 #: tile side the kernels are compiled for (checked when the library loads)
 TILE = 128
+#: kernels the free wrapper functions keep bound (:func:`bound_kernel`)
+BOUND_KEPT = 8
 
 _lib = None
 
@@ -100,42 +126,33 @@ def build() -> str:
     return "".join(report)
 
 
+#: the kernels' C entry points, each taking one launch record
+ENTRY_POINTS = ("fos_dense_pair", "fos_band_pair", "fos_bell_pair",
+                "fos_band_mv", "fos_bell_mv", "fos_probe_tiny",
+                "fos_probe_prefetch")
+
+
 def library():
     """The loaded kernel library (built first if needed)."""
     global _lib
     if _lib is None:
         build()
         lib = ctypes.CDLL(str(library_path()))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.fos_tile_side.restype = I
+        lib.fos_tile_side.restype = ctypes.c_int
         lib.fos_tile_side.argtypes = []
+        lib.fos_dense_tile_rows.restype = ctypes.c_int
+        lib.fos_dense_tile_rows.argtypes = []
         lib.fos_error_string.restype = ctypes.c_char_p
-        lib.fos_error_string.argtypes = [I]
-        lib.fos_dense_pair.restype = I
-        lib.fos_dense_pair.argtypes = [P, I, I, P, P, P, P, P, P, P]
-        lib.fos_band_pair.restype = I
-        lib.fos_band_pair.argtypes = [P, P, I, I, P, P, P, P, P, P, P, P, I, P]
+        lib.fos_error_string.argtypes = [ctypes.c_int]
         if lib.fos_tile_side() != TILE:
-            raise RuntimeError("kernel library tile side != 128")
-        lib.fos_bell_pair.restype = I
-        lib.fos_bell_pair.argtypes = [P, P, P, I, I, P, P, P, P, P, P, P, P,
-                                      I, P]
-        lib.fos_band_mv.restype = I
-        lib.fos_band_mv.argtypes = [P, P, I, I, P, P, P]
-        lib.fos_bell_mv.restype = I
-        lib.fos_bell_mv.argtypes = [P, P, P, I, I, P, P, P]
-        lib.fos_probe_tiny.restype = I
-        lib.fos_probe_tiny.argtypes = [P, P, I, P]
-        lib.fos_probe_prefetch.restype = I
-        lib.fos_probe_prefetch.argtypes = [P, I, P, P, I, P]
+            raise RuntimeError(f"kernel library tile side differs from "
+                               f"TILE={TILE}")
+        for name in ENTRY_POINTS:
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p]
         _lib = lib
     return _lib
-
-
-def stream_ptr(device) -> int:
-    import torch
-
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(rc: int, name: str) -> None:
@@ -145,11 +162,102 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
+def operand_key(*tensors):
+    """What identifies fixed operands for :func:`bound_kernel`: each
+    tensor's device, dtype, address, shape and strides (None stays None)."""
+    return tuple(None if t is None else
+                 (t.device, t.dtype, t.data_ptr(), tuple(t.shape), t.stride())
+                 for t in tensors)
+
+
+_bound = collections.OrderedDict()
+
+
+def bound_kernel(key, make):
+    """The kernel bound for ``key`` (a name and :func:`operand_key` of the
+    fixed operands, plus whatever else fixes the binding), made by
+    ``make()`` the first time.  The last ``BOUND_KEPT`` are kept; a kept
+    kernel holds its operands, so their addresses cannot be reused by other
+    tensors while it is kept."""
+    k = _bound.get(key)
+    if k is None:
+        k = _bound[key] = make()
+        if len(_bound) > BOUND_KEPT:
+            _bound.popitem(last=False)
+    else:
+        _bound.move_to_end(key)
+    return k
+
+
+class Kernel:
+    """One kernel bound to its fixed operands.
+
+    ``fixed``: the record's leading slots (pointers and sizes of operands
+    the binder has checked); ``ins``: (shape, dtype) of each vector a call
+    passes; ``outs``: the shapes of the f32 outputs a call allocates.  The
+    record's remaining slots are the vectors, the outputs and the stream,
+    in that order.  ``keep`` holds tensors whose pointers are in ``fixed``.
+    """
+
+    def __init__(self, name, entry, device, fixed, ins, outs, keep=()):
+        if device.type != "cuda" or device.index is None:
+            raise ValueError(f"{name}: needs an indexed CUDA device, got "
+                             f"{device}")
+        self.name, self.device, self.index = name, device, device.index
+        self.ins = tuple((torch.Size(s), d) for s, d in ins)
+        # an output shaped like an f32 input is allocated with empty_like
+        # (the cheapest allocation call), others from their sizes
+        like = {s: k for k, (s, d) in enumerate(self.ins)
+                if d is torch.float32}
+        self.outs = tuple((like.get(torch.Size(s)), tuple(s)) for s in outs)
+        self.keep = keep
+        self.lo = len(fixed)
+        self.slots = (ctypes.c_longlong * (self.lo + len(ins) + len(outs)
+                                           + 1))(*fixed)
+        self.addr = ctypes.addressof(self.slots)
+        self.fn = getattr(library(), entry)
+        self.stream = torch._C._cuda_getCurrentRawStream
+
+    def __call__(self, *vectors):
+        index = self.index
+        for t, (shape, dtype) in zip(vectors, self.ins):
+            if (t.get_device() != index or t.dtype is not dtype
+                    or t.shape != shape or not t.is_contiguous()):
+                self._reject(t, shape, dtype)
+        outs = [torch.empty_like(vectors[k]) if k is not None else
+                torch.empty(*s, dtype=torch.float32, device=self.device)
+                for k, s in self.outs]
+        slots, i = self.slots, self.lo
+        for t in vectors:
+            slots[i] = t.data_ptr()
+            i += 1
+        for t in outs:
+            slots[i] = t.data_ptr()
+            i += 1
+        slots[i] = self.stream(index)
+        rc = self.fn(self.addr)
+        if rc:
+            check(rc, self.name)
+        LAUNCHES[self.name] += 1
+        return outs[0] if len(outs) == 1 else outs
+
+    def _reject(self, t, shape, dtype):
+        if t.device != self.device:
+            raise ValueError(f"{self.name}: a vector is on device {t.device}"
+                             f", expected {self.device}")
+        if t.dtype is not dtype:
+            raise TypeError(f"{self.name}: a vector is {t.dtype}, expected "
+                            f"{dtype}")
+        if t.shape != shape:
+            raise ValueError(f"{self.name}: a vector has shape "
+                             f"{tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{self.name}: a vector is not contiguous")
+
+
 def require_cuda_f32(name: str, device, **tensors) -> None:
     """Raise unless every tensor lies on ``device`` (a CUDA device), is
-    contiguous, and is f32 (index tables: int32)."""
-    import torch
-
+    contiguous, and is f32 (index tables: int32).  Binders run it once on
+    the fixed operands."""
     for key, t in tensors.items():
         if t.device != device:
             raise ValueError(

@@ -1,14 +1,18 @@
 """The fused dense pair ``(A @ x1, A' @ x2)``: kernel K1.
 
-:func:`fused_matvec` reads A once for both products.  On a CUDA tensor it
-launches the hand-written kernel (``csrc/pair_kernels.cu``, the port of
-``fos_tpu.linalg.pallas_kernels.fused_matvec``); on a CPU tensor it runs
-:func:`fused_matvec_plain`, the same function in plain PyTorch.  A CUDA
-input the kernel does not take (not f32, not contiguous, mixed devices)
-raises; nothing falls back.
+:class:`DensePair` binds the hand-written kernel (``csrc/pair_kernels.cu``,
+the port of ``fos_tpu.linalg.pallas_kernels.fused_matvec``) to one CUDA
+matrix: A is checked once, and the kernel's partial sums are allocated
+once.  A call checks its two vectors, allocates the two outputs and
+launches the tile kernel and its ordered sum.  :func:`fused_matvec` takes A
+per call and keeps the last few bindings (``_cuda.bound_kernel``); on a
+CPU tensor it runs :func:`fused_matvec_plain`, the same function in plain
+PyTorch.  A CUDA input the kernel does not take (not f32, not contiguous,
+mixed devices) raises; nothing falls back.
 
-:class:`PaddedDenseOp` keeps the JAX package's name so that the counterpart
-is easy to find.  It pads nothing: the kernel masks its ragged edges.
+:class:`PaddedDenseOp` keeps the JAX package's name so that the
+counterpart is easy to find.  It pads nothing: the kernel masks its ragged
+edges.
 """
 
 from __future__ import annotations
@@ -24,6 +28,41 @@ def fused_matvec_plain(A, x1, x2):
     return torch.matmul(A, x1), torch.matmul(A.T, x2)
 
 
+class DensePair:
+    """K1 bound to one contiguous f32 CUDA matrix A (M, N):
+    ``pair(x1, x2) -> (A @ x1, A' @ x2)``.  It holds the kernel's partial
+    sums (one per column tile for each row of y, one per row tile for each
+    column of z); ``tiles`` is the tile grid (row tiles, column tiles)."""
+
+    def __init__(self, A):
+        name = "fused_matvec"
+        if A.device.type != "cuda":
+            raise ValueError(f"{name}: unsupported device {A.device}")
+        if A.dim() != 2:
+            raise ValueError(f"{name}: A has shape {tuple(A.shape)}")
+        _cuda.require_cuda_f32(name, A.device, A=A)
+        M, N = A.shape
+        if M == 0 or N == 0:
+            raise ValueError(f"{name}: empty A")
+        rows = _cuda.library().fos_dense_tile_rows()
+        nti, ntj = -(-M // rows), -(-N // _cuda.TILE)
+        if ntj > 65535:
+            raise ValueError(f"{name}: N={N} exceeds the kernel's grid")
+        self.tiles = (nti, ntj)
+        self.part = torch.empty(ntj * M + nti * N, dtype=torch.float32,
+                                device=A.device)
+        f32 = torch.float32
+        self.kernel = _cuda.Kernel(
+            name, "fos_dense_pair", A.device,
+            (A.data_ptr(), M, N, self.part.data_ptr()),
+            ins=(((N,), f32), ((M,), f32)), outs=((M,), (N,)),
+            keep=(A, self.part))
+
+    def __call__(self, x1, x2):
+        y, z = self.kernel(x1, x2)
+        return y, z
+
+
 def fused_matvec(A, x1, x2):
     """(A @ x1, A' @ x2) from one pass over A.
 
@@ -36,40 +75,25 @@ def fused_matvec(A, x1, x2):
             f"x2 {tuple(x2.shape)}")
     if all(t.device.type == "cpu" for t in (A, x1, x2)):
         return fused_matvec_plain(A, x1, x2)
-    dev = A.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_matvec: unsupported device {dev}")
-    _cuda.require_cuda_f32("fused_matvec", dev, A=A, x1=x1, x2=x2)
-    if M == 0 or N == 0:
-        raise ValueError("fused_matvec: empty A")
-    lib = _cuda.library()
-    nti, ntj = -(-M // _cuda.TILE), -(-N // _cuda.TILE)
-    if ntj > 65535:
-        raise ValueError(f"fused_matvec: N={N} exceeds the kernel's grid")
-    # outputs and the two partial buffers in one allocation
-    buf = torch.empty(M + N + ntj * M + nti * N, dtype=torch.float32,
-                      device=dev)
-    y, z = buf[:M], buf[M:M + N]
-    ypart = buf[M + N:M + N + ntj * M]
-    zpart = buf[M + N + ntj * M:]
-    rc = lib.fos_dense_pair(A.data_ptr(), M, N, x1.data_ptr(), x2.data_ptr(),
-                            y.data_ptr(), z.data_ptr(), ypart.data_ptr(),
-                            zpart.data_ptr(), _cuda.stream_ptr(dev))
-    _cuda.check(rc, "fused_matvec")
-    _cuda.LAUNCHES["fused_matvec"] += 1
-    return y, z
+    pair = _cuda.bound_kernel(("fused_matvec", _cuda.operand_key(A)),
+                              lambda: DensePair(A))
+    return pair(x1, x2)
 
 
 class PaddedDenseOp:
-    """Dense A serving the fused pair through :func:`fused_matvec` and the
-    single products through ``torch.matmul``; a duck-typed drop-in for the
-    raw tensor in :mod:`fos_tpu_torch.linalg.hsde_ops`."""
+    """Dense A serving the fused pair through K1 and the single products
+    through ``torch.matmul``; a duck-typed drop-in for the raw tensor in
+    :mod:`fos_tpu_torch.linalg.hsde_ops`.  On a CUDA A the kernel is bound
+    when the op is made (:class:`DensePair`)."""
 
     def __init__(self, A):
         self.A = A
+        self._pair = DensePair(A) if A.device.type == "cuda" else None
 
     @classmethod
     def create(cls, A):
+        """Wrap A (a tensor, a sparse COO tensor or anything with
+        ``todense``), made contiguous."""
         if hasattr(A, "todense"):
             A = A.todense()
         elif isinstance(A, torch.Tensor) and A.layout == torch.sparse_coo:
@@ -97,7 +121,9 @@ class PaddedDenseOp:
         return self.A.device
 
     def mv_pair(self, x1, x2):
-        return fused_matvec(self.A, x1, x2)
+        if self._pair is None:
+            return fused_matvec_plain(self.A, x1, x2)
+        return self._pair(x1, x2)
 
     def mv(self, x):
         return torch.matmul(self.A, x)

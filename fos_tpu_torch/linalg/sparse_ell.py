@@ -31,6 +31,7 @@ the same matrix.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -233,35 +234,63 @@ def _on_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
 
-def _tile_launch_checks(name, blocks, xb, zb, tables):
+_F32 = torch.float32
+
+
+def _check_table(name, blocks, aligned=False, **tables):
+    """The checks of a tile table and its index tables, made once when a
+    kernel is bound to them: on one CUDA device, f32 tiles (int32 index
+    tables), contiguous, 128x128 tiles, not empty."""
     dev = blocks.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
-    if tables is None:
-        raise ValueError(f"{name}: the kernel needs the (inv_ptr, inv_idx) "
-                         "inverse table of the operator")
-    _cuda.require_cuda_f32(name, dev, blocks=blocks, xb=xb, zb=zb, **tables)
+    _cuda.require_cuda_f32(name, dev, blocks=blocks, **tables)
+    if aligned:
+        _cuda.require_aligned(name, blocks=blocks)
     side = _cuda.TILE
-    if tuple(blocks.shape[2:]) != (side, side):
+    if blocks.dim() != 4 or tuple(blocks.shape[2:]) != (side, side):
         raise ValueError(f"{name}: tiles must be {side}x{side}, got "
-                         f"{tuple(blocks.shape[2:])}")
-    nrb = blocks.shape[0]
-    if tuple(zb.shape) != (nrb, side) or xb.shape[1] != side:
-        raise ValueError(f"{name}: xb {tuple(xb.shape)} / zb "
-                         f"{tuple(zb.shape)} do not fit the table")
+                         f"{tuple(blocks.shape)}")
+    if blocks.shape[0] == 0:
+        raise ValueError(f"{name}: empty tile table")
     return dev
 
 
-def _outputs(nrb, slots, ncb_out, dev):
-    """y1 (nrb, T), y2 (ncb_out, T) and the partials y1part, y2part
-    (nrb, slots, T), T = 128, carved from one allocation."""
+def _table_slots(blocks, index, counts):
+    """A tile kernel's leading record slots: the tiles, the column index
+    (cs or cols) and, for blocked-ELL, the counts."""
+    return (blocks.data_ptr(), index.data_ptr(),
+            *(() if counts is None else (counts.data_ptr(),)))
+
+
+def _pair_kernel(kind, blocks, index, counts, inverse, ncb_out):
+    """K2 (``kind`` "band": ``index`` is cs) or K3 ("bell": ``index`` is
+    cols, with ``counts``) bound to a checked table: ``(xb, zb) -> (y1,
+    y2)`` with xb (ncb_out, 128), zb (nrb, 128).  It holds the partial
+    buffers y1part, y2part (nrb, slots, 128)."""
+    nrb, slots = blocks.shape[:2]
     T = _cuda.TILE
-    buf = torch.empty((nrb + ncb_out + 2 * nrb * slots) * T,
-                      dtype=torch.float32, device=dev)
-    sizes = (nrb * T, ncb_out * T, nrb * slots * T, nrb * slots * T)
-    y1, y2, p1, p2 = torch.split(buf, sizes)
-    return (y1.view(nrb, T), y2.view(ncb_out, T), p1.view(nrb, slots, T),
-            p2.view(nrb, slots, T))
+    part = torch.empty(2 * nrb * slots * T, dtype=_F32, device=blocks.device)
+    return _cuda.Kernel(
+        f"{kind}_mv_pair", f"fos_{kind}_pair", blocks.device,
+        (*_table_slots(blocks, index, counts), nrb, slots,
+         inverse[0].data_ptr(), inverse[1].data_ptr(), ncb_out,
+         part.data_ptr()),
+        ins=(((ncb_out, T), _F32), ((nrb, T), _F32)),
+        outs=((nrb, T), (ncb_out, T)),
+        keep=(blocks, index, counts, *inverse, part))
+
+
+def _mv_kernel(kind, blocks, index, counts, xrows):
+    """K4 ("band": ``index`` is cs) or K5 ("bell": cols, with ``counts``)
+    bound to a checked table: ``xb -> y`` with xb (xrows, 128) 16-byte
+    aligned (the operators' padded vectors are fresh allocations)."""
+    nrb, slots = blocks.shape[:2]
+    T = _cuda.TILE
+    return _cuda.Kernel(f"{kind}_mv", f"fos_{kind}_mv", blocks.device,
+                        (*_table_slots(blocks, index, counts), nrb, slots),
+                        ins=(((xrows, T), _F32),), outs=((nrb, T),),
+                        keep=(blocks, index, counts))
 
 
 def band_mv_pair(cs, blocks, xb, zb, inverse=None):
@@ -270,23 +299,22 @@ def band_mv_pair(cs, blocks, xb, zb, inverse=None):
     card only)."""
     if _on_cpu(cs, blocks, xb, zb):
         return band_mv_pair_plain(cs, blocks, xb, zb)
-    tables = None if inverse is None else dict(
-        cs=cs, inv_ptr=inverse[0], inv_idx=inverse[1])
-    dev = _tile_launch_checks("band_mv_pair", blocks, xb, zb, tables)
-    nrb, S = blocks.shape[:2]
+    name = "band_mv_pair"
+    if inverse is None:
+        raise ValueError(f"{name}: the kernel needs the (inv_ptr, inv_idx) "
+                         "inverse table of the operator")
     ncb_out = xb.shape[0]
-    if inverse[0].shape[0] != ncb_out + 1 or cs.shape != (nrb,):
-        raise ValueError("band_mv_pair: index tables do not fit the table")
-    y1, y2, y1part, y2part = _outputs(nrb, S, ncb_out, dev)
-    lib = _cuda.library()
-    rc = lib.fos_band_pair(blocks.data_ptr(), cs.data_ptr(), nrb, S,
-                           xb.data_ptr(), zb.data_ptr(), y1.data_ptr(),
-                           y2.data_ptr(), y1part.data_ptr(), y2part.data_ptr(),
-                           inverse[0].data_ptr(), inverse[1].data_ptr(),
-                           ncb_out, _cuda.stream_ptr(dev))
-    _cuda.check(rc, "band_mv_pair")
-    _cuda.LAUNCHES["band_mv_pair"] += 1
-    return y1, y2
+
+    def make():
+        _check_table(name, blocks, cs=cs, inv_ptr=inverse[0],
+                     inv_idx=inverse[1])
+        if (inverse[0].shape[0] != ncb_out + 1
+                or cs.shape != (blocks.shape[0],)):
+            raise ValueError(f"{name}: index tables do not fit the table")
+        return _pair_kernel("band", blocks, cs, None, inverse, ncb_out)
+
+    key = (name, _cuda.operand_key(blocks, cs, *inverse), ncb_out)
+    return tuple(_cuda.bound_kernel(key, make)(xb, zb))
 
 
 def bell_mv_pair(cols, blocks, xb, zb, counts=None, inverse=None):
@@ -295,26 +323,23 @@ def bell_mv_pair(cols, blocks, xb, zb, counts=None, inverse=None):
     operator's tables (needed on the card only)."""
     if _on_cpu(cols, blocks, xb, zb):
         return bell_mv_pair_plain(cols, blocks, xb, zb)
-    tables = None if inverse is None or counts is None else dict(
-        cols=cols, counts=counts, inv_ptr=inverse[0], inv_idx=inverse[1])
-    dev = _tile_launch_checks("bell_mv_pair", blocks, xb, zb, tables)
-    nrb, kmax = blocks.shape[:2]
+    name = "bell_mv_pair"
+    if inverse is None or counts is None:
+        raise ValueError(f"{name}: the kernel needs the (inv_ptr, inv_idx) "
+                         "inverse table and the counts of the operator")
     ncb_out = xb.shape[0]
-    if (inverse[0].shape[0] != ncb_out + 1 or cols.shape != (nrb, kmax)
-            or counts.shape != (nrb,)):
-        raise ValueError("bell_mv_pair: index tables do not fit the table")
-    y1, y2, y1part, y2part = _outputs(nrb, kmax, ncb_out, dev)
-    lib = _cuda.library()
-    rc = lib.fos_bell_pair(blocks.data_ptr(), cols.data_ptr(),
-                           counts.data_ptr(), nrb, kmax, xb.data_ptr(),
-                           zb.data_ptr(), y1.data_ptr(), y2.data_ptr(),
-                           y1part.data_ptr(), y2part.data_ptr(),
-                           inverse[0].data_ptr(),
-                           inverse[1].data_ptr(), ncb_out,
-                           _cuda.stream_ptr(dev))
-    _cuda.check(rc, "bell_mv_pair")
-    _cuda.LAUNCHES["bell_mv_pair"] += 1
-    return y1, y2
+
+    def make():
+        _check_table(name, blocks, cols=cols, counts=counts,
+                     inv_ptr=inverse[0], inv_idx=inverse[1])
+        nrb, kmax = blocks.shape[:2]
+        if (inverse[0].shape[0] != ncb_out + 1 or cols.shape != (nrb, kmax)
+                or counts.shape != (nrb,)):
+            raise ValueError(f"{name}: index tables do not fit the table")
+        return _pair_kernel("bell", blocks, cols, counts, inverse, ncb_out)
+
+    key = (name, _cuda.operand_key(blocks, cols, counts, *inverse), ncb_out)
+    return tuple(_cuda.bound_kernel(key, make)(xb, zb))
 
 
 # --------------------------------------------------------------- K4 and K5
@@ -333,40 +358,24 @@ def bell_mv_plain(cols, blocks, xb):
     return torch.matmul(blocks, xb[cols.long()].unsqueeze(-1)).squeeze(-1).sum(1)
 
 
-def _mv_launch_checks(name, blocks, xb, **tables):
-    dev = blocks.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    _cuda.require_cuda_f32(name, dev, blocks=blocks, xb=xb, **tables)
-    _cuda.require_aligned(name, blocks=blocks, xb=xb)
-    side = _cuda.TILE
-    if blocks.dim() != 4 or tuple(blocks.shape[2:]) != (side, side):
-        raise ValueError(f"{name}: tiles must be {side}x{side}, got "
-                         f"{tuple(blocks.shape)}")
-    if xb.dim() != 2 or xb.shape[1] != side:
-        raise ValueError(f"{name}: xb {tuple(xb.shape)} is not (rows, {side})")
-    if blocks.shape[0] == 0:
-        raise ValueError(f"{name}: empty tile table")
-    return dev
-
-
 def band_mv(cs, blocks, xb):
     """K4: ``y = A x`` over a banded tile table.  ``cs`` must keep every
     window inside ``xb`` (the operators check it when they are built); the
     kernel reads each stored tile once."""
     if _on_cpu(cs, blocks, xb):
         return band_mv_plain(cs, blocks, xb)
-    dev = _mv_launch_checks("band_mv", blocks, xb, cs=cs)
-    nrb, S = blocks.shape[:2]
-    if tuple(cs.shape) != (nrb,) or xb.shape[0] < S:
-        raise ValueError("band_mv: cs / xb do not fit the table")
-    y = torch.empty((nrb, _cuda.TILE), dtype=torch.float32, device=dev)
-    rc = _cuda.library().fos_band_mv(blocks.data_ptr(), cs.data_ptr(), nrb, S,
-                                     xb.data_ptr(), y.data_ptr(),
-                                     _cuda.stream_ptr(dev))
-    _cuda.check(rc, "band_mv")
-    _cuda.LAUNCHES["band_mv"] += 1
-    return y
+    _cuda.require_aligned("band_mv", xb=xb)
+    xrows = xb.shape[0]
+
+    def make():
+        _check_table("band_mv", blocks, aligned=True, cs=cs)
+        nrb, S = blocks.shape[:2]
+        if tuple(cs.shape) != (nrb,) or xrows < S:
+            raise ValueError("band_mv: cs / xb do not fit the table")
+        return _mv_kernel("band", blocks, cs, None, xrows)
+
+    key = ("band_mv", _cuda.operand_key(blocks, cs), xrows)
+    return _cuda.bound_kernel(key, make)(xb)
 
 
 def bell_mv(cols, blocks, xb, counts):
@@ -374,18 +383,18 @@ def bell_mv(cols, blocks, xb, counts):
     ``counts[r]`` stored slots of each row block are read."""
     if _on_cpu(cols, blocks, xb, counts):
         return bell_mv_plain(cols, blocks, xb)
-    dev = _mv_launch_checks("bell_mv", blocks, xb, cols=cols, counts=counts)
-    nrb, kmax = blocks.shape[:2]
-    if tuple(cols.shape) != (nrb, kmax) or tuple(counts.shape) != (nrb,):
-        raise ValueError("bell_mv: cols / counts do not fit the table")
-    y = torch.empty((nrb, _cuda.TILE), dtype=torch.float32, device=dev)
-    rc = _cuda.library().fos_bell_mv(blocks.data_ptr(), cols.data_ptr(),
-                                     counts.data_ptr(), nrb, kmax,
-                                     xb.data_ptr(), y.data_ptr(),
-                                     _cuda.stream_ptr(dev))
-    _cuda.check(rc, "bell_mv")
-    _cuda.LAUNCHES["bell_mv"] += 1
-    return y
+    _cuda.require_aligned("bell_mv", xb=xb)
+
+    def make():
+        _check_table("bell_mv", blocks, aligned=True, cols=cols,
+                     counts=counts)
+        nrb, kmax = blocks.shape[:2]
+        if tuple(cols.shape) != (nrb, kmax) or tuple(counts.shape) != (nrb,):
+            raise ValueError("bell_mv: cols / counts do not fit the table")
+        return _mv_kernel("bell", blocks, cols, counts, xb.shape[0])
+
+    key = ("bell_mv", _cuda.operand_key(blocks, cols, counts), xb.shape[0])
+    return _cuda.bound_kernel(key, make)(xb)
 
 
 # ---------------------------------------------------------------- operators
@@ -443,6 +452,64 @@ class _TileOp:
             f"table): use mv_pair for A'z, or rebuild with {name}.create(A, "
             "transpose_table=True) for standalone rmv")
 
+    def mv(self, x):
+        """A @ x over the A table (K4/K5).  A banded x carries S zero
+        blocks at its end so that every window stays in range."""
+        xb = self._pad(x, self._xrows, self.bn)
+        return self._mv(xb).reshape(-1)[: self.m]
+
+    def rmv(self, y):
+        """A' @ y over the A' table (K4/K5)."""
+        if self._rmv is None:
+            raise self._no_transpose_table()
+        yb = self._pad(y, self._yrows_t, self.bm)
+        return self._rmv(yb).reshape(-1)[: self.n]
+
+    def mv_pair(self, x, z):
+        """(A @ x, A' @ z) from one read of the A table (K2/K3)."""
+        xb = self._pad(x, self._xrows, self.bn)
+        zb = self._pad(z, self.blocks.shape[0], self.bm)
+        y1, y2 = self._pair(xb, zb)
+        return y1.reshape(-1)[: self.m], y2.reshape(-1)[: self.n]
+
+    def _bind(self):
+        """Bind the products to the tables once they are on their device:
+        on the card the kernels (tables checked here, the pair's partials
+        allocated here), on the CPU the plain versions."""
+        kind = self.kind
+        nrb, slots = self.blocks.shape[:2]
+        index = self.cs if kind == "band" else self.cols
+        counts = None if kind == "band" else self.counts
+        # x's tile rows: band windows reach S blocks past the last column
+        ncb_out = self._xrows = self._ncb() + (slots if kind == "band" else 0)
+        t = self.transposed()
+        self._yrows_t = nrb + (t[0].shape[1] if t and kind == "band" else 0)
+        if self.device.type == "cpu":
+            plain_pair, plain_mv = (
+                (band_mv_pair_plain, band_mv_plain) if kind == "band"
+                else (bell_mv_pair_plain, bell_mv_plain))
+            self._pair = functools.partial(plain_pair, index, self.blocks)
+            self._mv = functools.partial(plain_mv, index, self.blocks)
+            self._rmv = (None if t is None
+                         else functools.partial(plain_mv, t[1], t[0]))
+            return
+        name = f"{kind}_mv_pair"
+        tables = (dict(cs=self.cs) if kind == "band" else
+                  dict(cols=self.cols, counts=self.counts))
+        _check_table(name, self.blocks, aligned=True, inv_ptr=self.inv_ptr,
+                     inv_idx=self.inv_idx, **tables)
+        self._pair = _pair_kernel(kind, self.blocks, index, counts,
+                                  (self.inv_ptr, self.inv_idx), ncb_out)
+        self._mv = _mv_kernel(kind, self.blocks, index, counts, ncb_out)
+        self._rmv = None
+        if t is not None:
+            blocks_t, index_t, counts_t = t
+            tables_t = (dict(cs=index_t) if kind == "band" else
+                        dict(cols=index_t, counts=counts_t))
+            _check_table(f"{kind}_mv", blocks_t, aligned=True, **tables_t)
+            self._rmv = _mv_kernel(kind, blocks_t, index_t, counts_t,
+                                   self._yrows_t)
+
     def _transposed(self, blocks, col_of_slot, valid):
         """A' tiles of the A table given on the host (see
         :func:`_transposed_tiles`), checked to stay inside the A' table."""
@@ -458,6 +525,8 @@ class BandedBlockOp(_TileOp):
     """Banded tile table: row block r holds tile columns [cs[r], cs[r]+S).
     The optional A' table (``blocks_t``, ``cs_t``) is packed the same way
     from A' and serves :meth:`rmv`."""
+
+    kind = "band"
 
     def __init__(self, blocks, cs, m, n, inv_ptr, inv_idx, blocks_t=None,
                  cs_t=None):
@@ -520,31 +589,13 @@ class BandedBlockOp(_TileOp):
             _check_index("cs_t", cs_t_h, (ncb,), nrb, inclusive=True)
             self.blocks_t = _tensor(blocks_t, torch.float32, device)
             self.cs_t = _tensor(cs_t_h, torch.int32, device)
+        self._bind()
         return self
 
-    def mv(self, x):
-        """A @ x over the A table (K4).  x carries S zero blocks at its end
-        so that every window stays in range."""
-        S = self.blocks.shape[1]
-        xb = self._pad(x, self._ncb() + S, self.bn)
-        return band_mv(self.cs, self.blocks, xb).reshape(-1)[: self.m]
-
-    def rmv(self, y):
-        """A' @ y over the A' table (K4)."""
-        if self.blocks_t is None:
-            raise self._no_transpose_table()
-        nrb, S_t = self.blocks.shape[0], self.blocks_t.shape[1]
-        yb = self._pad(y, nrb + S_t, self.bm)
-        return band_mv(self.cs_t, self.blocks_t, yb).reshape(-1)[: self.n]
-
-    def mv_pair(self, x, z):
-        """(A @ x, A' @ z) from one read of the A table (K2)."""
-        nrb, S = self.blocks.shape[:2]
-        xb = self._pad(x, self._ncb() + S, self.bn)
-        zb = self._pad(z, nrb, self.bm)
-        y1, y2 = band_mv_pair(self.cs, self.blocks, xb, zb,
-                              (self.inv_ptr, self.inv_idx))
-        return y1.reshape(-1)[: self.m], y2.reshape(-1)[: self.n]
+    def transposed(self):
+        """(blocks_t, cs_t, None), or None without the A' table."""
+        return None if self.blocks_t is None else (self.blocks_t, self.cs_t,
+                                                   None)
 
     def todense(self):
         nrb, S, bm, bn = self.blocks.shape
@@ -562,6 +613,8 @@ class BlockedEllOp(_TileOp):
     columns ``cols[r, :counts[r]]``; the remaining slots are zero padding
     aliasing column 0.  The optional A' table (``blocks_t``, ``cols_t``,
     ``counts_t``) is packed the same way from A' and serves :meth:`rmv`."""
+
+    kind = "bell"
 
     def __init__(self, blocks, cols, counts, m, n, inv_ptr, inv_idx,
                  blocks_t=None, cols_t=None, counts_t=None):
@@ -636,30 +689,13 @@ class BlockedEllOp(_TileOp):
                          inclusive=True)
             self.blocks_t = _tensor(blocks_t, torch.float32, device)
             self.cols_t, self.counts_t = t(cols_t_h), t(counts_t_h)
+        self._bind()
         return self
 
-    def mv(self, x):
-        """A @ x over the A table (K5)."""
-        xb = self._pad(x, self._ncb(), self.bn)
-        return bell_mv(self.cols, self.blocks, xb,
-                       self.counts).reshape(-1)[: self.m]
-
-    def rmv(self, y):
-        """A' @ y over the A' table (K5)."""
-        if self.blocks_t is None:
-            raise self._no_transpose_table()
-        yb = self._pad(y, self.blocks.shape[0], self.bm)
-        return bell_mv(self.cols_t, self.blocks_t, yb,
-                       self.counts_t).reshape(-1)[: self.n]
-
-    def mv_pair(self, x, z):
-        """(A @ x, A' @ z) from one read of the A table (K3)."""
-        nrb = self.blocks.shape[0]
-        xb = self._pad(x, self._ncb(), self.bn)
-        zb = self._pad(z, nrb, self.bm)
-        y1, y2 = bell_mv_pair(self.cols, self.blocks, xb, zb, self.counts,
-                              (self.inv_ptr, self.inv_idx))
-        return y1.reshape(-1)[: self.m], y2.reshape(-1)[: self.n]
+    def transposed(self):
+        """(blocks_t, cols_t, counts_t), or None without the A' table."""
+        return None if self.blocks_t is None else (self.blocks_t, self.cols_t,
+                                                   self.counts_t)
 
     def todense(self):
         nrb, kmax, bm, bn = self.blocks.shape

@@ -42,42 +42,49 @@ def probe_prefetch_plain(idx, x):
     return x * SCALE
 
 
-def _probe_checks(name, x, **tables):
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    _cuda.require_cuda_f32(name, dev, x=x, **tables)
+_bound = {}
+
+
+def _probe_kernel(name, x, idx=None):
+    """P1 (``idx`` None) or P2 bound to x's device and shape (and idx's
+    length), made once per key: the route every kernel wrapper takes."""
+    key = (name, x.get_device(), x.shape, None if idx is None else idx.shape)
+    k = _bound.get(key)
+    if k is None:
+        if x.device.type != "cuda":
+            raise ValueError(f"{name}: unsupported device {x.device}")
+        f32, n = torch.float32, x.numel()
+        if idx is None:
+            k = _cuda.Kernel(name, "fos_probe_tiny", x.device, (n,),
+                             ins=((x.shape, f32),), outs=(x.shape,))
+        else:
+            if idx.dim() != 1 or idx.numel() > 256:
+                raise ValueError(f"{name}: idx must be (k,) with k <= 256")
+            k = _cuda.Kernel(name, "fos_probe_prefetch", x.device,
+                             (n, idx.numel()),
+                             ins=((idx.shape, torch.int32), (x.shape, f32)),
+                             outs=(x.shape,))
+        _bound[key] = k
+    return k
 
 
 def probe_tiny(x):
     """P1: ``x * 1.0000001`` in one block; x is an (8, 128) f32 tile."""
+    if x.is_cuda:
+        return _probe_kernel("probe_tiny", x)(x)
     if x.device.type == "cpu":
         return probe_tiny_plain(x)
-    _probe_checks("probe_tiny", x)
-    y = torch.empty_like(x)
-    rc = _cuda.library().fos_probe_tiny(x.data_ptr(), y.data_ptr(), x.numel(),
-                                        _cuda.stream_ptr(x.device))
-    _cuda.check(rc, "probe_tiny")
-    _cuda.LAUNCHES["probe_tiny"] += 1
-    return y
+    raise ValueError(f"probe_tiny: unsupported device {x.device}")
 
 
 def probe_prefetch(idx, x):
     """P2: P1 with an (8,) int32 operand that the block loads first (the
     TPU kernel's scalar prefetch)."""
+    if x.is_cuda:
+        return _probe_kernel("probe_prefetch", x, idx)(idx, x)
     if idx.device.type == "cpu" and x.device.type == "cpu":
         return probe_prefetch_plain(idx, x)
-    _probe_checks("probe_prefetch", x, idx=idx)
-    if idx.dim() != 1 or idx.numel() > 256:
-        raise ValueError("probe_prefetch: idx must be (k,) with k <= 256")
-    y = torch.empty_like(x)
-    rc = _cuda.library().fos_probe_prefetch(idx.data_ptr(), idx.numel(),
-                                            x.data_ptr(), y.data_ptr(),
-                                            x.numel(),
-                                            _cuda.stream_ptr(x.device))
-    _cuda.check(rc, "probe_prefetch")
-    _cuda.LAUNCHES["probe_prefetch"] += 1
-    return y
+    raise ValueError(f"probe_prefetch: unsupported device {x.device}")
 
 
 def _chain(fn, x, n):

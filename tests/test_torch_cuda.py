@@ -19,7 +19,8 @@ import torch
 
 from fos_tpu_torch.linalg import _cuda
 from fos_tpu_torch.linalg import sparse_ell as tse
-from fos_tpu_torch.linalg.dense_pair import fused_matvec, fused_matvec_plain
+from fos_tpu_torch.linalg.dense_pair import (PaddedDenseOp, fused_matvec,
+                                             fused_matvec_plain)
 
 pytestmark = pytest.mark.gpu
 RTOL, ATOL = 2e-5, 2e-4
@@ -38,19 +39,59 @@ def _close(got, want):
             float((g - w).abs().max()))
 
 
-@pytest.mark.parametrize("M,N", [(1, 1), (33, 129), (300, 471), (1000, 1000),
-                                 (4097, 130)])
-def test_fused_matvec_kernel(cuda, M, N):
+def _dense(M, N, cuda):
     g = torch.Generator(device="cpu").manual_seed(M * 7919 + N)
-    A = torch.randn(M, N, generator=g).to(cuda)
-    x1 = torch.randn(N, generator=g).to(cuda)
-    x2 = torch.randn(M, generator=g).to(cuda)
+    return (torch.randn(M, N, generator=g).to(cuda),
+            torch.randn(N, generator=g).to(cuda),
+            torch.randn(M, generator=g).to(cuda))
+
+
+# ragged edges, one row of tiles (1x4000), one column of tiles (4000x1),
+# tall and wide (many partials per output in one direction)
+DENSE_SHAPES = [(1, 1), (33, 129), (300, 471), (1000, 1000), (4097, 130),
+                (1, 4000), (4000, 1), (5000, 300), (300, 5000)]
+
+
+@pytest.mark.parametrize("M,N", DENSE_SHAPES)
+def test_fused_matvec_kernel(cuda, M, N):
+    """K1 through the free function and through the operator, against the
+    plain version."""
+    A, x1, x2 = _dense(M, N, cuda)
     before = _cuda.LAUNCHES["fused_matvec"]
     got = fused_matvec(A, x1, x2)
     assert _cuda.LAUNCHES["fused_matvec"] == before + 1
     _close(got, fused_matvec_plain(A, x1, x2))
     again = fused_matvec(A, x1, x2)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
+    op = PaddedDenseOp.create(A)
+    _close(op.mv_pair(x1, x2), got)
+    _close((op.mv(x1), op.rmv(x2)), got)
+
+
+def test_dense_pair_repeats_and_interleaves(cuda):
+    """100 calls give the same bits (the partial buffers are the operator's
+    and are rewritten by every call), also with another operator's calls in
+    between."""
+    A, x1, x2 = _dense(2000, 1000, cuda)
+    B, u1, u2 = _dense(333, 1000, cuda)
+    opa, opb = PaddedDenseOp.create(A), PaddedDenseOp.create(B)
+    first_a, first_b = opa.mv_pair(x1, x2), opb.mv_pair(u1, u2)
+    for _ in range(100):
+        assert all(torch.equal(a, b) for a, b in zip(opa.mv_pair(x1, x2),
+                                                     first_a))
+        assert all(torch.equal(a, b) for a, b in zip(opb.mv_pair(u1, u2),
+                                                     first_b))
+    _close(first_a, fused_matvec_plain(A, x1, x2))
+
+
+def test_dense_op_takes_slices_of_the_state(cuda):
+    """x1, x2 as the HSDE solve passes them: slices of one vector at any
+    offset (not 16-byte aligned)."""
+    A, _, _ = _dense(301, 203, cuda)
+    v = torch.randn(1 + 203 + 301, device=cuda)
+    x1, x2 = v[1:204], v[204:]
+    op = PaddedDenseOp.create(A)
+    _close(op.mv_pair(x1, x2), fused_matvec_plain(A, x1, x2))
 
 
 def _banded(m, n, bw, seed):
@@ -108,6 +149,24 @@ def test_kernels_raise_on_inputs_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="device"):
         fused_matvec(torch.zeros(8, 8, device=cuda), torch.zeros(8),
                      torch.zeros(8, device=cuda))
+    # the bound routes: fixed operands at build, vectors per call
+    with pytest.raises(TypeError, match="float32"):
+        PaddedDenseOp.create(torch.zeros(8, 8, dtype=torch.float64,
+                                         device=cuda))
+    op = PaddedDenseOp.create(torch.zeros(8, 16, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        op.mv_pair(torch.zeros(8, device=cuda), torch.zeros(8, device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        op.mv_pair(torch.zeros(16, dtype=torch.float64, device=cuda),
+                   torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        op.mv_pair(torch.zeros(32, device=cuda)[::2],
+                   torch.zeros(8, device=cuda))
+    with pytest.raises(ValueError, match="device"):
+        op.mv_pair(torch.zeros(16), torch.zeros(8, device=cuda))
+    _, band = _ops("band_1000x1200", "band", cuda)
+    with pytest.raises(ValueError, match="device"):
+        band.mv_pair(torch.zeros(1200), torch.zeros(1000, device=cuda))
 
 
 def _ops(case, kind, cuda):
@@ -173,3 +232,21 @@ def test_tile_mv_raise_on_inputs_they_do_not_take(cuda):
         tse.bell_mv(ell.cols, ell.blocks, torch.zeros(ell._ncb(), 128,
                                                       device=cuda),
                     ell.counts.cpu())
+
+
+def test_soc_projection_repeats_on_card(cuda):
+    """The mixed SOC / rotated-SOC projection repeats bit for bit on the
+    card (no atomics) and agrees with the CPU projection."""
+    from fos_tpu_torch.cones import project
+    from fos_tpu_torch.interop import cone_spec_from_blocks
+
+    rng = np.random.default_rng(5)
+    blocks = [("NONNEG", 7)] + [
+        (("SOC", "SOC_ROTATED")[i % 2], int(d))
+        for i, d in enumerate(rng.integers(3, 300, 60))]
+    spec = cone_spec_from_blocks(blocks)
+    x = torch.as_tensor(rng.standard_normal((3, spec.dim)) * 3.0)
+    got = project(spec, x.to(cuda))
+    assert torch.equal(project(spec, x.to(cuda)), got)
+    np.testing.assert_allclose(got.cpu().numpy(), project(spec, x).numpy(),
+                               rtol=1e-12, atol=1e-12)

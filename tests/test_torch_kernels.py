@@ -18,7 +18,8 @@ from fos_tpu.linalg import sparse_ell as jse
 from fos_tpu_torch import interop
 from fos_tpu_torch.linalg import _cuda
 from fos_tpu_torch.linalg import sparse_ell as tse
-from fos_tpu_torch.linalg.dense_pair import PaddedDenseOp, fused_matvec
+from fos_tpu_torch.linalg.dense_pair import (PaddedDenseOp, fused_matvec,
+                                             fused_matvec_plain)
 
 RTOL, ATOL = 2e-5, 2e-4
 
@@ -83,6 +84,81 @@ def test_fused_matvec_plain_vs_pallas(M, N, rng):
     op = PaddedDenseOp.create(torch.from_numpy(A))
     py, pz = op.mv_pair(torch.from_numpy(x1), torch.from_numpy(x2))
     assert torch.equal(py, ty) and torch.equal(pz, tz)
+
+
+@pytest.mark.parametrize("M,N", [(33, 129), (300, 471), (1000, 1000)])
+def test_padded_dense_op_matches_jax(M, N, rng):
+    """The port's PaddedDenseOp gives the JAX PaddedDenseOp's mv, rmv and
+    mv_pair (Pallas, interpret mode, A padded to 256x256 tiles) on the same
+    A at ragged shapes; so does the op carried across from the JAX op's own
+    padded array by ``interop.dense_op_from_numpy``."""
+    A = rng.standard_normal((M, N)).astype(np.float32)
+    x1, x2 = _vectors(M, N)
+    jop = jpk.PaddedDenseOp.create(A, bm=256, bn=256, interpret=True)
+    jx1, jx2 = jnp.asarray(x1), jnp.asarray(x2)
+    want = (*jop.mv_pair(jx1, jx2), jop.mv(jx1), jop.rmv(jx2))
+    op = PaddedDenseOp.create(torch.from_numpy(A))
+    iop = interop.dense_op_from_numpy(np.asarray(jop.A_pad), jop.m, jop.n,
+                                      device="cpu")
+    assert op.shape == iop.shape == (M, N) and iop.A.is_contiguous()
+    for o in (op, iop):
+        t1, t2 = torch.from_numpy(x1), torch.from_numpy(x2)
+        got = (*o.mv_pair(t1, t2), o.mv(t1), o.rmv(t2))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
+                                       atol=ATOL)
+        np.testing.assert_array_equal(o.todense().numpy(), A)
+
+
+def test_bound_kernel_cache_keeps_the_last_few():
+    """The free wrappers' bindings: one per key, made once, the last
+    ``BOUND_KEPT`` kept, a kept key refreshed when it is used."""
+    made = []
+    _cuda._bound.clear()
+
+    def make(key):
+        made.append(key)
+        return object()
+
+    keys = [("test", i) for i in range(_cuda.BOUND_KEPT + 1)]
+    first = _cuda.bound_kernel(keys[0], lambda: make(keys[0]))
+    for k in keys[1:-1]:
+        _cuda.bound_kernel(k, lambda k=k: make(k))
+    assert _cuda.bound_kernel(keys[0], lambda: make("again")) is first
+    _cuda.bound_kernel(keys[-1], lambda: make(keys[-1]))  # evicts keys[1]
+    assert _cuda.bound_kernel(keys[0], lambda: make("again")) is first
+    _cuda.bound_kernel(keys[1], lambda: make("remade"))
+    assert made == keys + ["remade"]
+    _cuda._bound.clear()
+    A = torch.zeros(3, 4)
+    assert _cuda.operand_key(A, None) == _cuda.operand_key(A.view(3, 4), None)
+    assert _cuda.operand_key(A) != _cuda.operand_key(A.T)
+
+
+def test_free_wrappers_on_cpu_run_plain_and_bind_nothing():
+    """On CPU tensors the free wrappers are their plain versions: the same
+    results, and no kernel bound (no library is loaded)."""
+    g = torch.Generator().manual_seed(8)
+    A, x1, x2 = (torch.randn(5, 7, generator=g), torch.randn(7, generator=g),
+                 torch.randn(5, generator=g))
+    blocks = torch.randn(2, 2, 128, 128, generator=g)
+    cs = torch.tensor([0, 1], dtype=torch.int32)
+    cols = torch.tensor([[0, 2], [1, 2]], dtype=torch.int32)
+    counts = torch.tensor([2, 2], dtype=torch.int32)
+    xb, zb = torch.randn(3, 128, generator=g), torch.randn(2, 128, generator=g)
+    _cuda._bound.clear()
+    pairs = [(fused_matvec(A, x1, x2), fused_matvec_plain(A, x1, x2)),
+             (tse.band_mv_pair(cs, blocks, xb, zb),
+              tse.band_mv_pair_plain(cs, blocks, xb, zb)),
+             (tse.bell_mv_pair(cols, blocks, xb, zb),
+              tse.bell_mv_pair_plain(cols, blocks, xb, zb)),
+             ((tse.band_mv(cs, blocks, xb),),
+              (tse.band_mv_plain(cs, blocks, xb),)),
+             ((tse.bell_mv(cols, blocks, xb, counts),),
+              (tse.bell_mv_plain(cols, blocks, xb),))]
+    for got, want in pairs:
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not _cuda._bound and _cuda._lib is None
 
 
 @pytest.mark.parametrize("case", sorted(SPARSE_CASES))

@@ -68,6 +68,9 @@ SPECS = {
                 (JCone.SOC, 3)],
     "mixed": [(JCone.NONNEG, 10), (JCone.SOC_ROTATED, 42), (JCone.ZERO, 41),
               (JCone.SOC, 6), (JCone.FREE, 1)],
+    # tails of every power-of-two width class from 1 to 128, interleaved
+    "widths": [(JCone.SOC, d) if i % 3 else (JCone.SOC_ROTATED, d + 1)
+               for i, d in enumerate((2, 3, 5, 9, 17, 33, 65, 129, 4, 100))],
 }
 
 
