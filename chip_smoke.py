@@ -16,8 +16,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s) and, where one
    PyTorch call computes the same function, that call's time.  K1 at the
    two dense shapes and at the tile-counting shapes of the card tests,
-   with its kernels per call (the tile kernel and its ordered sum) and
-   each one's device time, a 100-call bit repeat and a CUDA-graph replay; K2/K3 (the pairs);
+   with a 100-call bit repeat in which the device counts each of its two
+   kernels (the tile kernel and its ordered sum) once per call, each
+   kernel's device time, and a CUDA-graph replay; K2/K3 (the pairs);
    K4/K5 over the A tables (``mv``) and the A' tables (``rmv``), against a
    block-sparse ``torch.sparse_bsr_tensor`` matvec; the SOC/rotated-SOC
    projection run twice on the card (bit-equal) against the CPU;
@@ -33,24 +34,45 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    dense) with all seven algorithms;
 4. the launch probe: P1/P2 bit-equal to their plain versions, then every
    line of ``fos_tpu_torch.tools.launch_probe.main()``, and P1/P2's cost
-   in a dependent chain over torch's tiny multiply's (target <= 1.3).
+   in a dependent chain over torch's tiny multiply's (target <= 1.3);
+5. ``graphs``: the solve's device loops as CUDA graphs.  The condition
+   kernels of ``csrc/graph.cu`` (cg_continue, count_continue,
+   flag_continue) against their plain versions, and the cost of one pass
+   of a WHILE node; then the dense (K1), banded (K2) and scattered (K3) LPs
+   and the banded (K4) and scattered (K5) feasibility solves, each run
+   three ways in this process: ``engine._run_eager`` (the plain version:
+   CG reads the host once per group), ``engine.run`` (one captured graph per
+   chunk, one host read per check) and ``engine.fused_solve`` (one graph,
+   run under ``torch.cuda.set_sync_debug_mode("error")``).  Status,
+   iterations, CG iterations and the bits of the final iterate are gated
+   equal between the routes; then profiled 200-iteration solves of
+   both routes (iterations/s; device idle share: the profiler's kernel time
+   for the eager route, the CUDA-event spans of the graph replays for the
+   graph route; the kernel rows the profiler shows for a graph replay).
 
-The launch counters are zeroed just before each path (2, 3, 4) and read
-just after it: every kernel must have been launched by its path (launches
-made to compare a kernel with its plain version are not counted).  Then
-short profiled solves show the device's busy and idle time and its top
-kernels.  The line before the last lists the kernels; the last line is the
-run's result.  Needs one CUDA card; fails without one.
+Each kernel counts its launches on the device (``_cuda.
+device_launch_counts``), graph replays included: the counts are zeroed
+just before each path (2, 3, 4) and read just after it (and after each of
+its solves, for that solve's count), and every kernel must have been
+launched by its path; these are the ``launches`` of the kernels line.  The
+wrappers' host counts (``_cuda.LAUNCHES``) count the calls that launched
+or captured a kernel (``captured_calls``): a replay calls no wrapper.
+The line before the last lists the kernels; the last line is the run's
+result.  Needs one CUDA card; fails without one.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -81,12 +103,16 @@ K1_EDGE_SHAPES = ((1, 4000), (4000, 1), (5000, 300), (300, 5000))
 K1_KERNELS_PER_CALL = 2   # the tile kernel and its ordered sum
 K1_REPEATS = 100
 LAUNCH_ROUTE_TARGET = 1.3   # P1 per call in a chain / torch's tiny multiply
-# iterations of the same solves at commit b4f7f51 (on an NVIDIA H100 80GB
+# iterations of the same solves at commit 2d6fc2b (on an NVIDIA H100 80GB
 # HBM3, 700 W), printed beside this run's: a changed sum order in a pair
 # kernel may move CG counts and so these (ROADMAP queue 3)
-REFERENCE_ITERS = {"dense_lp": 900, "dense_lp_continued": 4200,
+REFERENCE_ITERS = {"dense_lp": 900, "dense_lp_continued": 4500,
                     "dense_scaling": 300, "banded_lp": 2000,
                     "scattered_lp": 2200}
+# the graph phase's profiled solves
+PROFILE_ITERS = 200
+# condition kernels: passes of a WHILE node timed for its per-pass cost
+WHILE_PASSES = 2000
 
 
 # ------------------------------------------------------------- problems
@@ -265,8 +291,10 @@ def graph_us(fn, calls=50, reps=10):
 
 
 def kernel_breakdown(fn, reps=20):
-    """(device kernels per call, device ms per call of each kernel by
-    name) from the profiler; memcpy and memset rows are not kernels."""
+    """(kernel records per call, device ms per call of each kernel by name,
+    the record count of each) from the profiler; memcpy and memset rows are
+    not kernels.  Printed only: the profiler has been seen to lose a record
+    (39 over 20 calls of K1), so launches are counted on the device."""
     kernels = [e for e in _profiled(fn, reps)
                if not e.key.lower().startswith(("memcpy", "memset"))]
 
@@ -276,7 +304,8 @@ def kernel_breakdown(fn, reps=20):
 
     return (sum(e.count for e in kernels) / reps,
             {name(e.key): e.self_device_time_total / reps / 1e3
-             for e in kernels})
+             for e in kernels},
+            {name(e.key): e.count for e in kernels})
 
 
 def _device_events(prof):
@@ -390,6 +419,279 @@ def library_mv(blocks, col_of_slot, counts, ncols, dev):
     return lambda x: bsr @ x
 
 
+
+# ------------------------------------------------------------ graph route
+def _if_taken(dev, make_cond):
+    """A graph whose IF node the condition ``make_cond()`` sets; its body
+    writes 1 to the returned flag."""
+    import torch
+    from fos_tpu_torch.linalg import control
+    from fos_tpu_torch.solvers import graphs
+
+    hit = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def fn(hit):
+        control._Captured.if_(hit, make_cond, lambda: hit.fill_(1))
+        return (hit,)
+
+    g = graphs.Captured(fn, (hit,))
+
+    def taken():
+        return bool(g(hit)[0])   # the arg buffer is zeroed by the copy-in
+    return taken
+
+
+def condition_kernels(dev):
+    """Each condition kernel of csrc/graph.cu against its plain version (the
+    value ``Condition.plain()`` reads on the host): over a grid of inputs,
+    the IF node it sets must take the branch the plain version takes, and
+    a counter it resets or advances must end where the plain version's
+    does.  ``max_abs_err`` counts the disagreements.  Then the cost of one
+    pass of a WHILE node: the condition kernel and the node's relaunch of
+    its body (``ms``), against the plain version's host read (``plain_ms``,
+    what the eager loop pays per pass)."""
+    import itertools
+
+    import torch
+    from fos_tpu_torch.linalg import control
+    from fos_tpu_torch.solvers import graphs
+
+    f32, i32 = torch.float32, torch.int32
+    rn, tol2 = (torch.zeros((), dtype=f32, device=dev) for _ in range(2))
+    it, k, status = (torch.zeros((), dtype=i32, device=dev) for _ in range(3))
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    out = {}
+
+    # cg_continue: (rn > tol2) & (it < max_iters), NaN included
+    taken = _if_taken(dev, lambda: control.CGContinue(rn, tol2, it, 5))
+    bad = 0
+    for r, t, i in itertools.product((0.0, 0.5, 1.0, 2.0, math.nan),
+                                     (1.0,), (0, 4, 5, 6)):
+        rn.fill_(r), tol2.fill_(t), it.fill_(i)
+        bad += taken() != control.CGContinue(rn, tol2, it, 5).plain()
+    out["cg_continue"] = {"max_abs_err": float(bad)}
+
+    # count_continue: every mode, with and without a status
+    bad = 0
+    for mode, with_status in itertools.product(
+            (control.TEST, control.RESET, control.ADVANCE), (False, True)):
+        st_arg = status if with_status else None
+        taken = _if_taken(dev, lambda: control.Count(k, mode, 3, st_arg, 0))
+        for kv, sv in itertools.product((0, 2, 3), (0, 1)):
+            k.fill_(kv), status.fill_(sv)
+            got = taken()
+            k_got = int(k)
+            k.fill_(kv)
+            want = control.Count(k, mode, 3, st_arg, 0).plain()
+            bad += (got != want) + (k_got != int(k))
+    out["count_continue"] = {"max_abs_err": float(bad)}
+
+    # flag_continue: the flag and its negation
+    bad = 0
+    for negate in (False, True):
+        taken = _if_taken(dev, lambda: control.Flag(flag, negate))
+        for v in (False, True):
+            flag.fill_(v)
+            bad += taken() != control.Flag(flag, negate).plain()
+    out["flag_continue"] = {"max_abs_err": float(bad)}
+
+    # one WHILE pass: a loop whose body holds only its condition kernel
+    # (count_continue advancing the counter, flag_continue on a flag the
+    # body recomputes) or, for cg_continue, CG's counter update
+    passes = WHILE_PASSES
+
+    def cg_loop(c):
+        return control.while_loop(
+            lambda c: control.CGContinue(rn, tol2, c[0], passes),
+            lambda c: (c[0] + 1,), c)
+
+    def flag_loop(c):
+        return control.while_loop(
+            lambda c: control.Flag(c[0] < passes),
+            lambda c: (c[0] + 1,), c)
+
+    def count_loop(c):
+        return control.fori_loop(passes, lambda _, c: c, c)
+
+    rn.fill_(1.0), tol2.fill_(0.0)
+    zero = torch.zeros((), dtype=i32, device=dev)
+    for name, loop, plain in (
+            ("cg_continue", cg_loop,
+             lambda: control.CGContinue(rn, tol2, zero, passes).plain()),
+            ("count_continue", count_loop,
+             lambda: control.Count(k, control.TEST, passes).plain()),
+            ("flag_continue", flag_loop,
+             lambda: control.Flag(zero < passes).plain())):
+        g = graphs.Captured(loop, ((zero,),))
+        res = g((zero,))
+        if name != "count_continue" and int(res[0]) != passes:
+            raise AssertionError(f"{name}: a WHILE loop made {int(res[0])} "
+                                 f"passes, expected {passes}")
+        out[name].update(
+            ms=median_ms(lambda: g((zero,)), reps=10) / passes,
+            plain_ms=median_ms(plain), **bound(16, 1), library_ms=None)
+    bad = [k for k, v in out.items() if v["max_abs_err"]]
+    if bad:
+        raise AssertionError(f"condition kernels disagree with plain: {bad}")
+    return out
+
+
+@contextlib.contextmanager
+def host_syncs():
+    """The synchronising calls made inside the block, as PyTorch's sync
+    debug mode reports them ("warn": one warning each; the host's reads of
+    the device are among them)."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        found = []
+        try:
+            yield found
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            found.extend(w for w in caught
+                         if "synchroniz" in str(w.message).lower()
+                         and "prototype" not in str(w.message))
+
+
+def run_routes(name, make_form, x0_of, eps, max_iters, checki=100):
+    """One solve three ways in this process: the eager chunks (the plain
+    version), the graph chunks of ``engine.run`` (twice on one form: the
+    first call captures), and ``fused_solve`` (twice: capture, then a
+    replay), both fused calls under sync debug mode "error".  Gates equal
+    status, iterations, CG iterations and final iterates (bit for bit)
+    against the eager route's, and reports the memory each first call's
+    capture added to what PyTorch reserves on the card."""
+    import torch
+    from fos_tpu_torch import DR
+    from fos_tpu_torch.solvers import engine
+
+    def cg_total(state):
+        cg = state.s1_state
+        return None if cg.total_iters is None else int(cg.total_iters)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def reserved_mib():
+        return torch.cuda.memory_reserved() / 2**20
+
+    opts = dict(eps=eps, max_iters=max_iters, checki=checki, verbose=0)
+    out = {"phase": "graphs", "path": name}
+    name_of = engine.Status.name
+    with host_syncs() as syncs:
+        eager, secs = timed(lambda: engine._run_eager(make_form(), DR(),
+                                                      **opts))
+    out["eager"] = {"status": name_of(eager.status), "iters": eager.iters,
+                    "host_syncs": len(syncs),
+                    "cg_iters": cg_total(eager.state), "seconds": secs,
+                    "iters_per_s": eager.iters / secs}
+    form = make_form()
+    for key in ("graph_first", "graph"):   # the first call captures
+        before = reserved_mib()
+        with host_syncs() as syncs:
+            res, secs = timed(lambda: engine.run(form, DR(), **opts))
+        out[key] = {"status": name_of(res.status), "iters": res.iters,
+                    "reserved_mib_added": reserved_mib() - before,
+                    "host_syncs": len(syncs),
+                    "cg_iters": cg_total(res.state), "seconds": secs,
+                    "iters_per_s": res.iters / secs,
+                    "bit_equal": bool(torch.equal(res.guess, eager.guess)),
+                    "max_abs_diff": float((res.guess - eager.guess)
+                                          .abs().max())}
+    form = make_form()
+    x0 = x0_of(form)
+    for key in ("fused_first", "fused"):
+        before = reserved_mib()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fres, secs = timed(lambda: engine.fused_solve(
+                DR(), form, x0, max_iters=max_iters, eps=eps, checki=checki))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        iters = int(fres.iters)
+        # fused_solve's state is the one before getsol's projection
+        pre = None if eager.state.s1_state.total_iters is None else (
+            cg_total(eager.state) - int(eager.state.s1_state.last_iters))
+        out[key] = {"status": name_of(int(fres.status)),
+                    "reserved_mib_added": reserved_mib() - before,
+                    "iters": iters, "cg_iters_before_getsol":
+                        cg_total(fres.state), "eager_cg_iters_before_getsol":
+                        pre, "seconds": secs, "iters_per_s": iters / secs,
+                    "sync_debug": "error",
+                    "bit_equal": bool(torch.equal(fres.guess, eager.guess)),
+                    "max_abs_diff": float((fres.guess - eager.guess)
+                                          .abs().max())}
+    emit(out)
+    e = out["eager"]
+    for key in ("graph_first", "graph", "fused_first", "fused"):
+        r = out[key]
+        # a spent budget: run keeps Continue after a check at the last
+        # iteration, fused_solve (as JAX's) checks the guess at the end
+        spent = e["status"] == "Continue" and e["iters"] == max_iters
+        fused = key.startswith("fused")
+        if ((r["status"] != e["status"] and not (fused and spent))
+                or r["iters"] != e["iters"]):
+            raise AssertionError(f"{name}: the {key} route gives {r['status']}"
+                                 f" at {r['iters']}, eager {e['status']} at "
+                                 f"{e['iters']}")
+        cg = ((r["cg_iters_before_getsol"], r["eager_cg_iters_before_getsol"])
+              if fused else (r["cg_iters"], e["cg_iters"]))
+        if cg[0] != cg[1] or not r["bit_equal"]:
+            raise AssertionError(f"{name}: the {key} route's CG iterations "
+                                 f"{cg[0]} (eager {cg[1]}), final iterate "
+                                 f"bit-equal {r['bit_equal']} (max |d| "
+                                 f"{r['max_abs_diff']})")
+    return out
+
+
+def profile_routes(name, make_form, eps):
+    """A PROFILE_ITERS-iteration solve on each route.  Eager: the profiler's
+    kernel time over the wall time.  Graph (after a first run captures):
+    the CUDA-event spans of the replays over the wall time, since the
+    profiler's records of a replayed graph fall short of the kernels the
+    device ran; then one profiled graph run for the rows it shows.  Each
+    profiled run prints the device's launch counts beside its rows."""
+    import torch
+    from fos_tpu_torch import DR
+    from fos_tpu_torch.linalg import _cuda
+    from fos_tpu_torch.solvers import engine, graphs
+
+    opts = dict(eps=eps, max_iters=PROFILE_ITERS, verbose=0)
+    _cuda.device_launch_counts(reset=True)
+    sol, eager = profile_solve(
+        lambda: engine._run_eager(make_form(), DR(), **opts))
+    eager["device_counts_of_that_run"] = {
+        k: v for k, v in _cuda.device_launch_counts(reset=True).items() if v}
+    eager["iters_per_s"] = sol.iters / eager["wall_s"]
+    form = make_form()
+    engine.run(form, DR(), **opts)
+    torch.cuda.synchronize()
+    with graphs.replay_spans() as spans:
+        t0 = time.perf_counter()
+        res = engine.run(form, DR(), **opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    span_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    _cuda.device_launch_counts(reset=True)
+    _, rows = profile_solve(lambda: engine.run(form, DR(), **opts), top=12)
+    counted = {k: v for k, v in _cuda.device_launch_counts(reset=True).items()
+               if v}
+    graph = {"wall_s": wall, "replay_span_s": span_s,
+             "device_idle_share": 1.0 - span_s / wall, "replays": len(spans),
+             "iters_per_s": res.iters / wall,
+             "profiler_rows_of_a_replayed_run": rows["top_kernels"],
+             "device_counts_of_that_run": counted}
+    emit({"phase": "graphs_profile", "path": name, "iters": res.iters,
+          "eager": eager, "graph": graph})
+    return eager, graph
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -400,7 +702,7 @@ def main() -> int:
     from fos_tpu_torch import (DR, GAP, AP, GAPA, GAPP, FISTA, Dykstra,
                                AffinePlusLinearProjector, AffineSet,
                                BandedBlockOp, BlockSet, BlockedEllOp, Box,
-                               Feasibility, NonNeg, nonneg, solve,
+                               Feasibility, NonNeg, Status, nonneg, solve,
                                solve_feasibility)
     from fos_tpu_torch.cones import project
     from fos_tpu_torch.config import require_hopper
@@ -430,6 +732,15 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0),
           "ptxas": [ln.strip() for ln in report.splitlines()
                     if "registers" in ln or "spill" in ln]})
+    # conditional nodes are built by csrc/graph.cu: torch's own graph class
+    # is searched for a conditional-node capture of its own
+    driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version",
+                             "--format=csv,noheader"], capture_output=True,
+                            text=True, check=True).stdout.strip()
+    emit({"phase": "graph_api", "driver": driver,
+          "torch_conditional_capture": [
+              n for n in dir(torch.cuda.CUDAGraph)
+              if any(w in n for w in ("cond", "while", "if_node"))]})
 
     # --- the problems (set-up, not counted)
     N1, N4 = DENSE_N, SCALING_N
@@ -477,11 +788,20 @@ def main() -> int:
         res.update(bound(4 * (M * N + 2 * M + 2 * N), 4 * M * N),
                    library_ms=None)
         first = op.mv_pair(x1, x2)
-        res["bit_repeat_100"] = all(
+        # the device counts each kernel's launches over the repeat
+        _cuda.device_launch_counts(reset=True)
+        res["bit_repeat_100"] = all([
             all(torch.equal(a, b) for a, b in zip(op.mv_pair(x1, x2), first))
-            for _ in range(K1_REPEATS))
-        res["kernels_per_call"], res["device_ms_by_kernel"] = \
-            kernel_breakdown(lambda: op.mv_pair(x1, x2))
+            for _ in range(K1_REPEATS)])
+        counts = _cuda.device_launch_counts(reset=True)
+        res["launches_in_repeat"] = {
+            "dense_pair_tiles": counts["fused_matvec"],
+            "dense_pair_sum": counts["fused_matvec_sum"]}
+        res["kernels_per_call"] = sum(
+            res["launches_in_repeat"].values()) / K1_REPEATS
+        (res["profiler_kernels_per_call"], res["device_ms_by_kernel"],
+         res["profiler_records_by_kernel"]) = kernel_breakdown(
+            lambda: op.mv_pair(x1, x2))
         res["free_function_ms"] = median_ms(lambda: fused_matvec(At, x1, x2))
         res["tiles"] = list(op._pair.tiles)
         # in a CUDA graph (launch gaps counted): the kernels keep no state
@@ -490,13 +810,14 @@ def main() -> int:
         res["graph_bit_equal"] = all(torch.equal(a, b)
                                      for a, b in zip(replayed, first))
         emit({"phase": "kernel", "name": name, "shape": [M, N], **res})
-        if (res["kernels_per_call"] != K1_KERNELS_PER_CALL
+        if (set(res["launches_in_repeat"].values()) != {K1_REPEATS}
+                or res["kernels_per_call"] != K1_KERNELS_PER_CALL
                 or not res["bit_repeat_100"]
                 or not res["graph_bit_equal"]):
-            raise AssertionError(f"{name}: {res['kernels_per_call']} kernels "
-                                 f"per call, 100-call repeat "
-                                 f"{res['bit_repeat_100']}, graph replay "
-                                 f"{res['graph_bit_equal']}")
+            raise AssertionError(f"{name}: launches over {K1_REPEATS} calls "
+                                 f"{res['launches_in_repeat']}, 100-call "
+                                 f"repeat {res['bit_repeat_100']}, graph "
+                                 f"replay {res['graph_bit_equal']}")
         if name == "fused_matvec":
             kernels[name] = {"source": "fos_tpu_torch/csrc/pair_kernels.cu",
                              "replaces": "fos_tpu/linalg/pallas_kernels.py:72",
@@ -593,8 +914,23 @@ def main() -> int:
                              else "fos_tpu/linalg/sparse_ell.py:89"),
                 "shape": list(blocks.shape), **res}
 
+    # the condition kernels of the graph route (csrc/graph.cu)
+    for name, res in condition_kernels(dev).items():
+        emit({"phase": "kernel", "name": name, **res})
+        kernels[name] = {"source": "fos_tpu_torch/csrc/graph.cu",
+                         "replaces": None, "shape": [], **res}
+
     # --- phase 2: the conic path, the path K1-K3's launch counts must show
+    def launched(totals):
+        """The device's launch counts since the last read, added to the
+        path's ``totals``."""
+        counts = _cuda.device_launch_counts(reset=True)
+        totals.update(counts)
+        return counts
+
     _cuda.reset_launch_counts()
+    _cuda.device_launch_counts(reset=True)
+    conic_counts = collections.Counter()
     f32 = torch.float32
 
     sol, secs = timed_solve(lambda: solve(
@@ -606,14 +942,13 @@ def main() -> int:
           "iters_per_s": sol.iters / secs, "obj": sol.objval,
           "obj_certificate": opt1, "rel_obj_err": rel,
           "iters_reference": REFERENCE_ITERS.get("dense_lp"),
-          "fused_matvec_launches": _cuda.LAUNCHES["fused_matvec"]})
+          "fused_matvec_launches": launched(conic_counts)["fused_matvec"]})
     if sol.status != "Optimal":
         raise AssertionError(f"dense LP at eps={GATE_EPS}: {sol.status}")
     # At eps=1e-5 the check (the reference's normalise-twice residuals)
     # admits a 2.4e-3 objective error on this LP: the JAX package stops at
     # the same objective.  The 1e-3 objective gate is held after a warm-
     # started continuation to eps=1e-6.
-    k1_before = _cuda.LAUNCHES["fused_matvec"]
     sol, secs = timed_solve(lambda: solve(
         A1, b1, c1, nonneg(N1), nonneg(N1), alg=DR(), eps=GATE_EPS / 10,
         max_iters=10000, dtype=f32, pallas=True, device=dev, verbose=0,
@@ -624,11 +959,10 @@ def main() -> int:
           "seconds": secs, "iters_per_s": sol.iters / secs,
           "obj": sol.objval, "obj_certificate": opt1, "rel_obj_err": rel,
           "iters_reference": REFERENCE_ITERS.get("dense_lp_continued"),
-          "fused_matvec_launches": _cuda.LAUNCHES["fused_matvec"] - k1_before})
+          "fused_matvec_launches": launched(conic_counts)["fused_matvec"]})
     if sol.status != "Optimal" or rel > GATE_OBJ:
         raise AssertionError(f"dense LP: {sol.status}, rel obj err {rel}")
 
-    k1_before = _cuda.LAUNCHES["fused_matvec"]
     sol, secs = timed_solve(lambda: solve(
         A4, b4, c4, nonneg(N4), nonneg(N4), alg=DR(), eps=GATE_EPS,
         max_iters=300, dtype=f32, pallas=True, device=dev, verbose=0))
@@ -637,15 +971,13 @@ def main() -> int:
           "iters": sol.iters, "seconds": secs, "iters_per_s": sol.iters / secs,
           "finite": finite,
           "iters_reference": REFERENCE_ITERS.get("dense_scaling"),
-          "fused_matvec_launches":
-              _cuda.LAUNCHES["fused_matvec"] - k1_before})
+          "fused_matvec_launches": launched(conic_counts)["fused_matvec"]})
     if not finite:
         raise AssertionError("scaling run produced non-finite values")
 
     for phase, op, b, c, opt in (("banded_lp", band, b_band, c_band, opt_band),
                                  ("scattered_lp", ell, b_ell, c_ell, opt_ell)):
         key = "band_mv_pair" if phase == "banded_lp" else "bell_mv_pair"
-        before = _cuda.LAUNCHES[key]
         sol, secs = timed_solve(lambda: solve(
             op, b, c, nonneg(m), nonneg(n), alg=DR(), eps=GATE_EPS,
             max_iters=10000, verbose=0, device=dev))
@@ -655,15 +987,24 @@ def main() -> int:
               "iters_per_s": sol.iters / secs, "obj": sol.objval,
               "obj_certificate": opt, "rel_obj_err": rel,
               "iters_reference": REFERENCE_ITERS.get(phase),
-              f"{key}_launches": _cuda.LAUNCHES[key] - before})
+              f"{key}_launches": launched(conic_counts)[key]})
         if sol.status != "Optimal" or rel > GATE_OBJ:
             raise AssertionError(f"{phase}: {sol.status}, rel obj err {rel}")
-    launches = dict(_cuda.LAUNCHES)
+    captured = dict(_cuda.LAUNCHES)
+    launched(conic_counts)
     for name in ("fused_matvec", "band_mv_pair", "bell_mv_pair"):
-        kernels[name]["launches"] = launches[name]
+        kernels[name]["launches"] = conic_counts[name]
+        kernels[name]["captured_calls"] = captured[name]
+    # K1 is its tile kernel and its ordered sum: one of each per call
+    kernels["fused_matvec"]["sum_launches"] = conic_counts["fused_matvec_sum"]
+    tiles, sums = conic_counts["fused_matvec"], conic_counts["fused_matvec_sum"]
+    if tiles != sums:
+        raise AssertionError(f"K1 on the conic path: {tiles} tile launches, "
+                             f"{sums} sum launches")
 
     # --- phase 3: the set-feasibility path, through K4 and K5
     _cuda.reset_launch_counts()
+    feas_counts = collections.Counter()
     eps_f32 = float(np.finfo(np.float32).eps)
     for phase, kind in (("banded_feasibility", "band"),
                         ("scattered_feasibility", "bell")):
@@ -673,7 +1014,6 @@ def main() -> int:
                                               -1, device=dev)
         S2 = BlockSet([(Box(0.0, 1.0), n), (NonNeg(), m)])
         eps = FEAS_EPS_FLOORS * (m + n) * eps_f32
-        before = _cuda.LAUNCHES[key]
         sol, secs = timed_solve(lambda: solve_feasibility(
             Feasibility(S1, S2, n + m), DR(), eps=eps, max_iters=10000,
             verbose=0, device=dev))
@@ -686,17 +1026,18 @@ def main() -> int:
         gate = FEAS_RESID * (1.0 + float(np.abs(b).max()))
         cg = sol.state.s1_state
         projections = int(cg.call_idx) - 1
+        count = launched(feas_counts)[key]
         emit({"phase": phase, "shape": [m, n], "table": list(op.blocks.shape),
               "table_t": list(op.blocks_t.shape), "eps": eps,
               "status": sol.status, "iters": sol.iters, "seconds": secs,
               "iters_per_s": sol.iters / secs,
               "cg_iters_per_projection": int(cg.total_iters) / projections,
               "inside_box_and_s_nonneg": inside, "resid_inf": resid,
-              "resid_gate": gate, f"{key}_launches": _cuda.LAUNCHES[key] - before})
+              "resid_gate": gate, f"{key}_launches": count})
         if sol.status != "Optimal" or not inside or resid > gate:
             raise AssertionError(f"{phase}: {sol.status}, inside {inside}, "
                                  f"residual {resid} (gate {gate})")
-        if _cuda.LAUNCHES[key] == before:
+        if count == 0:
             raise AssertionError(f"{phase} never launched {key}")
 
     # the reference's testfeasibility problem (bench.py's feasibility tier):
@@ -732,9 +1073,13 @@ def main() -> int:
         if bad:
             raise AssertionError(f"algorithm tier ({np.dtype(dtype).name}): "
                                  f"{bad} not Optimal")
-    launches = dict(_cuda.LAUNCHES)
+    captured = dict(_cuda.LAUNCHES)
+    launched(feas_counts)
     for name in ("band_mv", "bell_mv"):
-        kernels[name]["launches"] = launches[name]
+        kernels[name]["launches"] = feas_counts[name]
+        kernels[name]["captured_calls"] = captured[name]
+    for name in ("cg_continue", "count_continue", "flag_continue"):
+        kernels[name]["launches"] = conic_counts[name] + feas_counts[name]
 
     # --- phase 4: the launch probe, through P1 and P2
     xp = torch.ones((8, 128), device=dev) * 1.5
@@ -771,34 +1116,80 @@ def main() -> int:
           "p1_within_target": route["p1_over_torch"] <= LAUNCH_ROUTE_TARGET})
     for name in ("probe_tiny", "probe_prefetch"):
         kernels[name]["launches"] = _cuda.LAUNCHES[name]
-    missing = [k for k, e in kernels.items() if e["launches"] == 0]
+    missing = [k for k, e in kernels.items()
+               if e["launches"] == 0 or e.get("captured_calls") == 0]
     if missing:
         raise AssertionError(f"kernels never launched by their path: {missing}")
 
-    # where the time goes: one short profiled solve of each kind (after the
-    # launch counts were read, so these launches are not counted)
-    op, _, _, b = feas["band"]
-    S1 = AffinePlusLinearProjector.create(op, b.astype(np.float32), 0.0, -1,
-                                          device=dev)
-    S2 = BlockSet([(Box(0.0, 1.0), n), (NonNeg(), m)])
-    for phase, run in (
-            ("profile_dense", lambda: solve(
-                A1, b1, c1, nonneg(N1), nonneg(N1), alg=DR(), eps=GATE_EPS,
-                max_iters=200, dtype=f32, pallas=True, device=dev,
-                verbose=0)),
-            ("profile_banded", lambda: solve(
-                band, b_band, c_band, nonneg(m), nonneg(n), alg=DR(),
-                eps=GATE_EPS, max_iters=200, verbose=0, device=dev)),
-            ("profile_banded_feasibility", lambda: solve_feasibility(
-                Feasibility(S1, S2, n + m), DR(), eps=0.0, max_iters=200,
-                verbose=0, device=dev))):
-        sol, prof = profile_solve(run)
-        emit({"phase": phase, "iters": sol.iters, **prof})
+    # --- phase 5: the graph route against the eager route, in one process
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.feasibility import FeasibilityForm
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    def conic_form(A, b, c, pallas):
+        return lambda: HSDEForm.build(conic_problem(
+            A, b, c, nonneg(A.shape[0]), nonneg(A.shape[1]), device=dev,
+            dtype=f32), pallas=pallas)
+
+    def feas_form(kind):
+        op, _, _, b = feas[kind]
+        S1 = AffinePlusLinearProjector.create(op, b.astype(np.float32), 0.0,
+                                              -1, device=dev)
+        S2 = BlockSet([(Box(0.0, 1.0), n), (NonNeg(), m)])
+        return lambda: FeasibilityForm.build(Feasibility(S1, S2, n + m),
+                                             device=dev)
+
+    def initial(form):
+        return form.initial_value(form.dtype)
+
+    eps_feas = FEAS_EPS_FLOORS * (m + n) * eps_f32
+    paths = (
+        ("dense_lp", conic_form(A1, b1, c1, True), GATE_EPS, 10000),
+        ("banded_lp", conic_form(band, b_band, c_band, False), GATE_EPS,
+         10000),
+        ("scattered_lp", conic_form(ell, b_ell, c_ell, False), GATE_EPS,
+         10000),
+        ("banded_feasibility", feas_form("band"), eps_feas, 10000),
+        ("scattered_feasibility", feas_form("bell"), eps_feas, 10000))
+    for name, make_form, eps, iters in paths:
+        run_routes(name, make_form, initial, eps, iters)
+    for name, make_form, eps, _ in paths:
+        # eps = 0 keeps the feasibility solves running all PROFILE_ITERS
+        profile_routes(name, make_form, eps if "lp" in name else 0.0)
+    # the seven-algorithm tier through both routes
+    from fos_tpu_torch.solvers import engine
+    for dtype, eps in ((np.float32, 1e-6), (np.float64, 1e-8)):
+        prob = Feasibility(AffineSet.create(Af.astype(dtype), bf.astype(dtype),
+                                            device=dev), NonNeg(), 100)
+        tier = {}
+        for name, alg in algs:
+            routes = {}
+            for route, fn in (("eager", engine._run_eager),
+                              ("graph", engine.run)):
+                form = FeasibilityForm.build(prob, device=dev)
+                res, secs = timed_solve(lambda: fn(
+                    form, alg, max_iters=5000, checki=100, eps=eps,
+                    verbose=0))
+                routes[route] = (Status.name(res.status), res.iters, secs,
+                                 res.guess)
+            (es, ei, et, eg), (gs, gi, gt, gg) = routes["eager"], routes["graph"]
+            tier[name] = {"status": [es, gs], "iters": [ei, gi],
+                          "seconds": [et, gt],
+                          "bit_equal": bool(torch.equal(eg, gg))}
+        emit({"phase": "graphs_tier", "dtype": np.dtype(dtype).name,
+              "eps": eps, "routes": ["eager", "graph"], **tier})
+        bad = [k for k, v in tier.items()
+               if v["status"][0] != v["status"][1]
+               or v["iters"][0] != v["iters"][1] or not v["bit_equal"]]
+        if bad:
+            raise AssertionError(f"tier ({np.dtype(dtype).name}): the graph "
+                                 f"route differs from the eager route in "
+                                 f"{bad}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "device_ms", "plain_device_ms", "shape", "max_rel_err",
-            "deterministic")
+            "device_ms", "plain_device_ms", "captured_calls", "sum_launches",
+            "shape", "max_rel_err", "deterministic")
     emit({"kernels": [{k: e.get(k) for k in keys}
                       for e in ({"name": name, "route": "cuda", **entry}
                                 for name, entry in kernels.items())]})

@@ -205,6 +205,12 @@ def project(spec: ConeSpec, x):
     return make_projector(spec.blocks)(x)
 
 
+def prepare(spec: ConeSpec, like) -> None:
+    """Make the projection's tensors for ``like``'s device and dtype now:
+    they are copied from the host, which a CUDA graph capture forbids."""
+    make_projector(spec.blocks)._on(like.device, like.dtype)
+
+
 def project_dual(spec: ConeSpec, x):
     """Project ``x`` onto the dual cone product (duality is resolved on the
     spec: every ported cone has a closed-form dual)."""

@@ -1,5 +1,5 @@
-// What the kernel sources share: the tile side, the block size, a warp sum
-// and the launch record.  Each .cu file compiles on its own (one nvcc each,
+// What the kernel sources share: the tile side, the block size, a warp sum,
+// the launch record and the launch counters.  Each .cu file compiles on its own (one nvcc each,
 // linked into one library), so everything here has internal linkage.
 #pragma once
 
@@ -31,5 +31,30 @@ struct Record {
     return reinterpret_cast<cudaStream_t>(s[i]);
   }
 };
+
+// Launches counted on the device.  A CUDA graph replays its kernels without
+// calling their wrappers, so the wrappers' host counts (linalg/_cuda.py)
+// say only that a kernel was captured; each counted kernel also adds one
+// here (thread 0 of block 0), once per launch, replayed or not.  Each
+// source file has its own counters and an entry point that reads them.
+constexpr int kCounters = 4;
+__device__ unsigned long long launch_count[kCounters];
+
+__device__ __forceinline__ void count_launch(int id) {
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0)
+    atomicAdd(&launch_count[id], 1ull);
+}
+
+// Record: 0 host address of kCounters uint64 that receive the counts,
+// 1 nonzero to zero them after reading.  Synchronous (tests, chip_smoke).
+inline int read_launch_counts(const long long* s) {
+  cudaError_t e = cudaMemcpyFromSymbol(reinterpret_cast<void*>(s[0]),
+                                       launch_count, sizeof(launch_count));
+  if (e == cudaSuccess && s[1]) {
+    const unsigned long long zero[kCounters] = {};
+    e = cudaMemcpyToSymbol(launch_count, zero, sizeof(launch_count));
+  }
+  return (int)e;
+}
 
 }  // namespace

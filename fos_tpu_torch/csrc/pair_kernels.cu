@@ -115,6 +115,7 @@ dense_pair_tiles(const float* __restrict__ A, int M, int N,
                  const float* __restrict__ x1, const float* __restrict__ x2,
                  float* __restrict__ ypart, float* __restrict__ zpart) {
   __shared__ float zsh[kWarps][kTile];
+  count_launch(0);  // launch counter (K1's tiles; its sum: 3)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ti = blockIdx.x, tj = blockIdx.y;
   const int c0 = tj * kTile;
@@ -149,6 +150,7 @@ dense_pair_sum(const float* __restrict__ ypart, int ny, int M,
                const float* __restrict__ zpart, int nz, int N,
                float* __restrict__ z) {
   __shared__ float ranges[kWarps][kSumOutputs];
+  count_launch(3);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool is_y = blockIdx.x < (unsigned)yblocks;
   const float* __restrict__ part = is_y ? ypart : zpart;
@@ -182,6 +184,7 @@ dense_pair_sum(const float* __restrict__ ypart, int ny, int M,
 // count(r) are padding and exit at once.  Tile (r, s) writes y1part[r, s] =
 // T x_{col(r,s)} and y2part[r, s] = T' z_r.
 struct BandCols {
+  static constexpr int kCounter = 1;  // launch counter (K2)
   const int* cs;
   int S;
   __device__ int count(int) const { return S; }
@@ -190,6 +193,7 @@ struct BandCols {
 };
 
 struct EllCols {
+  static constexpr int kCounter = 2;  // launch counter (K3)
   const int* cols;
   const int* counts;
   int kmax;
@@ -205,6 +209,7 @@ tile_pair(const float* __restrict__ blocks, Cols cols,
           float* __restrict__ y1part, float* __restrict__ y2part) {
   __shared__ float zsh[kWarps][kTile];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  count_launch(Cols::kCounter);
   const int nslots = cols.slots();
   const int r = blockIdx.x / nslots, s = blockIdx.x % nslots;
   if (s >= cols.count(r)) return;  // the whole block: no barrier is skipped
@@ -276,6 +281,12 @@ int fos_dense_tile_rows(void) { return kDenseTileRows; }
 
 const char* fos_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// Device launch counts of K1's tile kernel, K2, K3 and K1's sum, in that
+// order (read_launch_counts in common.cuh).
+int fos_pair_launch_counts(const long long* slots) {
+  return read_launch_counts(slots);
 }
 
 // K1.  Record: 0 A (M, N) f32 contiguous, 1 M, 2 N, 3 part (ntj * M +

@@ -39,6 +39,7 @@ constexpr int kRows = kTile / kWarps;  // 16 tile rows per warp
 constexpr int kVec = kTile / 4;        // float4s per tile row
 
 struct BandWindow {                    // K4: tiles at columns cs[r] + s
+  static constexpr int kCounter = 0;   // launch counter
   const int* cs;
   int S;
   __device__ int count(int) const { return S; }
@@ -47,6 +48,7 @@ struct BandWindow {                    // K4: tiles at columns cs[r] + s
 };
 
 struct EllSlots {                      // K5: the first counts[r] slots
+  static constexpr int kCounter = 1;
   const int* cols;
   const int* counts;
   int kmax;
@@ -60,6 +62,7 @@ template <class Cols>
 __global__ void __launch_bounds__(kThreads)
 tile_mv(const float* __restrict__ blocks, Cols cols,
         const float* __restrict__ xb, float* __restrict__ y) {
+  count_launch(Cols::kCounter);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x;
   const int row0 = warp * kRows;
@@ -98,6 +101,11 @@ tile_mv(const float* __restrict__ blocks, Cols cols,
 }  // namespace
 
 extern "C" {
+
+// Device launch counts of K4, K5 (read_launch_counts in common.cuh).
+int fos_tile_mv_launch_counts(const long long* slots) {
+  return read_launch_counts(slots);
+}
 
 // K4.  Record: 0 blocks (nrb, S, 128, 128), 1 cs (nrb,) with cs[r] + S <=
 // rows of xb, 2 nrb, 3 S, 4 xb (>= max cs + S, 128), 5 y (nrb, 128),

@@ -3,8 +3,10 @@
 Tests use these helpers to make both packages compute the same thing: a
 cone spec from ``(Cone.name, dim)`` pairs, a dense or tile operator from
 the arrays of a JAX operator, and a solver state from the leaves of a JAX
-``SolverState`` (run N steps in JAX, continue in the port).  Nothing here
-imports jax: the caller converts with ``np.asarray``.
+``SolverState`` (run N steps in JAX, continue in the port), or from the
+whole state (:func:`solver_state_from_tree`: a JAX ``FusedResult.state``
+with its recovery floor and plateau baseline).  Nothing here imports jax:
+arrays are converted with ``np.asarray``.
 """
 
 from __future__ import annotations
@@ -101,3 +103,31 @@ def solver_state_from_numpy(*, x, i, z_check, z_check_prev, s1_state,
                        s1_state=_cg_state(s1_state, device),
                        s2_state=_cg_state(s2_state, device),
                        aux=_leaves(aux, device))
+
+
+def _host_leaves(s):
+    """A set state as :func:`solver_state_from_numpy` takes it: a CGState
+    (anything with a ``warm`` field) as a dict of its fields, tuples leaf by
+    leaf."""
+    if hasattr(s, "_fields") and "warm" in s._fields:
+        return {k: (None if v is None else np.asarray(v))
+                for k, v in s._asdict().items()}
+    if isinstance(s, (tuple, list)):
+        return tuple(_host_leaves(v) for v in s)
+    return np.asarray(s)
+
+
+def solver_state_from_tree(state, device=None) -> SolverState:
+    """A port :class:`SolverState` from a whole solver state of the JAX
+    package (``run``'s or ``FusedResult.state``: x, i, z_check,
+    z_check_prev, the sets' states and the algorithm's aux), every leaf
+    read with ``np.asarray``."""
+    aux = state.aux
+    aux = (tuple(np.asarray(a) for a in aux) if isinstance(aux, (tuple, list))
+           else np.asarray(aux))
+    return solver_state_from_numpy(
+        x=np.asarray(state.x), i=np.asarray(state.i),
+        z_check=np.asarray(state.z_check),
+        z_check_prev=np.asarray(state.z_check_prev),
+        s1_state=_host_leaves(state.s1_state),
+        s2_state=_host_leaves(state.s2_state), aux=aux, device=device)

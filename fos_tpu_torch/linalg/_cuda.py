@@ -29,8 +29,18 @@ the last few operands (:func:`bound_kernel`), so a loop over one matrix
 binds once.
 
 ``LAUNCHES`` counts, per kernel wrapper, the calls that launched the kernel
-(a plain integer each); a run reads it to show that its path went through
-the kernels.
+(a plain integer each).  A call made while a CUDA graph is being captured
+counts once, when it puts its kernel into the graph: replays of the graph
+launch the kernel again without a wrapper call.  The kernels count their
+own launches on the device, replays included
+(:func:`device_launch_counts`); a run reads those to show that its path
+went through the kernels.
+
+The graph entry points of ``csrc/graph.cu`` (:func:`graph_handle`,
+:func:`cond_open`, :func:`cond_close`) and its condition kernels
+(:func:`cg_continue`, :func:`count_continue`, :func:`flag_continue`) serve
+:mod:`fos_tpu_torch.linalg.control`; they are called while a graph is
+captured, not per iteration, and take a launch record made per call.
 """
 
 from __future__ import annotations
@@ -65,6 +75,19 @@ _lib = None
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def device_launch_counts(reset: bool = False) -> dict:
+    """Launches of each kernel counted on the device (``csrc/common.cuh``):
+    the counts that include replays of CUDA graphs.  Synchronises the
+    device; ``reset`` zeroes the counts after reading them."""
+    torch.cuda.synchronize()
+    out = {}
+    for entry, names in DEVICE_COUNTERS.items():
+        counts = (ctypes.c_ulonglong * 4)()
+        _record_call(entry, ctypes.addressof(counts), int(reset))
+        out.update(zip(names, counts))
+    return out
 
 
 def _sources():
@@ -129,7 +152,20 @@ def build() -> str:
 #: the kernels' C entry points, each taking one launch record
 ENTRY_POINTS = ("fos_dense_pair", "fos_band_pair", "fos_bell_pair",
                 "fos_band_mv", "fos_bell_mv", "fos_probe_tiny",
-                "fos_probe_prefetch")
+                "fos_probe_prefetch", "fos_graph_handle", "fos_graph_cond_open",
+                "fos_graph_cond_close", "fos_stream_create", "fos_cg_continue",
+                "fos_count_continue", "fos_flag_continue",
+                "fos_pair_launch_counts", "fos_tile_mv_launch_counts",
+                "fos_graph_launch_counts")
+
+#: the kernels counted on the device, by the entry point that reads them
+DEVICE_COUNTERS = {
+    "fos_pair_launch_counts": ("fused_matvec", "band_mv_pair", "bell_mv_pair",
+                               "fused_matvec_sum"),
+    "fos_tile_mv_launch_counts": ("band_mv", "bell_mv"),
+    "fos_graph_launch_counts": ("cg_continue", "count_continue",
+                                "flag_continue"),
+}
 
 
 def library():
@@ -276,3 +312,88 @@ def require_aligned(name: str, **tensors) -> None:
     for key, t in tensors.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: {key} is not 16-byte aligned")
+
+
+# ------------------------------------------------------- graph entry points
+def _record_call(entry: str, *slots) -> None:
+    rec = (ctypes.c_longlong * len(slots))(*slots)
+    check(getattr(library(), entry)(ctypes.addressof(rec)), entry)
+
+
+def graph_handle(stream: int) -> int:
+    """A conditional handle in the graph that ``stream`` (a raw handle) is
+    capturing into."""
+    out = ctypes.c_ulonglong(0)
+    _record_call("fos_graph_handle", stream, ctypes.addressof(out))
+    return out.value
+
+
+#: conditional node kinds of :func:`cond_open`
+WHILE, IF = 0, 1
+
+
+def cond_open(stream: int, body_stream: int, handle: int, kind: int) -> None:
+    """Add a WHILE or IF node on ``handle`` after what ``stream`` has
+    captured, and start capturing its body on ``body_stream``."""
+    _record_call("fos_graph_cond_open", stream, body_stream,
+                 ctypes.c_longlong(handle).value, kind)
+
+
+def cond_close(body_stream: int) -> None:
+    """End the capture of a conditional node's body."""
+    _record_call("fos_graph_cond_close", body_stream)
+
+
+def stream_create() -> int:
+    """A new non-blocking stream on the current device (a raw handle, never
+    destroyed: the library makes one per capture level)."""
+    out = ctypes.c_void_p(0)
+    _record_call("fos_stream_create", ctypes.addressof(out))
+    return out.value
+
+
+def _current(t: torch.Tensor) -> int:
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def _scalar(t: torch.Tensor, dtype, name: str) -> int:
+    if (t.device.type != "cuda" or t.dtype != dtype or t.numel() != 1):
+        raise ValueError(f"{name}: expected a one-element {dtype} CUDA tensor, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.data_ptr()
+
+
+def cg_continue(handle: int, rn, tol2, it, max_iters: int) -> None:
+    """Set ``handle`` to ``(rn > tol2) & (it < max_iters)`` on the device
+    (CG's stopping test; f32 or f64 ``rn`` and ``tol2``, int32 ``it``)."""
+    if rn.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"cg_continue: rn is {rn.dtype}")
+    _record_call("fos_cg_continue", ctypes.c_longlong(handle).value,
+                 _scalar(rn, rn.dtype, "cg_continue"),
+                 _scalar(tol2, rn.dtype, "cg_continue"),
+                 _scalar(it, torch.int32, "cg_continue"), int(max_iters),
+                 int(rn.dtype == torch.float64), _current(rn))
+
+
+#: :func:`count_continue` modes
+TEST, RESET, ADVANCE = 0, 1, 2
+
+
+def count_continue(handle: int, k, mode: int, limit: int, status=None,
+                   want: int = 0) -> None:
+    """Set ``handle`` to ``k < limit`` (and ``status == want`` when a status
+    is given) after ``mode`` reset (``k = 0``) or advanced (``k += 1``) the
+    int32 counter ``k`` on the device."""
+    _record_call("fos_count_continue", ctypes.c_longlong(handle).value,
+                 _scalar(k, torch.int32, "count_continue"), int(mode),
+                 int(limit),
+                 0 if status is None else _scalar(status, torch.int32,
+                                                  "count_continue"),
+                 int(want), _current(k))
+
+
+def flag_continue(handle: int, flag, negate: bool = False) -> None:
+    """Set ``handle`` to the bool ``flag`` (or its negation)."""
+    _record_call("fos_flag_continue", ctypes.c_longlong(handle).value,
+                 _scalar(flag, torch.bool, "flag_continue"), int(negate),
+                 _current(flag))

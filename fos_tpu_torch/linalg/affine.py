@@ -139,7 +139,7 @@ class HSDEAffineProjector:
         u0 = z0[: self.l]
         return CGState.create(self.l, z0.dtype, z0.device)._replace(
             warm=u0, v_warm=self._q(u0),
-            initialized=torch.tensor(True, device=z0.device))
+            initialized=torch.ones((), dtype=torch.bool, device=z0.device))
 
     def refresh_state(self, cg: CGState) -> CGState:
         """Re-anchor the tracked invariant ``v_warm = Q warm`` with one fresh

@@ -1,11 +1,14 @@
 """Conjugate gradients, warm-started, with the solver's masking semantics.
 
-The JAX package runs CG as a ``lax.while_loop``; here the loop is a Python
-loop over groups of ``unroll`` iterations.  Inside a group every step is
-masked by ``live = rn > tol^2`` exactly as in the reference (a finished
-solve takes zero steps), so the iterates and the iteration count match it.
-The stopping test reads ``rn`` on the host once per group: one device
-synchronisation per ``unroll`` iterations is the price of eager mode.
+The JAX package runs CG as a ``lax.while_loop``; here the loop is
+:func:`fos_tpu_torch.linalg.control.while_loop` over groups of ``unroll``
+iterations.  Inside a group every step is masked by ``live = rn > tol^2``
+exactly as in the reference (a finished solve takes zero steps), so the
+iterates and the iteration count match it.  Eagerly the stopping test
+``(rn > tol^2) & (it < max_iters)`` reads ``rn`` on the host once per group
+(the plain version); inside a CUDA graph it is the ``cg_continue`` kernel
+setting a WHILE node's condition on the device, and the group is the
+node's body.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from fos_tpu_torch.linalg import control
 
 
 class CGResult(NamedTuple):
@@ -44,13 +49,14 @@ class CGState(NamedTuple):
 
     @staticmethod
     def create(size: int, dtype, device=None) -> "CGState":
+        # fills on the device, no copies from the host
         i32 = dict(dtype=torch.int32, device=device)
         return CGState(
             warm=torch.zeros(size, dtype=dtype, device=device),
-            initialized=torch.tensor(False, device=device),
-            call_idx=torch.tensor(1, **i32),
-            last_iters=torch.tensor(0, **i32),
-            total_iters=torch.tensor(0, **i32),
+            initialized=torch.zeros((), dtype=torch.bool, device=device),
+            call_idx=torch.ones((), **i32),
+            last_iters=torch.zeros((), **i32),
+            total_iters=torch.zeros((), **i32),
         )
 
 
@@ -77,6 +83,14 @@ def _cg_step(dot, Ap, p, x, r, rn, it, tol2):
     return alpha, x, r, p, torch.where(live, rn_new, rn), it + live
 
 
+def _tol2(tol, like):
+    """tol^2 in ``like``'s dtype on its device, made there (a fill, not a
+    copy from the host, so that it can be captured)."""
+    if isinstance(tol, torch.Tensor):
+        return tol.to(like.dtype) ** 2
+    return torch.full((), tol, dtype=like.dtype, device=like.device) ** 2
+
+
 def conjugate_gradient(
     matvec: Callable[[torch.Tensor], torch.Tensor],
     b: torch.Tensor,
@@ -93,13 +107,19 @@ def conjugate_gradient(
     dot = _dot_fn(compensated)
     r = b - matvec(x0)
     rn = dot(r, r)
-    tol2 = torch.as_tensor(tol, dtype=b.dtype, device=b.device) ** 2
-    x, p = x0, r
+    tol2 = _tol2(tol, b)
     it = torch.zeros((), dtype=torch.int32, device=b.device)
-    while bool((rn > tol2) & (it < max_iters)):
+
+    def group(c):
+        x, r, p, rn, it = c
         for _ in range(unroll):
             Ap = matvec(p)
             _, x, r, p, rn, it = _cg_step(dot, Ap, p, x, r, rn, it, tol2)
+        return x, r, p, rn, it
+
+    x, r, p, rn, it = control.while_loop(
+        lambda c: control.CGContinue(c[3], tol2, c[4], max_iters), group,
+        (x0, r, r, rn, it))
     return CGResult(x=x, iters=it, rnorm=torch.sqrt(rn))
 
 
@@ -130,10 +150,11 @@ def conjugate_gradient_tracked(
     """
     dot = _dot_fn(compensated)
     rn = dot(r0, r0)
-    tol2 = torch.as_tensor(tol, dtype=r0.dtype, device=r0.device) ** 2
-    x, Qx, r, p = x0, Qx0, r0, r0
+    tol2 = _tol2(tol, r0)
     it = torch.zeros((), dtype=torch.int32, device=r0.device)
-    while bool((rn > tol2) & (it < max_iters)):
+
+    def group(c):
+        x, Qx, r, p, rn, it = c
         for _ in range(unroll):
             Qp = q_fn(p)
             Ap = p - q_fn(Qp)
@@ -141,6 +162,11 @@ def conjugate_gradient_tracked(
                                                   tol2)
             Qx = Qx + alpha * Qp
             p = p_new
+        return x, Qx, r, p, rn, it
+
+    x, Qx, r, p, rn, it = control.while_loop(
+        lambda c: control.CGContinue(c[4], tol2, c[5], max_iters), group,
+        (x0, Qx0, r0, r0, rn, it))
     return CGTrackedResult(x=x, Qx=Qx, iters=it, rnorm=torch.sqrt(rn))
 
 

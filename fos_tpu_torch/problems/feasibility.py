@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from fos_tpu_torch.solvers.base import TwoSets
@@ -63,6 +64,9 @@ def _data_dtype(s):
 class FeasibilityForm:
     """Problem form driving the iteration engine."""
 
+    #: what :meth:`check` returns
+    CHECK = FeasibilityCheck
+
     def __init__(self, sets: TwoSets, n: int, dtype, device):
         self.sets = sets
         self.n = n
@@ -89,12 +93,21 @@ class FeasibilityForm:
     def initial_value(self, dtype):
         return torch.zeros(self.n, dtype=dtype, device=self.device)
 
+    def prepare(self, like):
+        """Copy what the sets copy from the host on first use (cone sets'
+        tables) before a CUDA graph is captured."""
+        for s in (self.sets.s1, self.sets.s2):
+            if hasattr(s, "prepare"):
+                s.prepare(like)
+
     def check(self, z, eps: float, prev=None) -> FeasibilityCheck:
         err = torch.linalg.vector_norm(prev - z)
-        status = torch.where(
-            err <= eps,
-            torch.tensor(Status.OPTIMAL, dtype=torch.int32, device=z.device),
-            torch.tensor(Status.CONTINUE, dtype=torch.int32, device=z.device))
+
+        def code(k):  # a fill on the device, not a copy from the host
+            return torch.full((), k, dtype=torch.int32, device=z.device)
+
+        status = torch.where(err <= eps, code(Status.OPTIMAL),
+                             code(Status.CONTINUE))
         return FeasibilityCheck(status, err)
 
     # --- engine observability hooks (printing + history) ------------------
@@ -103,7 +116,9 @@ class FeasibilityForm:
 
         return printing.feasibility_header(init_duration_s, self.direct)
 
-    def row(self, st, chk: FeasibilityCheck, i: int, t_s: float) -> str:
+    def row(self, st, chk: FeasibilityCheck, i: int, t_s: float,
+            cgiter=None) -> str:
+        """One status-table row (no cg column: ``cgiter`` is ignored)."""
         from fos_tpu_torch.utils import printing
 
         return printing.feasibility_row(i, chk.err, t_s)
@@ -115,15 +130,16 @@ class FeasibilityForm:
         return True
 
     def record(self, hist, st, chk: FeasibilityCheck, i: int, t_s: float,
-               debug: int, extra=None):
+               debug: int, extra=None, cgiter=None):
         """History rows: err and t; ``extra`` (the check iteration's
-        S1-stage triple) when given; debug > 1 also the post-S2 point."""
+        S1-stage triple, a (3, n) array on the host) when given; debug > 1
+        also the post-S2 point."""
         if hist is None or debug <= 0:
             return
         hist.push("err", i, float(chk.err))
         hist.push("t", i, t_s)
         if extra is not None:
-            hist.push("extra", i, list(extra.cpu().numpy()))
+            hist.push("extra", i, list(np.asarray(extra)))
         if debug > 1:
             hist.push("z", i, st.z_check.cpu().numpy())
 

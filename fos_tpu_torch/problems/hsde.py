@@ -73,6 +73,9 @@ def _to_torch_sparse(A, dtype, device):
 class HSDEForm:
     """Problem form driving the iteration engine."""
 
+    #: what :meth:`check` returns
+    CHECK = HSDECheck
+
     #: plateau window: the rate test compares the stall score across this
     #: many checks
     STALL_WINDOW = 10
@@ -179,8 +182,10 @@ class HSDEForm:
         s2 = ConeSet(hsde_cone_spec(problem.K1, problem.K2))
         if s2.spec.dim != 2 * s1.l:
             raise ValueError("cone product does not cover the embedding")
-        return cls(TwoSets(s1, s2), A, b, c, norm_b, norm_c, problem.n,
+        form = cls(TwoSets(s1, s2), A, b, c, norm_b, norm_c, problem.n,
                    problem.m, problem.K2, strict_certificates, comp_check)
+        form._host_norms()  # read once here, not between chunks
+        return form
 
     @property
     def l(self) -> int:
@@ -205,9 +210,18 @@ class HSDEForm:
     def initial_value(self, dtype):
         """tau = kappa = 1, everything else 0 (HSDE.jl:40-47)."""
         z = torch.zeros(self.dim, dtype=dtype, device=self.device)
-        z[self.l - 1] = 1.0
-        z[2 * self.l - 1] = 1.0
+        z[self.l - 1].fill_(1.0)
+        z[2 * self.l - 1].fill_(1.0)
         return z
+
+    def prepare(self, like):
+        """Copy what the step and the check copy from the host on first use
+        (the cone projections' tables) before a CUDA graph is captured."""
+        from fos_tpu_torch.cones.project import prepare
+
+        self.sets.s2.prepare(like)
+        if self.strict_certificates and self.K2_spec is not None:
+            prepare(self.K2_spec.dual(), like)
 
     def split(self, z):
         n, m, l = self.n, self.m, self.l
@@ -271,38 +285,76 @@ class HSDEForm:
                                     code(Status.CONTINUE))))
         return HSDECheck(status, p, d, g, ctx, bty, tau, kappa)
 
-    # --- stall detection / recovery (engine hooks; host values) ---------
+    # --- stall detection / recovery ------------------------------------
+    # host hooks (the chunked engine, ``chk`` from HSDECheck.to_host) and
+    # their tensor twins (fused_solve's on-device recovery, no host read)
+    def _host_norms(self):
+        """(||b||, ||c||) on the host, read once per form."""
+        if getattr(self, "_norms", None) is None:
+            self._norms = tuple(torch.stack([self.norm_b, self.norm_c])
+                                .double().tolist())
+        return self._norms
+
     def gap_stalled(self, chk: HSDECheck, eps: float) -> bool:
         """True when the primal/dual residuals pass but the duality gap does
         not: the signature of the CG tolerance floor biasing the fixed
         point.  ``chk`` holds host values (:meth:`HSDECheck.to_host`)."""
         if chk.status != Status.CONTINUE or chk.tau <= 0:
             return False
-        nb, nc = float(self.norm_b), float(self.norm_c)
+        nb, nc = self._host_norms()
         ctx = chk.ctx / chk.tau
         bty = chk.bty / chk.tau
         gden = 1.0 + abs(ctx) + abs(bty)
         return (chk.p <= eps * (1.0 + nb) and chk.d <= eps * (1.0 + nc)
                 and chk.g > eps * gden)
 
-    def stall_score(self, chk: HSDECheck, eps: float) -> float:
-        """Distance from passing: the largest of the three optimality tests'
-        residual/threshold ratios (1.0 = exactly at the operating point)."""
+    def gap_stalled_traced(self, chk: HSDECheck, eps: float):
+        """:meth:`gap_stalled` on the device's check (a bool tensor)."""
+        tau = chk.tau
+        safe_tau = torch.where(tau > 0, tau, 1.0)
+        ctx = chk.ctx / safe_tau
+        bty = chk.bty / safe_tau
+        gden = 1.0 + torch.abs(ctx) + torch.abs(bty)
+        return ((chk.status == Status.CONTINUE) & (tau > 0)
+                & (chk.p <= eps * (1.0 + self.norm_b))
+                & (chk.d <= eps * (1.0 + self.norm_c))
+                & (chk.g > eps * gden))
+
+    def stall_score(self, chk: HSDECheck, eps: float):
+        """Distance from passing, on the device's check: the largest of the
+        three optimality tests' residual/threshold ratios (1.0 = exactly at
+        the operating point)."""
+        tau = chk.tau
+        safe_tau = torch.where(tau > 0, tau, 1.0)
+        gden = (1.0 + torch.abs(chk.ctx / safe_tau)
+                + torch.abs(chk.bty / safe_tau))
+        return torch.maximum(
+            chk.p / (eps * (1.0 + self.norm_b)),
+            torch.maximum(chk.d / (eps * (1.0 + self.norm_c)),
+                          chk.g / (eps * gden)))
+
+    def _host_stall_score(self, chk: HSDECheck, eps: float) -> float:
+        """:meth:`stall_score` on host values."""
+        nb, nc = self._host_norms()
         tau = chk.tau if chk.tau > 0 else 1.0
         gden = 1.0 + abs(chk.ctx / tau) + abs(chk.bty / tau)
 
-        def ratio(num, den):
-            return num / den if den != 0 else math.copysign(math.inf, num)
+        def ratio(num, den):  # IEEE division, as on the device
+            if den != 0:
+                return num / den
+            return math.nan if num == 0 or num != num else math.copysign(
+                math.inf, num)
 
-        return max(ratio(chk.p, eps * (1.0 + float(self.norm_b))),
-                   ratio(chk.d, eps * (1.0 + float(self.norm_c))),
-                   ratio(chk.g, eps * gden))
+        ratios = (ratio(chk.p, eps * (1.0 + nb)),
+                  ratio(chk.d, eps * (1.0 + nc)), ratio(chk.g, eps * gden))
+        # a NaN propagates, as through torch.maximum
+        return math.nan if any(r != r for r in ratios) else max(ratios)
 
     def plateau_stalled(self, chk: HSDECheck, eps: float, win_score: float,
                         remaining_checks: int):
         """(stalled, score): fire when the per-window improvement rate of
         the stall score cannot reach 1 within ``remaining_checks``."""
-        score = self.stall_score(chk, eps)
+        score = self._host_stall_score(chk, eps)
         if (chk.status != Status.CONTINUE or not math.isfinite(score)
                 or not math.isfinite(win_score) or score <= 1.0):
             return False, score
@@ -310,6 +362,21 @@ class HSDEForm:
         cannot = (math.log(max(score, 1.0)) * self.STALL_WINDOW
                   > math.log(rate) * remaining_checks)
         return cannot, score
+
+    def plateau_stalled_traced(self, chk: HSDECheck, eps: float, win_score,
+                               remaining_checks):
+        """(stalled, score) tensors: :meth:`plateau_stalled` on the device,
+        ``win_score`` the score one window ago (a tensor) and
+        ``remaining_checks`` an int or an int tensor."""
+        score = self.stall_score(chk, eps)
+        W = float(self.STALL_WINDOW)
+        rate = torch.clamp_min(win_score / torch.clamp_min(score, 1e-30),
+                               1.0 + 1e-6)
+        cannot = (torch.log(torch.clamp_min(score, 1.0)) * W
+                  > torch.log(rate) * remaining_checks)
+        stalled = ((chk.status == Status.CONTINUE) & torch.isfinite(score)
+                   & torch.isfinite(win_score) & (score > 1.0) & cannot)
+        return stalled, score
 
     def _floors(self):
         """(current floor, tightened floor ~sqrt(2l)*eps)."""
@@ -321,7 +388,10 @@ class HSDEForm:
 
     def fused_cg_floors(self):
         """(default_floor, tightened_floor) for an on-device recovery, or
-        None when the floor is already at or below the tightened value."""
+        None when it does not apply (direct mode, or the floor already at or
+        below the tightened value)."""
+        if self.direct:
+            return None
         cur, tight = self._floors()
         return None if cur <= tight else (cur, tight)
 
@@ -333,10 +403,12 @@ class HSDEForm:
         if floors is None:
             return None
         s1b = self.sets.s1.replace(tol_floor=floors[1])
-        return HSDEForm(TwoSets(s1b, self.sets.s2), self.A, self.b, self.c,
+        form = HSDEForm(TwoSets(s1b, self.sets.s2), self.A, self.b, self.c,
                         self.norm_b, self.norm_c, self.n, self.m,
                         self.K2_spec, self.strict_certificates,
                         self.compensated)
+        form._norms = self._host_norms()
+        return form
 
     # --- engine observability hooks (printing + history) ------------------
     def header(self, init_duration_s: float) -> str:
@@ -344,30 +416,34 @@ class HSDEForm:
 
         return printing.hsde_header(init_duration_s, self.direct)
 
-    def _cgiter(self, st):
-        return None if self.direct else int(st.s1_state.last_iters)
+    def _cgiter(self, st, cgiter):
+        if self.direct:
+            return None
+        return int(st.s1_state.last_iters) if cgiter is None else cgiter
 
-    def row(self, st, chk: HSDECheck, i: int, t_s: float) -> str:
-        """One status-table row; ``chk`` holds host values."""
+    def row(self, st, chk: HSDECheck, i: int, t_s: float,
+            cgiter=None) -> str:
+        """One status-table row; ``chk`` holds host values, ``cgiter`` the
+        last projection's CG count read with them (else read from ``st``)."""
         from fos_tpu_torch.utils import printing
 
         return printing.hsde_row(i, chk.p, chk.d, chk.g, chk.ctx, chk.bty,
                                  chk.kappa / chk.tau, t_s,
-                                 cgiter=self._cgiter(st))
+                                 cgiter=self._cgiter(st, cgiter))
 
     def record(self, hist, st, chk: HSDECheck, i: int, t_s: float, debug: int,
-               extra=None):
+               extra=None, cgiter=None):
         """History rows (HSDEStatus.jl:125-139): p,d,g,ctx,bty,kappa,tau,t;
-        debug>1 also x,y,s.  ``chk`` holds host values.  ``extra`` is
-        ignored: the reference's HSDE logextra is a no-op
-        (HSDEStatus.jl:18-20)."""
+        debug>1 also x,y,s.  ``chk`` holds host values, ``cgiter`` as in
+        :meth:`row`.  ``extra`` is ignored: the reference's HSDE logextra
+        is a no-op (HSDEStatus.jl:18-20)."""
         if hist is None or debug <= 0:
             return
         for key in ("p", "d", "g", "ctx", "bty", "kappa", "tau"):
             hist.push(key, i, float(getattr(chk, key)))
         hist.push("t", i, t_s)
         if not self.direct:
-            hist.push("cgiter", i, int(st.s1_state.last_iters))
+            hist.push("cgiter", i, self._cgiter(st, cgiter))
         if debug > 1:
             x, y, tau, r, s, kappa = self.split(st.z_check)
             hist.push("x", i, (x / tau).cpu().numpy())

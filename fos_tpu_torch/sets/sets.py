@@ -35,8 +35,10 @@ def _data(v, device):
 
 
 def _like(v, x):
-    """A scalar or tensor datum as a tensor of ``x``'s dtype and device."""
-    return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+    """A datum in ``x``'s dtype: a Python float stays a float (scalar
+    arithmetic, no copy to the device), a tensor is cast (a no-op when it
+    already has the dtype)."""
+    return v if isinstance(v, float) else v.to(x.dtype)
 
 
 class _StatelessSet:
@@ -115,10 +117,13 @@ class Box(_StatelessSet):
         self.hi = _data(hi, device)
 
     def project(self, x, state):
-        if isinstance(self.lo, float) and isinstance(self.hi, float):
-            return torch.clamp(x, self.lo, self.hi), state
-        return torch.minimum(torch.maximum(x, _like(self.lo, x)),
-                             _like(self.hi, x)), state
+        lo, hi = _like(self.lo, x), _like(self.hi, x)
+        if isinstance(lo, float) and isinstance(hi, float):
+            return torch.clamp(x, lo, hi), state
+        y = (torch.clamp_min(x, lo) if isinstance(lo, float)
+             else torch.maximum(x, lo))
+        return (torch.clamp_max(y, hi) if isinstance(hi, float)
+                else torch.minimum(y, hi)), state
 
 
 def NonNeg():
@@ -137,7 +142,10 @@ class Point(_StatelessSet):
         self.p = _data(p, device)
 
     def project(self, x, state):
-        return torch.broadcast_to(_like(self.p, x), x.shape), state
+        p = _like(self.p, x)
+        if isinstance(p, float):
+            return torch.full_like(x, p), state
+        return torch.broadcast_to(p, x.shape), state
 
 
 class Halfspace(_StatelessSet):
@@ -190,6 +198,13 @@ class BlockSet:
 
     def init_state(self, dtype):
         return tuple(s.init_state(dtype) for s in self.sets)
+
+    def prepare(self, like):
+        """Prepare the members that copy data from the host when they first
+        project (cone sets) before a CUDA graph is captured."""
+        for s in self.sets:
+            if hasattr(s, "prepare"):
+                s.prepare(like)
 
     def project(self, x, state):
         outs, new_state = [], []

@@ -10,7 +10,9 @@ convergence check runs on (FirstOrderSolvers.jl src/solvers/gap.jl:53-59).
 Ported: GAP and its two named cases DR = GAP(0.5, 2, 2) and AP =
 GAP(1, 1, 1), GAPA, GAPP, FISTA and Dykstra.  ``step(sets, st, i)`` gets
 ``i``, the host's count of the steps already taken (``st.i`` without a
-device read); only GAPP branches on it.  The wrappers' plane capture
+device read), or None inside a CUDA graph and in ``fused_solve``, where
+the steps loop on the device; only GAPP branches on it, on the device's
+``st.i`` when ``i`` is None.  The wrappers' plane capture
 (``step_capture``) waits for the wrappers (ROADMAP queue 1).
 """
 
@@ -22,7 +24,9 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from fos_tpu_torch.cones.spec import ConeSpec
+from fos_tpu_torch.cones.project import prepare as cone_prepare
 from fos_tpu_torch.cones.project import project as cone_project
+from fos_tpu_torch.linalg import control
 
 
 class SolverState(NamedTuple):
@@ -43,6 +47,11 @@ class ConeSet:
 
     def init_state(self, dtype):
         return ()
+
+    def prepare(self, like):
+        """Copy the projection's tables to ``like``'s device before a CUDA
+        graph is captured (:func:`fos_tpu_torch.cones.project.prepare`)."""
+        cone_prepare(self.spec, like)
 
     def project(self, x, state):
         return cone_project(self.spec, x), state
@@ -172,7 +181,7 @@ class GAPA(Algorithm):
     options: Tuple[Tuple[str, Any], ...] = ()
 
     def init_aux(self, x0):
-        return torch.tensor(2.0, dtype=x0.dtype, device=x0.device)
+        return torch.full((), 2.0, dtype=x0.dtype, device=x0.device)
 
     def coeffs(self, aux):
         return aux, aux
@@ -205,7 +214,10 @@ class GAPP(Algorithm):
     P_S1(P_S2(P_S1 x)) - P_S1(x)`` and steps to ``tmp1 + a* res``, ``a*``
     minimising the S2 fixed-point residual over ``a = 2^k, k = 0..20`` (one
     batched S2 projection); the other steps are GAP's.  Which step is which
-    follows the host's iteration count, so the choice costs no device read.
+    follows the host's iteration count, so the choice costs no device read;
+    without one (``i`` None: a captured or fused step) it follows the
+    device's ``st.i``, through :func:`control.cond` (two IF nodes in a
+    graph).
     """
 
     alpha: float = 0.8
@@ -220,9 +232,15 @@ class GAPP(Algorithm):
 
     def step(self, sets, st, i=None):
         if i is None:
-            i = int(st.i)
+            return control.cond(
+                (st.i + 1) % self.iproj == 0,
+                lambda s: self._projected_step(sets, s),
+                lambda s: _gap_like_step(self, sets, s)[0], st)
         if (i + 1) % self.iproj != 0:
             return _gap_like_step(self, sets, st)[0]
+        return self._projected_step(sets, st)
+
+    def _projected_step(self, sets, st):
         a2 = self.alpha2
         tmp1, s1_state = sets.s1.project(st.x, st.s1_state)
         tmp2, s2_state = sets.s2.project(tmp1, st.s2_state)
@@ -232,7 +250,8 @@ class GAPP(Algorithm):
         cands = tmp1[None, :] + alphas[:, None] * res[None, :]
         projs, _ = sets.s2.project(cands, s2_state)
         norms = torch.linalg.vector_norm(projs - cands, dim=-1)
-        t1 = tmp1 + alphas[torch.argmin(norms)] * res
+        # gather, not indexing with a device scalar (which may read it)
+        t1 = tmp1 + alphas.gather(0, torch.argmin(norms).reshape(1)) * res
         z, s2_state = sets.s2.project(t1, s2_state)
         x_new = a2 * z + (1.0 - a2) * t1
         return _advance(st, x_new, z, s1_state, s2_state)
@@ -252,7 +271,7 @@ class FISTA(Algorithm):
 
     def init_aux(self, x0):
         # y starts at x0 (the reference's i == 1 special case, fista.jl:35-37)
-        return (torch.tensor(1.0, dtype=x0.dtype, device=x0.device), x0,
+        return (torch.full((), 1.0, dtype=x0.dtype, device=x0.device), x0,
                 torch.zeros_like(x0))
 
     def coeffs(self, aux):

@@ -54,12 +54,16 @@ DENSE_SHAPES = [(1, 1), (33, 129), (300, 471), (1000, 1000), (4097, 130),
 
 @pytest.mark.parametrize("M,N", DENSE_SHAPES)
 def test_fused_matvec_kernel(cuda, M, N):
-    """K1 through the free function and through the operator, against the
-    plain version."""
+    """K1 through the free function (its tile kernel and its sum launched
+    once each) and through the operator, against the plain version."""
     A, x1, x2 = _dense(M, N, cuda)
     before = _cuda.LAUNCHES["fused_matvec"]
+    _cuda.device_launch_counts(reset=True)
     got = fused_matvec(A, x1, x2)
     assert _cuda.LAUNCHES["fused_matvec"] == before + 1
+    # one launch of each of K1's two kernels, counted on the device
+    counts = _cuda.device_launch_counts(reset=True)
+    assert counts["fused_matvec"] == counts["fused_matvec_sum"] == 1
     _close(got, fused_matvec_plain(A, x1, x2))
     again = fused_matvec(A, x1, x2)
     assert all(torch.equal(a, b) for a, b in zip(again, got))
@@ -250,3 +254,157 @@ def test_soc_projection_repeats_on_card(cuda):
     assert torch.equal(project(spec, x.to(cuda)), got)
     np.testing.assert_allclose(got.cpu().numpy(), project(spec, x).numpy(),
                                rtol=1e-12, atol=1e-12)
+
+
+# ------------------------------------------------------------ graph route
+def _lp_vectors(rng, m, n):
+    """(x0, y0, s0, r0): complementary nonnegative pairs, f32."""
+    x0, y0, s0, r0 = (np.abs(rng.standard_normal(k)).astype(np.float32)
+                      for k in (n, m, m, n))
+    xm, ym = rng.random(n) < 0.5, rng.random(m) < 0.5
+    return x0 * xm, y0 * ym, s0 * ~ym, r0 * ~xm
+
+
+def _tile_op(kind, cuda, nrb=4):
+    """A banded (+2I diagonal) or scattered tile operator with both tables."""
+    rng = np.random.default_rng(17)
+    blocks = rng.standard_normal((nrb, 3, 128, 128)).astype(np.float32) / 20
+    blocks[:, 1] += 2.0 * np.eye(128, dtype=np.float32)
+    if kind == "band":
+        cs = np.clip(np.arange(nrb) - 1, 0, nrb - 3).astype(np.int32)
+        return tse.BandedBlockOp.from_arrays(blocks, cs, nrb * 128, nrb * 128,
+                                             transpose_table=True, device=cuda)
+    cols = np.stack([(np.arange(nrb) + k) % nrb for k in (1, 0, 2)], 1)
+    return tse.BlockedEllOp.from_arrays(blocks, cols.astype(np.int32),
+                                        nrb * 128, nrb * 128,
+                                        transpose_table=True, device=cuda)
+
+
+def _route_case(case, cuda):
+    """(a form factory, the kernel the path runs, eps, max_iters)."""
+    from fos_tpu_torch import (AffinePlusLinearProjector, BlockSet, Box,
+                               Feasibility, NonNeg, nonneg)
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.feasibility import FeasibilityForm
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    rng = np.random.default_rng(3)
+    if case == "dense":
+        m, n = 200, 300
+        A = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
+        x0, y0, s0, r0 = _lp_vectors(rng, m, n)
+        b, c = A @ x0 + s0, r0 - A.T @ y0
+        return (lambda: HSDEForm.build(conic_problem(
+            A, b, c, nonneg(m), nonneg(n), device=cuda), pallas=True),
+            "fused_matvec", 1e-5, 1000)
+    kind = "band" if case.endswith("band") else "bell"
+    op = _tile_op(kind, cuda)
+    m, n = op.shape
+    if case.startswith("feas"):
+        xs = rng.uniform(0.1, 0.9, n).astype(np.float32)
+        b = op.mv(torch.as_tensor(xs, device=cuda)).cpu().numpy() + 0.5
+        S1 = AffinePlusLinearProjector.create(op, b, 0.0, -1, device=cuda)
+        S2 = BlockSet([(Box(0.0, 1.0), n), (NonNeg(), m)])
+        return (lambda: FeasibilityForm.build(
+            Feasibility(S1, S2, n + m), device=cuda),
+            f"{kind}_mv", 1e-3, 300)
+    x0, y0, s0, r0 = (torch.as_tensor(v, device=cuda)
+                      for v in _lp_vectors(rng, m, n))
+    Ax0, ATy0 = op.mv_pair(x0, y0)
+    b, c = Ax0 + s0, r0 - ATy0
+    return (lambda: HSDEForm.build(conic_problem(
+        op, b, c, nonneg(m), nonneg(n), device=cuda)),
+        f"{kind}_mv_pair", 1e-5, 1000)
+
+
+@pytest.mark.parametrize("case", ["dense", "band", "bell", "feas_band",
+                                  "feas_bell"])
+def test_graph_route_matches_the_eager_route(cuda, case):
+    """K1-K5 paths: run's graph chunks and fused_solve (under sync debug
+    mode "error": no host read) give the eager chunks' status, iterations
+    and bits, and the device counts the kernel's launches in the replays."""
+    from fos_tpu_torch import DR
+    from fos_tpu_torch.solvers import engine
+
+    make_form, kernel, eps, max_iters = _route_case(case, cuda)
+    kw = dict(eps=eps, max_iters=max_iters, checki=50, verbose=0)
+    eager = engine._run_eager(make_form(), DR(), **kw)
+    _cuda.device_launch_counts(reset=True)
+    graph = engine.run(make_form(), DR(), **kw)
+    counts = _cuda.device_launch_counts(reset=True)
+    assert (graph.status, graph.iters) == (eager.status, eager.iters)
+    assert torch.equal(graph.guess, eager.guess)
+    assert torch.equal(graph.state.x, eager.state.x)
+    assert counts[kernel] > 0 and counts["cg_continue"] > 0
+    assert counts["count_continue"] > 0
+    form = make_form()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused = engine.fused_solve(DR(), form, form.initial_value(form.dtype),
+                                   max_iters=max_iters, eps=eps, checki=50)
+        again = engine.fused_solve(DR(), form,
+                                   form.initial_value(form.dtype),
+                                   max_iters=max_iters, eps=eps, checki=50)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(fused.iters) == eager.iters
+    assert torch.equal(fused.guess, eager.guess)
+    # a budget spent without a terminal status: run keeps Continue after a
+    # check at the last iteration, fused_solve (as the JAX package's) still
+    # checks the guess at the end
+    if not (eager.status == engine.Status.CONTINUE
+            and eager.iters == max_iters):
+        assert int(fused.status) == eager.status
+    assert torch.equal(again.guess, fused.guess)
+
+
+@pytest.mark.parametrize("alg", ["gapp", "gapa", "fista", "dykstra"])
+def test_algorithms_through_graphs(cuda, alg):
+    """The testfeasibility tier through the graph route (GAPP's projected
+    step an IF node on the device's st.i) gives the eager route's counts
+    and bits."""
+    from fos_tpu_torch import (AffineSet, Dykstra, FISTA, Feasibility, GAPA,
+                               GAPP, NonNeg)
+    from fos_tpu_torch.problems.feasibility import FeasibilityForm
+    from fos_tpu_torch.solvers import engine
+
+    rng = np.random.default_rng(2)
+    xsol = np.abs(rng.standard_normal(100))
+    A = rng.standard_normal((50, 100))
+    prob = Feasibility(AffineSet.create(A, A @ xsol, device=cuda), NonNeg(),
+                       100)
+    algorithm = {"gapp": GAPP(iproj=7), "gapa": GAPA(), "fista": FISTA(),
+                 "dykstra": Dykstra()}[alg]
+    kw = dict(max_iters=500, checki=50, eps=1e-8, verbose=0)
+    eager = engine._run_eager(FeasibilityForm.build(prob, device=cuda),
+                              algorithm, **kw)
+    graph = engine.run(FeasibilityForm.build(prob, device=cuda), algorithm,
+                       **kw)
+    assert (graph.status, graph.iters) == (eager.status, eager.iters)
+    assert torch.equal(graph.guess, eager.guess)
+
+
+def test_condition_kernels_set_their_nodes(cuda):
+    """cg_continue, count_continue and flag_continue decide an IF node as
+    their plain versions decide on the host."""
+    from fos_tpu_torch.linalg import control
+    from fos_tpu_torch.solvers import graphs
+
+    rn, tol2 = (torch.zeros((), device=cuda) for _ in range(2))
+    it = torch.zeros((), dtype=torch.int32, device=cuda)
+    flag = torch.zeros((), dtype=torch.bool, device=cuda)
+    conds = {"cg": lambda: control.CGContinue(rn, tol2, it, 5),
+             "count": lambda: control.Count(it, control.TEST, 3),
+             "flag": lambda: control.Flag(flag, True)}
+    for name, make in conds.items():
+        hit = torch.zeros((), dtype=torch.int32, device=cuda)
+
+        def fn(h, make=make):
+            control._Captured.if_(h, make, lambda: h.fill_(1))
+            return (h,)
+
+        g = graphs.Captured(fn, (hit,))
+        for r, i, f in ((0.0, 0, False), (2.0, 4, True), (2.0, 5, False),
+                        (float("nan"), 1, True), (2.0, 2, True)):
+            rn.fill_(r), tol2.fill_(1.0), it.fill_(i), flag.fill_(f)
+            assert bool(g(hit)[0]) == make().plain(), (name, r, i, f)
