@@ -48,13 +48,31 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    equal between the routes; then profiled 200-iteration solves of
    both routes (iterations/s; device idle share: the profiler's kernel time
    for the eager route, the CUDA-event spans of the graph replays for the
-   graph route; the kernel rows the profiler shows for a graph replay).
+   graph route; the kernel rows the profiler shows for a graph replay);
+6. ``cones``: the PSD projection of one d x d block at d = 512 and 1024
+   (tuned and uniform polynomial filters and eigh against a host f64 eigh,
+   their times beside the filters' FLOP bounds, gate 1e-5 ||X||_2 on the
+   tuned filter) and a probe of whether ``torch.linalg.eigh`` can be
+   captured; bench.py's lambda-min SDP at d = 512 (DR iterations/s on the
+   graph route; GAPA(0.8, 0.9) to Optimal at eps 1e-5 within 1e-3 of
+   lambda_min, gated) and at d = 1024 (printed); the kitchen sink in f64
+   (every cone; eigh gated Optimal against scipy SLSQP, poly printed), the
+   max-entropy exp problem and the nearest-PSD problem; the exp and power
+   projections of 65536 blocks each (us and kernels per projection, error
+   against f64 on the host); the phase 2 banded and scattered LPs handed
+   to ``solve`` as scipy sparse with ``equilibrate=True`` (host Ruiz
+   seconds, K2/K3 device launches gated > 0, Optimal within 1e-3); the
+   dense LP with ``DR(direct=True)`` (host QR seconds, K1 launches, phase
+   2's gate); then the SDP, the kitchen sink (poly), the equilibrated LPs
+   and the direct LP through the three routes, gated equal as in phase 5.
 
 Each kernel counts its launches on the device (``_cuda.
 device_launch_counts``), graph replays included: the counts are zeroed
-just before each path (2, 3, 4) and read just after it (and after each of
-its solves, for that solve's count), and every kernel must have been
-launched by its path; these are the ``launches`` of the kernels line.  The
+just before each path (2, 3, 4, 6) and read just after it (and after each
+of its solves, for that solve's count), and every kernel must have been
+launched by its path; these are the ``launches`` of the kernels line
+(phase 6's counts of K1-K3, the kernels of its path, are
+``launches_cones_path``).  The
 wrappers' host counts (``_cuda.LAUNCHES``) count the calls that launched
 or captured a kernel (``captured_calls``): a replay calls no wrapper.
 The line before the last lists the kernels; the last line is the run's
@@ -65,6 +83,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import json
 import math
 import re
@@ -113,6 +132,19 @@ REFERENCE_ITERS = {"dense_lp": 900, "dense_lp_continued": 4500,
 PROFILE_ITERS = 200
 # condition kernels: passes of a WHILE node timed for its per-pass cost
 WHILE_PASSES = 2000
+# phase 6 (cones): the PSD blocks' side and seed (bench.py's sdp_single_bench
+# draws C from PRNGKey(29); numpy's seed 29 here), the tuned polynomial
+# filter's gate against a host f64 eigh (max|P - P*| <= PSD_GATE ||X||_2),
+# the d = 512 SDP's objective gate against lambda_min, and the iteration
+# budgets of the SDP runs
+SDP_SEED = 29
+PSD_SIDES = (512, 1024)
+PSD_GATE = 1e-5
+SDP_GATE = 1e-3
+SDP_ROUTE_ITERS = 300
+# (d, quality-run iterations, DR rate iterations, gated)
+SDP_CELLS = ((512, 8000, 100, True), (1024, 5000, 50, False))
+EXP_POW_BLOCKS = 65536
 
 
 # ------------------------------------------------------------- problems
@@ -692,6 +724,578 @@ def profile_routes(name, make_form, eps):
           "eager": eager, "graph": graph})
     return eager, graph
 
+# ------------------------------------------------------------- phase 6: cones
+class LambdaMinSdpOp:
+    """Matrix-free ``A = [svec(I)'; -I_L]`` of bench.py's single-block SDP
+    (bench.py:343-375), with ``mv``, ``rmv`` and ``mv_pair``: a dense A
+    would hold L^2 ~ 1.7e10 entries at d = 512."""
+
+    def __init__(self, sI):
+        self.sI = sI
+
+    @property
+    def shape(self):
+        L = self.sI.shape[0]
+        return (1 + L, L)
+
+    @property
+    def m(self):
+        return self.shape[0]
+
+    @property
+    def n(self):
+        return self.shape[1]
+
+    def mv(self, x):
+        import torch
+
+        return torch.cat([torch.dot(self.sI, x)[None], -x])
+
+    def rmv(self, y):
+        return self.sI * y[0] - y[1:]
+
+    def mv_pair(self, x1, x2):
+        return self.mv(x1), self.rmv(x2)
+
+
+def sdp_problem(d, dev, seed=SDP_SEED):
+    """bench.py's lambda-min SDP, ``min <C, X> s.t. tr X = 1, X psd``, in
+    f32: (problem, svec(C), lambda_min(C) from a host f64 eigvalsh).  C is
+    made with numpy from ``seed`` (the JAX package's ``PRNGKey(29)`` draws
+    cannot be reproduced without jax), scaled as bench.py scales it."""
+    import torch
+    from fos_tpu_torch.cones import Cone, ConeSpec, free, svec
+    from fos_tpu_torch.problems.conic import conic_problem
+
+    rng = np.random.default_rng(seed)
+    C = (rng.standard_normal((d, d), dtype=np.float32)
+         / np.float32(np.sqrt(d)))
+    C = (C + C.T) / np.float32(2.0)
+    L = d * (d + 1) // 2
+    sC = svec(torch.as_tensor(C, device=dev))
+    op = LambdaMinSdpOp(svec(torch.eye(d, device=dev)))
+    bq = torch.zeros(1 + L, device=dev)
+    bq[0] = 1.0
+    K1 = ConeSpec(((Cone.ZERO, 1), (Cone.PSD, L)))
+    prob = conic_problem(op, bq, sC, K1, free(L), device=dev)
+    return prob, sC, float(np.linalg.eigvalsh(C.astype(np.float64))[0])
+
+
+def kitchen_sink_problem():
+    """tests/test_kitchen_sink.py's problem (every cone: zero, nonneg, SOC,
+    rotated SOC, a 2x2 PSD block, an exp block, a power block), in f64 numpy
+    and the port's cone specs: (A, b, c, K1, K2, c_x, p0, n)."""
+    from fos_tpu_torch.cones import Cone, ConeSpec
+
+    rng = np.random.default_rng(5)
+    n = 5
+    c = rng.standard_normal(n)
+    p0 = rng.standard_normal(n) * 0.2
+    nv = n + 4
+    it, iq, iu, iv = n, n + 1, n + 2, n + 3
+    rows, bs, blocks, params = [], [], [], []
+
+    def add(r, bb, cone, dim, par=()):
+        rows.append(r)
+        bs.append(np.asarray(bb, float))
+        blocks.append((cone, dim))
+        params.append(par)
+
+    r = np.zeros((1, nv)); r[0, :n] = 1.0
+    add(r, [1.0], Cone.ZERO, 1)                          # sum(x) = 1
+    r = np.zeros((2, nv)); r[0, it] = 1.0; r[1, iq] = 1.0
+    add(r, [1.0, 1.0], Cone.ZERO, 2)                     # t = q = 1
+    r = np.zeros((n, nv)); r[:, :n] = np.eye(n)
+    add(r, np.full(n, 2.0), Cone.NONNEG, n)              # x <= 2
+    r = np.zeros((1, nv)); r[0, iu] = 1.0
+    add(r, [3.0], Cone.NONNEG, 1)                        # u <= 3
+    r = np.zeros((1 + n, nv)); r[1:, :n] = -np.eye(n)
+    add(r, np.concatenate([[1.5], -p0]), Cone.SOC, 1 + n)  # ||x - p0|| <= 1.5
+    r = np.zeros((2 + n, nv))
+    r[0, it] = -1.0; r[1, iq] = -1.0; r[2:, :n] = -np.eye(n)
+    add(r, np.zeros(2 + n), Cone.SOC_ROTATED, 2 + n)     # ||x||^2 <= 2tq
+    r = np.zeros((3, nv))
+    r[0, 0] = -1.0; r[1, 1] = -np.sqrt(2.0); r[2, 2] = -1.0
+    add(r, [1.0, 0.0, 1.0], Cone.PSD, 3)                 # [[1+x1,x2],[x2,1+x3]]
+    r = np.zeros((3, nv)); r[0, 4] = -1.0; r[2, iu] = -1.0
+    add(r, [0.0, 1.0, 0.0], Cone.EXP_PRIMAL, 3)          # u >= exp(x5)
+    r = np.zeros((3, nv)); r[0, 0] = -1.0; r[1, 1] = -1.0; r[2, iv] = -1.0
+    add(r, [2.0, 2.0, 0.0], Cone.POW_PRIMAL, 3, (0.4,))  # v <= pow mean
+    cc = np.zeros(nv)
+    cc[:n] = c
+    cc[iv] = -0.2
+    return (np.vstack(rows), np.concatenate(bs), cc,
+            ConeSpec(tuple(blocks), tuple(params)),
+            ConeSpec(((Cone.FREE, nv),)), c, p0, n)
+
+
+def kitchen_sink_oracle(c, p0, n):
+    """The kitchen sink's optimum by scipy SLSQP on the host
+    (tests/test_kitchen_sink.py:_oracle): the best of five starts."""
+    from scipy.optimize import minimize
+
+    cons = [
+        {"type": "eq", "fun": lambda w: w.sum() - 1.0},
+        {"type": "ineq", "fun": lambda w: 2.0 - w},
+        {"type": "ineq", "fun": lambda w: 1.5 - np.linalg.norm(w - p0)},
+        {"type": "ineq", "fun": lambda w: 2.0 - w @ w},
+        {"type": "ineq", "fun": lambda w: np.linalg.eigvalsh(
+            np.array([[1 + w[0], w[1]], [w[1], 1 + w[2]]])).min()},
+        {"type": "ineq", "fun": lambda w: 3.0 - np.exp(w[4])},
+    ]
+
+    def obj(w):
+        return c @ w - 0.2 * (w[0] + 2.0) ** 0.4 * (w[1] + 2.0) ** 0.6
+
+    best = None
+    for seed in range(5):
+        x0 = np.random.default_rng(seed).standard_normal(n) * 0.1
+        res = minimize(obj, x0, constraints=cons, method="SLSQP",
+                       options={"maxiter": 2000, "ftol": 1e-14})
+        if res.success and (best is None or res.fun < best.fun):
+            best = res
+    return float(best.fun)
+
+
+def max_entropy_problem():
+    """tests/test_psd_exp_e2e.py:77: max sum(log x) s.t. sum(x) = 1 through
+    five exp blocks; the optimum is x_i = 1/5."""
+    from fos_tpu_torch.cones import Cone, ConeSpec, free
+
+    k = 5
+    nv = 3 * k
+    A = np.zeros((4 * k + 1, nv))
+    b = np.zeros(4 * k + 1)
+    for i in range(k):
+        A[3 * i, i] = A[3 * i + 1, k + i] = A[3 * i + 2, 2 * k + i] = -1.0
+        A[3 * k + i, k + i] = 1.0
+        b[3 * k + i] = 1.0
+    A[4 * k, 2 * k:] = 1.0
+    b[4 * k] = 1.0
+    c = np.zeros(nv)
+    c[:k] = -1.0
+    return (A, b, c, ConeSpec(((Cone.EXP_PRIMAL, 3 * k), (Cone.ZERO, k + 1))),
+            free(nv), k)
+
+
+def nearest_psd_problem():
+    """tests/test_psd_exp_e2e.py:21 (testPSD.jl): the PSD matrix nearest
+    to Y, ``min t s.t. (t, v - svec(Y)) in SOC, v psd``; the answer is Y's
+    eigenvalue clamp."""
+    import torch
+    from fos_tpu_torch.cones import Cone, ConeSpec, soc, svec
+
+    ys = np.array([[-0.0064709, -0.22443], [-0.22443, -1.02411]])
+    vs = svec(torch.as_tensor(ys)).numpy()
+    L, nv = 3, 4
+    A = np.zeros((1 + L, nv))
+    b = np.zeros(1 + L)
+    A[0, 0] = -1.0
+    A[1:, 1:] = -np.eye(L)
+    b[1:] = -vs
+    c = np.zeros(nv)
+    c[0] = 1.0
+    w, V = np.linalg.eigh(ys)
+    return (A, b, c, soc(1 + L),
+            ConeSpec(((Cone.FREE, 1), (Cone.PSD, L))),
+            (V * np.maximum(w, 0)) @ V.T)
+
+
+def tile_coo(blocks, col_of_slot):
+    """A tile table (nrb, S, 128, 128) with the column block of each slot
+    as a scipy COO matrix of its nonzero entries, built on the host."""
+    import scipy.sparse as sp
+
+    nrb, S = blocks.shape[:2]
+    ii, jj = np.nonzero(np.ones((TILE, TILE), bool))
+    r = (np.arange(nrb)[:, None, None] * TILE + ii[None, None, :])
+    c = (col_of_slot[:, :, None] * TILE + jj[None, None, :])
+    vals = blocks.reshape(nrb, S, TILE * TILE)
+    keep = vals != 0
+    r = np.broadcast_to(r, vals.shape)[keep]
+    ncols = (int(col_of_slot.max()) + 1) * TILE
+    return sp.coo_matrix((vals[keep], (r, c[keep])),
+                         shape=(nrb * TILE, max(ncols, nrb * TILE)))
+
+
+def fresh(form):
+    """A copy of a built form with no captured graphs of its own (the S1
+    projector and the tables are shared): the routes run from the same
+    set-up without repeating it."""
+    f = copy.copy(form)
+    f.__dict__.pop("_graphs", None)
+    return f
+
+
+def psd_projections(dev):
+    """psd_projection: one d x d block at d = 512 and 1024 (f32, numpy seed
+    29): the tuned and the uniform polynomial filters and eigh against a
+    host f64 eigh, their call times (CUDA events) and the filters' FLOP
+    bounds; and whether a capture can hold ``torch.linalg.eigh``."""
+    import torch
+    from fos_tpu_torch.cones.project import psd_project_eigh
+    from fos_tpu_torch.cones.psd_poly import (POWER_ITERS,
+                                              psd_project_poly)
+
+    for d in PSD_SIDES:
+        rng = np.random.default_rng(SDP_SEED)
+        C = rng.standard_normal((d, d), dtype=np.float32) / np.float32(
+            np.sqrt(d))
+        X = (C + C.T) / np.float32(2.0)
+        w, V = np.linalg.eigh(X.astype(np.float64))
+        ref = (V * np.maximum(w, 0.0)) @ V.T
+        norm2 = float(np.abs(w).max())
+        Xt = torch.as_tensor(X, device=dev)
+        gemv = POWER_ITERS * 2 + 1
+        methods = (
+            ("poly_tuned", lambda: psd_project_poly(Xt), 9 * 3 + 2 * 2 + 1),
+            ("poly_uniform_10_12", lambda: psd_project_poly(
+                Xt, quintic_iters=10, cubic_iters=12), 10 * 3 + 12 * 2 + 1),
+            ("eigh", lambda: psd_project_eigh(Xt), None))
+        out = {"d": d, "norm2": norm2}
+        for name, fn, gemms in methods:
+            P = fn().double().cpu().numpy()
+            res = {"rel_err": float(np.abs(P - ref).max()) / norm2,
+                   "ms": median_ms(fn, reps=10, warmup=2)}
+            if gemms is not None:
+                flops = gemms * 2 * d ** 3 + gemv * 2 * d * d
+                res.update(gemms=gemms, gemvs=gemv, flops=flops,
+                           **bound(4 * 2 * d * d, flops))
+                res["graph_ms"] = graph_us(fn, calls=2, reps=5)[0] / 1e3
+                res["share_of_bound"] = res["bound_ms"] / res["graph_ms"]
+            out[name] = res
+        emit({"phase": "psd_projection", **out})
+        if out["poly_tuned"]["rel_err"] > PSD_GATE:
+            raise AssertionError(f"psd_projection d={d}: tuned poly error "
+                                 f"{out['poly_tuned']['rel_err']} ||X||_2")
+    # can torch.linalg.eigh be captured?  In a process of its own: a failed
+    # capture is not left behind in this one
+    probe = ("import torch\n"
+             "x = torch.eye(64, device='cuda') + 0.01 * torch.randn(64, 64, "
+             "device='cuda')\nx = x + x.T\ntorch.linalg.eigh(x)\n"
+             "torch.cuda.synchronize()\ng = torch.cuda.CUDAGraph()\n"
+             "torch.cuda.set_sync_debug_mode('error')\n"
+             "try:\n    with torch.cuda.graph(g):\n        torch.linalg.eigh(x)"
+             "\n    print('captured')\nexcept Exception as e:\n"
+             "    print('refused:', type(e).__name__, str(e)[:300])\n")
+    res = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=300)
+    emit({"phase": "eigh_capture_probe", "rc": res.returncode,
+          "stdout": res.stdout.strip()[-400:],
+          "stderr": res.stderr.strip()[-400:]})
+
+
+def sdp_cells(dev):
+    """sdp_single_512 and sdp_single_1024: DR iterations/s on the graph
+    route (fused_solve, eps = 0, timed after its capture), then the quality
+    run, GAPA(0.8, 0.9) at eps = 1e-5 in one fused_solve, and at d = 1024
+    also in bench.py's 1000-iteration segments.  d = 512 is gated: Optimal
+    and |obj - lambda_min| / |lambda_min| <= 1e-3."""
+    import torch
+    from fos_tpu_torch import DR, GAPA, Status
+    from fos_tpu_torch.problems.hsde import HSDEForm
+    from fos_tpu_torch.solvers import engine
+
+    for d, quality_iters, rate_iters, gated in SDP_CELLS:
+        prob, sC, lam = sdp_problem(d, dev)
+        L = d * (d + 1) // 2
+        form = HSDEForm.build(prob, densify=False)
+        x0 = form.initial_value(form.dtype)
+        rate = []
+        for _ in range(2):   # the first call captures
+            res, secs = timed_solve(lambda: engine.fused_solve(
+                DR(), form, x0, max_iters=rate_iters, eps=0.0, checki=50))
+            rate.append(int(res.iters) / secs)
+        res, secs = timed_solve(lambda: engine.fused_solve(
+            GAPA(0.8, 0.9), form, x0, max_iters=quality_iters, eps=1e-5,
+            checki=100))
+        def rel_obj(res):
+            g = res.guess.double()
+            obj = float(torch.dot(sC.double(), g[:L]) / g[form.l - 1])
+            return obj, abs(obj - lam) / abs(lam)
+
+        obj, rel = rel_obj(res)
+        segmented = None
+        if not gated:
+            # bench.py's own quality loop: 1000-iteration segments resumed
+            # with budget_iters = done + 1000, so the plateau test sees a
+            # short budget in every segment (the TPU's d = 1024 reading came
+            # from this loop)
+            def segment(**kw):
+                return engine.fused_solve(GAPA(0.8, 0.9), form, x0,
+                                          max_iters=1000, eps=1e-5,
+                                          checki=100, **kw)
+
+            t0 = time.perf_counter()
+            seg = segment()
+            while (int(seg.status) == Status.CONTINUE
+                   and int(seg.iters) < quality_iters):
+                seg = segment(resume_state=seg.state,
+                              budget_iters=int(seg.iters) + 1000)
+            torch.cuda.synchronize()
+            segmented = {"status": Status.name(int(seg.status)),
+                         "iters": int(seg.iters),
+                         "seconds": time.perf_counter() - t0,
+                         "rel_obj_err": rel_obj(seg)[1]}
+        row = {"phase": f"sdp_single_{d}", "d": d, "L": L,
+               "psd_method": form.psd_method, "route": form.route,
+               "dr_iters_per_s_first_call": rate[0],
+               "dr_iters_per_s": rate[1], "quality_alg": "GAPA(0.8, 0.9)",
+               "eps": 1e-5, "status": Status.name(int(res.status)),
+               "iters": int(res.iters), "seconds": secs,
+               "iters_per_s": int(res.iters) / secs, "obj": obj,
+               "lambda_min_f64": lam, "rel_obj_err": rel, "gated": gated,
+               "segmented_like_bench": segmented}
+        emit(row)
+        if gated and (row["status"] != "Optimal" or rel > SDP_GATE):
+            raise AssertionError(f"sdp_single_{d}: {row['status']}, rel obj "
+                                 f"err {rel}")
+        del form, res
+
+
+def kitchen_sink_cells(dev):
+    """kitchen_sink in f64: DR at eps = 1e-8 with psd_method "eigh"
+    (gated: Optimal and the objective within the test's 1e-5 (1 + |f|) of
+    SLSQP) and with "auto" ("poly" on the card: printed); the max-entropy
+    exp problem (gated as its test: Optimal, x within 1e-4 of 1/k) and the
+    nearest-PSD problem (gated with eigh as its test, to 1e-7; poly
+    printed)."""
+    from fos_tpu_torch import DR, solve
+
+    A, b, cc, K1, K2, c, p0, n = kitchen_sink_problem()
+    best = kitchen_sink_oracle(c, p0, n)
+    rows = {}
+    for method in ("eigh", "auto"):
+        sol, secs = timed_solve(lambda: solve(
+            A, b, cc, K1, K2, alg=DR(), eps=1e-8, max_iters=60000,
+            verbose=0, device=dev, psd_method=method))
+        x = sol.x.cpu().numpy()
+        f = float(c @ x[:n]) - 0.2 * float(x[n + 3])
+        row = {"psd_method": method, "route": sol.route,
+               "status": sol.status, "iters": sol.iters, "seconds": secs,
+               "iters_per_s": sol.iters / secs, "objective": f,
+               "slsqp": best, "excess_over_slsqp": f - best,
+               "gate": 1e-5 * (1 + abs(best)), "gated": method == "eigh"}
+        rows[method] = row
+    emit({"phase": "kitchen_sink", "dtype": "float64", "eps": 1e-8, **rows})
+    r = rows["eigh"]
+    if r["status"] != "Optimal" or r["excess_over_slsqp"] > r["gate"]:
+        raise AssertionError(f"kitchen sink (eigh): {r}")
+    A, b, c, K1, K2, k = max_entropy_problem()
+    sol, secs = timed_solve(lambda: solve(A, b, c, K1, K2, alg=DR(), eps=1e-8,
+                                          max_iters=40000, verbose=0,
+                                          device=dev))
+    x = sol.x.cpu().numpy()
+    ent = {"status": sol.status, "iters": sol.iters, "seconds": secs,
+           "route": sol.route,
+           "max_abs_err_x": float(np.abs(x[2 * k:] - 1.0 / k).max()),
+           "max_abs_err_t": float(np.abs(x[:k] - np.log(1.0 / k)).max())}
+    emit({"phase": "max_entropy_exp", **ent})
+    if (ent["status"] != "Optimal" or ent["max_abs_err_x"] > 1e-4
+            or ent["max_abs_err_t"] > 1e-4):
+        raise AssertionError(f"max entropy: {ent}")
+    A, b, c, K1, K2, Yp = nearest_psd_problem()
+    from fos_tpu_torch.cones import smat
+    near = {}
+    for method in ("eigh", "auto"):
+        sol = solve(A, b, c, K1, K2, alg=DR(), eps=1e-9, max_iters=20000,
+                    verbose=0, device=dev, psd_method=method)
+        Y = smat(sol.x[1:]).cpu().numpy()
+        near[method] = {"status": sol.status, "iters": sol.iters,
+                        "route": sol.route,
+                        "max_abs_err": float(np.abs(Y - Yp).max())}
+    emit({"phase": "nearest_psd", **near})
+    if near["eigh"]["status"] != "Optimal" or near["eigh"]["max_abs_err"] > 1e-7:
+        raise AssertionError(f"nearest PSD (eigh): {near['eigh']}")
+
+
+def exp_pow_projection(dev):
+    """exp_pow_projection: bench.py:615's recipe, K = 65536 blocks of each
+    (f32, N(0, 4) entries from numpy seed 31, power exponent 0.3): us per
+    projection replayed from a CUDA graph, the kernels one projection
+    launches (profiler over an eager call), the eager call's time, and the
+    max error against the same function run in f64 on the host."""
+    import torch
+    from fos_tpu_torch.cones.exp import project_exp
+    from fos_tpu_torch.cones.pow import project_pow
+
+    rng = np.random.default_rng(31)
+    V = (rng.standard_normal((EXP_POW_BLOCKS, 3)) * 2.0).astype(np.float32)
+    Vt = torch.as_tensor(V, device=dev)
+    a = torch.full((EXP_POW_BLOCKS,), 0.3, device=dev)
+    V64 = torch.as_tensor(V, dtype=torch.float64)
+    a64 = a.double().cpu()
+    out = {}
+    for name, fn, host in (
+            ("exp", lambda: project_exp(Vt), lambda: project_exp(V64)),
+            ("pow", lambda: project_pow(Vt, a), lambda: project_pow(V64, a64))):
+        got = fn().double().cpu()
+        ref = host()
+        scale = 1.0 + V64.abs().amax(-1, keepdim=True)
+        us, _ = graph_us(fn, calls=2, reps=5)
+        kernels, _, _ = kernel_breakdown(fn, reps=2)
+        out[name] = {"blocks": EXP_POW_BLOCKS,
+                     "us_per_projection_graph": us,
+                     "kernels_per_projection": kernels,
+                     "ms_eager_call": median_ms(fn, reps=5, warmup=1),
+                     "max_abs_err_vs_f64_host": float((got - ref).abs().max()),
+                     "max_scaled_err": float(((got - ref).abs() / scale).max()),
+                     "finite": bool(torch.isfinite(got).all())}
+    emit({"phase": "exp_pow_projection", "dtype": "float32", **out})
+    if not (out["exp"]["finite"] and out["pow"]["finite"]):
+        raise AssertionError(f"exp/pow projection not finite: {out}")
+
+
+def equilibrated_lps(dev, tables, unscaled_iters):
+    """equilibrated_banded_lp / equilibrated_scattered_lp: phase 2's 32768^2
+    LPs handed to ``solve`` as scipy sparse with ``equilibrate=True``
+    (scaled on the host, then packed into the tile operators): host Ruiz
+    seconds, iterations beside the unequilibrated run's, and the device's
+    K2/K3 launch counts (gated > 0).  Gate: Optimal at eps = 1e-5 and the
+    objective within 1e-3 of the certificate.  Returns the built forms for
+    the routes."""
+    import torch
+    from fos_tpu_torch import DR, nonneg, solve
+    from fos_tpu_torch.linalg import _cuda
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    forms = {}
+    for phase, (blocks, slots, b, c, opt), key in zip(
+            ("equilibrated_banded_lp", "equilibrated_scattered_lp"), tables,
+            ("band_mv_pair", "bell_mv_pair")):
+        t0 = time.perf_counter()
+        A = tile_coo(blocks, slots)
+        coo_s = time.perf_counter() - t0
+        bh, ch = b.cpu().numpy(), c.cpu().numpy()
+        m, n = A.shape
+        t0 = time.perf_counter()
+        form = HSDEForm.build(conic_problem(A, bh, ch, nonneg(m), nonneg(n),
+                                            device=dev),
+                              equilibrate=True, densify=False)
+        build_s = time.perf_counter() - t0
+        _cuda.device_launch_counts(reset=True)
+        sol, secs = timed_solve(lambda: solve(
+            A, bh, ch, nonneg(m), nonneg(n), alg=DR(), eps=GATE_EPS,
+            max_iters=10000, verbose=0, device=dev, equilibrate=True,
+            densify=False))
+        counts = _cuda.device_launch_counts(reset=True)
+        rel = abs(sol.objval - opt) / abs(opt)
+        row = {"phase": phase, "shape": [m, n], "nnz": int(A.nnz),
+               "operator": type(form.A).__name__,
+               "host_coo_seconds": coo_s,
+               "host_ruiz_seconds": form.setup_seconds["equilibrate"],
+               "build_seconds": build_s, "status": sol.status,
+               "iters": sol.iters,
+               "iters_unequilibrated": unscaled_iters[phase],
+               "seconds": secs, "iters_per_s": sol.iters / secs,
+               "obj": sol.objval, "obj_certificate": opt, "rel_obj_err": rel,
+               f"{key}_launches": counts[key]}
+        emit(row)
+        if sol.status != "Optimal" or rel > GATE_OBJ or counts[key] == 0:
+            raise AssertionError(f"{phase}: {sol.status}, rel obj err {rel}, "
+                                 f"{key} launches {counts[key]}")
+        forms[phase] = form
+        del A
+        torch.cuda.empty_cache()
+    return forms
+
+
+def direct_dense_lp(dev, A1, b1, c1, opt1):
+    """direct_dense_lp: phase 2's 1000x1000 LP with DR(direct=True) and
+    pallas=True: the host f64 QR's seconds, iterations/s on the graph route
+    and K1's device launches (the check's pair and v = Q u); gated as phase
+    2 gates the dense LP (Optimal at eps = 1e-5, then continued to 1e-6 for
+    the 1e-3 objective gate)."""
+    import torch
+    from fos_tpu_torch import DR, nonneg, solve
+    from fos_tpu_torch.linalg import _cuda
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    N = A1.shape[0]
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    form = HSDEForm.build(conic_problem(A1, b1, c1, nonneg(N), nonneg(N),
+                                        device=dev, dtype=f32),
+                          direct=True, pallas=True)
+    build_s = time.perf_counter() - t0
+    _cuda.device_launch_counts(reset=True)
+    sol, secs = timed_solve(lambda: solve(
+        A1, b1, c1, nonneg(N), nonneg(N), alg=DR(direct=True), eps=GATE_EPS,
+        dtype=f32, pallas=True, device=dev, verbose=0))
+    k1 = _cuda.device_launch_counts(reset=True)["fused_matvec"]
+    cont, csecs = timed_solve(lambda: solve(
+        A1, b1, c1, nonneg(N), nonneg(N), alg=DR(direct=True),
+        eps=GATE_EPS / 10, max_iters=10000, dtype=f32, pallas=True,
+        device=dev, verbose=0, warm_start=sol))
+    k1c = _cuda.device_launch_counts(reset=True)["fused_matvec"]
+    rel = abs(cont.objval - opt1) / abs(opt1)
+    row = {"phase": "direct_dense_lp", "shape": [N, N],
+           "factor_shape": list(form.sets.s1.fac.shape),
+           "factor_mib": form.sets.s1.fac.numel() * 4 / 2**20,
+           "qr_init_seconds": form.setup_seconds["factor"],
+           "build_seconds": build_s, "eps": GATE_EPS, "status": sol.status,
+           "iters": sol.iters, "seconds": secs,
+           "iters_per_s": sol.iters / secs, "rel_obj_err_at_eps": abs(
+               sol.objval - opt1) / abs(opt1), "fused_matvec_launches": k1,
+           "continued_eps": GATE_EPS / 10, "continued_status": cont.status,
+           "continued_iters": cont.iters, "continued_seconds": csecs,
+           "continued_iters_per_s": cont.iters / csecs,
+           "continued_fused_matvec_launches": k1c, "rel_obj_err": rel}
+    emit(row)
+    if (sol.status != "Optimal" or cont.status != "Optimal"
+            or rel > GATE_OBJ or k1 == 0):
+        raise AssertionError(f"direct dense LP: {sol.status}, continued "
+                             f"{cont.status}, rel obj err {rel}, K1 {k1}")
+    return form
+
+
+def cones_phase(dev, A1, b1, c1, opt1, lp_tables, unscaled_iters):
+    """Phase 6 (this slice's path): the PSD, exp and power cones, Ruiz
+    equilibration and the direct mode on the card, then the routes of the
+    SDP, the kitchen sink (poly), the equilibrated LPs and the direct LP.
+    Returns the device's launch counts over the phase."""
+    import torch
+    from fos_tpu_torch.linalg import _cuda
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    _cuda.device_launch_counts(reset=True)
+    counts = collections.Counter()
+    psd_projections(dev)
+    sdp_cells(dev)
+    kitchen_sink_cells(dev)
+    exp_pow_projection(dev)
+    counts.update(_cuda.device_launch_counts(reset=True))
+    eq_forms = equilibrated_lps(dev, lp_tables, unscaled_iters)
+    counts.update(_cuda.device_launch_counts(reset=True))
+    direct = direct_dense_lp(dev, A1, b1, c1, opt1)
+    counts.update(_cuda.device_launch_counts(reset=True))
+
+    def initial(form):
+        return form.initial_value(form.dtype)
+
+    d = SDP_CELLS[0][0]
+    prob, _, _ = sdp_problem(d, dev)
+    A, b, cc, K1, K2, *_ = kitchen_sink_problem()
+    routes = (
+        (f"sdp_single_{d}", lambda: HSDEForm.build(prob, densify=False),
+         1e-5, SDP_ROUTE_ITERS),
+        ("kitchen_sink_poly", lambda: HSDEForm.build(
+            conic_problem(A, b, cc, K1, K2, device=dev), psd_method="poly"),
+         1e-8, 2000),
+        *((name, lambda f=f: fresh(f), GATE_EPS, 10000)
+          for name, f in eq_forms.items()),
+        ("direct_dense_lp", lambda: fresh(direct), GATE_EPS, 10000))
+    for name, make_form, eps, iters in routes:
+        run_routes(name, make_form, initial, eps, iters)
+        counts.update(_cuda.device_launch_counts(reset=True))
+    del eq_forms, direct
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -975,6 +1579,7 @@ def main() -> int:
     if not finite:
         raise AssertionError("scaling run produced non-finite values")
 
+    lp_iters = {}
     for phase, op, b, c, opt in (("banded_lp", band, b_band, c_band, opt_band),
                                  ("scattered_lp", ell, b_ell, c_ell, opt_ell)):
         key = "band_mv_pair" if phase == "banded_lp" else "bell_mv_pair"
@@ -990,6 +1595,7 @@ def main() -> int:
               f"{key}_launches": launched(conic_counts)[key]})
         if sol.status != "Optimal" or rel > GATE_OBJ:
             raise AssertionError(f"{phase}: {sol.status}, rel obj err {rel}")
+        lp_iters[f"equilibrated_{phase}"] = sol.iters
     captured = dict(_cuda.LAUNCHES)
     launched(conic_counts)
     for name in ("fused_matvec", "band_mv_pair", "bell_mv_pair"):
@@ -1186,10 +1792,22 @@ def main() -> int:
                                  f"route differs from the eager route in "
                                  f"{bad}")
 
+    # --- phase 6: the cones, equilibration and the direct mode (this
+    # slice's path), with the device's launch counts zeroed before it
+    cone_counts = cones_phase(
+        dev, A1, b1, c1, opt1,
+        ((blk_band, band_slots, b_band, c_band, opt_band),
+         (blk_ell, cols, b_ell, c_ell, opt_ell)), lp_iters)
+    for name in ("fused_matvec", "band_mv_pair", "bell_mv_pair"):
+        kernels[name]["launches_cones_path"] = cone_counts[name]
+    if not all(cone_counts[k] for k in ("fused_matvec", "band_mv_pair",
+                                        "bell_mv_pair")):
+        raise AssertionError(f"phase 6 did not launch K1-K3: {cone_counts}")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "plain_device_ms", "captured_calls", "sum_launches",
-            "shape", "max_rel_err", "deterministic")
+            "shape", "max_rel_err", "deterministic", "launches_cones_path")
     emit({"kernels": [{k: e.get(k) for k in keys}
                       for e in ({"name": name, "route": "cuda", **entry}
                                 for name, entry in kernels.items())]})

@@ -63,7 +63,13 @@ def solve(A=None, b=None, c=None, K1: ConeSpec = None, K2: ConeSpec = None,
 
     Sparse ``A`` (scipy.sparse) options: ``densify`` and ``sparse_format``,
     as documented at :meth:`HSDEForm.build`.  ``pallas=True`` runs dense A
-    through the hand-written fused pair kernel.
+    through the hand-written fused pair kernel.  ``equilibrate=True`` (with
+    ``equilibrate_iters``, default 10) Ruiz-scales the data on the host
+    before A is packed; ``alg=DR(direct=True)`` (or another algorithm with
+    ``direct=True``) replaces CG by a cached host QR factor;
+    ``psd_method`` ("auto": "poly" on the card, "eigh" on the CPU) picks the
+    PSD blocks' projection, and "eigh" on the card runs the eager route
+    (``Solution.route``).
 
     ``warm_start`` seeds the iteration from a previous :class:`Solution`
     (sugar for ``initx=prev.raw_z``).
@@ -87,17 +93,17 @@ def solve(A=None, b=None, c=None, K1: ConeSpec = None, K2: ConeSpec = None,
         raise NotImplementedError(
             "refine is not ported yet: ROADMAP queue 1, 'refine'")
     opts.pop("refine_kwargs", None)
-    opts.pop("equilibrate_iters", None)
-    opts.pop("psd_method", None)  # only PSD blocks read it; none are ported
     form = HSDEForm.build(
         problem,
         direct=getattr(alg, "direct", False),
         cg_max_iters=int(opts.pop("cg_max_iters", 1000)),
         cg_tol_floor=opts.pop("cg_tol_floor", None),
         pallas=bool(opts.pop("pallas", False)),
+        psd_method=str(opts.pop("psd_method", "auto")),
         cg_variant=str(opts.pop("cg_variant", "standard")),
         cg_unroll=int(opts.pop("cg_unroll", 2)),
         equilibrate=bool(opts.pop("equilibrate", False)),
+        equilibrate_iters=int(opts.pop("equilibrate_iters", 10)),
         strict_certificates=bool(opts.pop("strict_certificates", False)),
         densify=opts.pop("densify", "auto"),
         compensated=opts.pop("compensated", "auto"),

@@ -2,10 +2,12 @@
 
 Tests use these helpers to make both packages compute the same thing: a
 cone spec from ``(Cone.name, dim)`` pairs, a dense or tile operator from
-the arrays of a JAX operator, and a solver state from the leaves of a JAX
-``SolverState`` (run N steps in JAX, continue in the port), or from the
-whole state (:func:`solver_state_from_tree`: a JAX ``FusedResult.state``
-with its recovery floor and plateau baseline).  Nothing here imports jax:
+the arrays of a JAX operator, a conic form's equilibration weights and
+direct-mode factor (:func:`carry_form_arrays`), and a solver state from the
+leaves of a JAX ``SolverState`` (run N steps in JAX, continue in the port),
+or from the whole state (:func:`solver_state_from_tree`: a JAX
+``FusedResult.state`` with its recovery floor and plateau baseline; a form
+with PSD, exponential or power blocks has a stateless S2, ``()``).  Nothing here imports jax:
 arrays are converted with ``np.asarray``.
 """
 
@@ -55,6 +57,23 @@ def tile_op_from_numpy(kind: str, blocks, index, m: int, n: int, device=None,
                                         blocks_t=blocks_t, cols_t=index_t,
                                         device=device)
     raise ValueError(f"kind must be 'band' or 'bell', got {kind!r}")
+
+
+def carry_form_arrays(form, *, dinv=None, einv=None, fac=None):
+    """Give a port :class:`~fos_tpu_torch.problems.hsde.HSDEForm`, in place,
+    a JAX form's equilibration weights (``np.asarray(jform.dinv)``,
+    ``np.asarray(jform.einv)``) and direct-mode factor
+    (``np.asarray(jform.sets.s1.fac)``), in the form's dtype and on its
+    device, so that both packages iterate with the same arrays.  Returns the
+    form."""
+    dev, dt = form.device, form.dtype
+    if dinv is not None:
+        form.dinv = _t(dinv, dev, dt)
+    if einv is not None:
+        form.einv = _t(einv, dev, dt)
+    if fac is not None:
+        form.sets.s1 = form.sets.s1.replace(fac=_t(fac, dev, dt))
+    return form
 
 
 def _t(a, device, dtype=None):

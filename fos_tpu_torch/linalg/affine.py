@@ -4,8 +4,9 @@
   ``{(u, v) : Q u = v}`` by warm-started CG on the SPD system
   ``(I + Q'Q) u = u0 - Q v0`` with the decreasing-accuracy tolerance of
   FirstOrderSolvers.jl (affinepluslinear.jl:83-126, HSDEAffine.jl:105-126),
-  tracking ``v = Q u`` through the CG recurrence.  Its direct (QR) back end
-  is not ported yet (ROADMAP, queue 1 "Direct mode").
+  tracking ``v = Q u`` through the CG recurrence; or, in direct mode, by
+  one GEMV with a cached factor of ``QR([I; Q])`` computed once on the
+  host in f64 (FirstOrderSolvers.jl's ``IndAffine([Q -I])``, HSDE.jl:15).
 * :class:`AffinePlusLinearProjector`, an S1 set of the set-feasibility
   solve: the prox of ``q'x + ind(Ax - beta z = b)``, by CG on ``I + AA'``
   (indirect) or by a cached host QR (direct, :func:`_ls_projection_fac`).
@@ -71,6 +72,32 @@ def _ls_projection_fac(Mtop, *, eye_first, dtype=None, device=None):
     return torch.from_numpy(out).to(dtype=dtype, device=device)
 
 
+def _host_q_dense_f64(A, b, c):
+    """Q materialised on the host in f64 (as :func:`hsde_ops.q_dense`), from
+    a dense tensor, a torch sparse COO tensor, or an operator with
+    ``todense`` (:class:`PaddedDenseOp`, the tile operators)."""
+    if hasattr(A, "todense"):
+        A = A.todense()
+    if isinstance(A, torch.Tensor) and A.layout == torch.sparse_coo:
+        A = A.to_dense()
+
+    def host(t):
+        return (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+                else np.asarray(t)).astype(np.float64)
+
+    Ah, bh, ch = host(A), host(b), host(c)
+    m, n = Ah.shape
+    l = m + n + 1
+    Q = np.zeros((l, l))
+    Q[:n, n:n + m] = Ah.T
+    Q[:n, -1] = ch
+    Q[n:n + m, :n] = -Ah
+    Q[n:n + m, -1] = bh
+    Q[-1, :n] = -ch
+    Q[-1, n:n + m] = -bh
+    return Q
+
+
 def _default_floor(size: int, dtype) -> float:
     """CG absolute-tolerance floor: FirstOrderSolvers.jl's ``size*eps``
     (affinepluslinear.jl:108).  Loose at f32 and large size; the engine's
@@ -79,14 +106,22 @@ def _default_floor(size: int, dtype) -> float:
 
 
 class HSDEAffineProjector:
-    """Projection onto ``{(u, v) : Q u = v}`` for the HSDE operator Q."""
+    """Projection onto ``{(u, v) : Q u = v}`` for the HSDE operator Q.
 
-    def __init__(self, A, b, c, *, decreasing_accuracy=True, cg_max_iters=1000,
-                 tol_floor=None, cg_unroll=2, compensated=False):
+    Indirect (default): warm-started CG on ``(I + Q'Q) u = u0 - Q v0``.
+    Direct (``fac`` given): ``u = P' z`` with ``P = Q_f R^{-T}`` of
+    ``QR([I; Q])``, (2l, l), then ``v = Q u``; the CG state is carried with
+    ``last_iters = 0``.
+    """
+
+    def __init__(self, A, b, c, fac=None, *, decreasing_accuracy=True,
+                 cg_max_iters=1000, tol_floor=None, cg_unroll=2,
+                 compensated=False):
         self.A = A
         self.b = b
         self.c = c
-        self.direct = False
+        self.fac = fac
+        self.direct = fac is not None
         self.decreasing_accuracy = decreasing_accuracy
         self.cg_max_iters = cg_max_iters
         self.tol_floor = tol_floor
@@ -98,21 +133,25 @@ class HSDEAffineProjector:
     def create(cls, A, b, c, *, direct=False, decreasing_accuracy=True,
                cg_max_iters=1000, tol_floor=None, cg_variant="standard",
                cg_unroll=2, compensated=False):
-        if direct:
-            raise NotImplementedError(
-                "direct=True (QR) is not ported yet: ROADMAP queue 1, "
-                "'Direct mode'")
         if cg_variant != "standard":
             raise NotImplementedError(
                 f"cg_variant={cg_variant!r} is not ported yet: ROADMAP queue "
                 "1, 'Sharding' (pipelined CG)")
-        return cls(A, b, c, decreasing_accuracy=decreasing_accuracy,
+        fac = None
+        if direct:
+            # u = argmin ||[I; Q] u - z||^2: QR of [I; Q] touches cond(Q)
+            # once (a Cholesky of I + Q'Q would square it); Q is built and
+            # factored on the host in f64, then cast once
+            fac = _ls_projection_fac(_host_q_dense_f64(A, b, c),
+                                     eye_first=True, dtype=b.dtype,
+                                     device=b.device)
+        return cls(A, b, c, fac, decreasing_accuracy=decreasing_accuracy,
                    cg_max_iters=cg_max_iters, tol_floor=tol_floor,
                    cg_unroll=cg_unroll, compensated=compensated)
 
     def replace(self, **changes) -> "HSDEAffineProjector":
         """A copy with some settings changed (every field is carried)."""
-        kw = dict(decreasing_accuracy=self.decreasing_accuracy,
+        kw = dict(fac=self.fac, decreasing_accuracy=self.decreasing_accuracy,
                   cg_max_iters=self.cg_max_iters, tol_floor=self.tol_floor,
                   cg_unroll=self.cg_unroll, compensated=self.compensated)
         kw.update(changes)
@@ -135,7 +174,10 @@ class HSDEAffineProjector:
     def init_state_from(self, z0) -> CGState:
         """Warm start seeded from the initial iterate: ``warm = u0`` and
         ``v_warm = Q u0``, one pair paid once so that every projection
-        forms its CG residual with a single pair."""
+        forms its CG residual with a single pair.  Direct mode reads no warm
+        start and keeps the plain state."""
+        if self.direct:
+            return CGState.create(self.l, z0.dtype, z0.device)
         u0 = z0[: self.l]
         return CGState.create(self.l, z0.dtype, z0.device)._replace(
             warm=u0, v_warm=self._q(u0),
@@ -151,6 +193,12 @@ class HSDEAffineProjector:
         return cg._replace(v_warm=self._q(cg.warm))
 
     def project(self, z, cg: CGState):
+        if self.direct:
+            # one full-f32 GEMV (TF32 is off, fos_tpu_torch.config)
+            u = torch.matmul(self.fac.T, z)
+            new_cg = cg._replace(call_idx=cg.call_idx + 1,
+                                 last_iters=torch.zeros_like(cg.last_iters))
+            return torch.cat([u, self._q(u)]), new_cg
         if cg.v_warm is None:
             raise ValueError(
                 "CGState without v_warm: seed it with init_state_from")

@@ -15,13 +15,15 @@ src/problemforms/HSDE/HSDE.jl):
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from fos_tpu_torch.config import eps_of
-from fos_tpu_torch.cones.spec import ConeSpec, nonneg
+from fos_tpu_torch.cones.project import resolve_psd_method
+from fos_tpu_torch.cones.spec import Cone, ConeSpec, nonneg
 from fos_tpu_torch.linalg.affine import HSDEAffineProjector, _default_floor
 from fos_tpu_torch.linalg import hsde_ops
 from fos_tpu_torch.problems.conic import ConicProblem
@@ -81,15 +83,18 @@ class HSDEForm:
     STALL_WINDOW = 10
 
     def __init__(self, sets: TwoSets, A, b, c, norm_b, norm_c, n: int, m: int,
-                 K2_spec=None, strict_certificates=False, compensated=False):
+                 dinv=None, einv=None, K2_spec=None, strict_certificates=False,
+                 compensated=False):
         self.sets = sets
         self.A = A
         self.b = b
         self.c = c
-        self.norm_b = norm_b
-        self.norm_c = norm_c
+        self.norm_b = norm_b      # the original ||b|| (before equilibration)
+        self.norm_c = norm_c      # the original ||c||
         self.n = n
         self.m = m
+        self.dinv = dinv          # residual unscaling weights (equilibration)
+        self.einv = einv
         self.K2_spec = K2_spec
         self.strict_certificates = strict_certificates
         self.compensated = compensated
@@ -98,8 +103,9 @@ class HSDEForm:
     @classmethod
     def build(cls, problem: ConicProblem, *, direct: bool = False,
               cg_max_iters: int = 1000, pallas: bool = False,
-              cg_tol_floor: float = None, cg_variant: str = "standard",
-              cg_unroll: int = 2, equilibrate: bool = False,
+              cg_tol_floor: float = None, psd_method: str = "auto",
+              cg_variant: str = "standard", cg_unroll: int = 2,
+              equilibrate: bool = False, equilibrate_iters: int = 10,
               strict_certificates: bool = False, densify="auto",
               compensated="auto", sparse_format="auto") -> "HSDEForm":
         """Build the embedding on the device of ``problem.b``.
@@ -119,11 +125,16 @@ class HSDEForm:
         * ``pallas=True`` selects :class:`PaddedDenseOp`, the hand-written
           fused pair kernel for dense A (the keyword keeps the JAX
           package's name).
+
+        ``equilibrate`` runs Ruiz scaling (``equilibrate_iters`` sweeps) on
+        the host before A is packed (:mod:`fos_tpu_torch.problems.
+        scaling`); an operator A cannot be scaled and raises.  ``direct``
+        factors ``[I; Q]`` on the host (a dense (2l, l) factor) instead of
+        running CG; the form's ``setup_seconds`` holds the host seconds of
+        these two steps ("equilibrate", "factor").  ``psd_method`` ("auto",
+        "eigh", "poly") picks the PSD projection; "eigh" on a CUDA device
+        runs the solve on the eager route (:attr:`graph_route`).
         """
-        if equilibrate:
-            raise NotImplementedError(
-                "equilibrate is not ported yet: ROADMAP queue 1, "
-                "'problems/scaling.py'")
         A, b, c = problem.A, problem.b, problem.c
         device, dtype = b.device, b.dtype
         if isinstance(A, torch.Tensor) and A.layout == torch.sparse_coo:
@@ -139,6 +150,15 @@ class HSDEForm:
             if densify is True or (densify == "auto" and device.type == "cuda"
                                    and dense_bytes < DENSIFY_LIMIT_BYTES):
                 A = torch.as_tensor(A.toarray()).to(device=device, dtype=dtype)
+        norm_b = torch.linalg.norm(b)
+        norm_c = torch.linalg.norm(c)
+        dinv = einv = None
+        setup = {}   # host seconds of the one-time set-up steps
+        if equilibrate:
+            t0 = time.perf_counter()
+            A, b, c, dinv, einv = _equilibrate(A, b, c, problem.K1,
+                                               problem.K2, equilibrate_iters)
+            setup["equilibrate"] = time.perf_counter() - t0
         if _is_scipy_sparse(A) and sparse_format in ("auto", "bell", "band"):
             if dtype == torch.float32:
                 from fos_tpu_torch.linalg.sparse_ell import (
@@ -166,8 +186,6 @@ class HSDEForm:
 
             if not isinstance(A, PaddedDenseOp):
                 A = PaddedDenseOp.create(A)
-        norm_b = torch.linalg.norm(b)
-        norm_c = torch.linalg.norm(c)
         # compensated reductions: on for the f32 check by default (once per
         # checki, and it keeps the cancelling gap honest); CG dots opt-in
         if compensated == "auto":
@@ -175,16 +193,22 @@ class HSDEForm:
             comp_cg = False
         else:
             comp_check = comp_cg = bool(compensated)
+        t0 = time.perf_counter()
         s1 = HSDEAffineProjector.create(
             A, b, c, direct=direct, decreasing_accuracy=not direct,
             cg_max_iters=cg_max_iters, tol_floor=cg_tol_floor,
             cg_variant=cg_variant, cg_unroll=cg_unroll, compensated=comp_cg)
-        s2 = ConeSet(hsde_cone_spec(problem.K1, problem.K2))
+        if direct:
+            setup["factor"] = time.perf_counter() - t0
+        spec = hsde_cone_spec(problem.K1, problem.K2)
+        s2 = ConeSet(spec, resolve_psd_method(psd_method, device))
         if s2.spec.dim != 2 * s1.l:
             raise ValueError("cone product does not cover the embedding")
         form = cls(TwoSets(s1, s2), A, b, c, norm_b, norm_c, problem.n,
-                   problem.m, problem.K2, strict_certificates, comp_check)
+                   problem.m, dinv, einv, problem.K2, strict_certificates,
+                   comp_check)
         form._host_norms()  # read once here, not between chunks
+        form.setup_seconds = setup
         return form
 
     @property
@@ -206,6 +230,30 @@ class HSDEForm:
     @property
     def direct(self) -> bool:
         return self.sets.s1.direct
+
+    @property
+    def psd_method(self):
+        """The PSD blocks' projection ("eigh" or "poly"), or None without
+        PSD blocks."""
+        s2 = self.sets.s2
+        return (s2.psd_method if any(cone is Cone.PSD
+                                     for cone, _ in s2.spec.blocks) else None)
+
+    @property
+    def graph_route(self) -> bool:
+        """Whether the engine may run this form as captured CUDA graphs:
+        not with PSD blocks projected by ``torch.linalg.eigh``, whose
+        capture the card refuses (the stream capture is invalidated).
+        Decided when the form is built, never by a failed capture."""
+        return self.psd_method != "eigh"
+
+    @property
+    def route(self) -> str:
+        """Where and how the solve runs: "cpu", or on the card "graph"
+        (captured CUDA graphs) or "eager"."""
+        if self.device.type != "cuda":
+            return "cpu"
+        return "graph" if self.graph_route else "eager"
 
     def initial_value(self, dtype):
         """tau = kappa = 1, everything else 0 (HSDE.jl:40-47)."""
@@ -255,8 +303,11 @@ class HSDEForm:
             ctx = torch.dot(c, x)
             bty = torch.dot(b, y)
             gap_num = torch.abs(ctx + bty)
-        p = _norm(Ax / tau + s / tau - b) / (1.0 + nb)
-        d = _norm(ATy / tau + c - r / tau) / (1.0 + nc)
+        # with equilibration the residuals are unscaled back to the original
+        # problem (weights D^-1, E^-1); nb and nc are the original norms
+        wp, wd = self._weigh_p, self._weigh_d
+        p = _norm(wp(Ax / tau + s / tau - b)) / (1.0 + nb)
+        d = _norm(wd(ATy / tau + c - r / tau)) / (1.0 + nc)
         gden = 1.0 + torch.abs(ctx / tau) + torch.abs(bty / tau)
         g = (gap_num / tau) / gden
 
@@ -265,15 +316,16 @@ class HSDEForm:
         # certificates need strictly improving rays (ctx < 0 resp. bty < 0):
         # without the sign guard an iterate collapsed to z = 0 would be
         # certified (a defect of HSDEStatus.jl:58-61 not reproduced)
-        unbounded = (ctx < 0) & (_norm(Ax + s) <= eps * (-ctx / nc))
+        unbounded = (ctx < 0) & (_norm(wp(Ax + s)) <= eps * (-ctx / nc))
         if self.strict_certificates and self.K2_spec is not None:
             # Farkas certificate: distance of A'y to K2*
             from fos_tpu_torch.cones.project import project as _proj
 
-            cert = ATy - _proj(self.K2_spec.dual(), ATy)
+            v = wd(ATy)
+            cert = v - _proj(self.K2_spec.dual(), v)
             infeasible = (bty < 0) & (_norm(cert) <= eps * (-bty / nb))
         else:
-            infeasible = (bty < 0) & (_norm(ATy) <= eps * (-bty / nb))
+            infeasible = (bty < 0) & (_norm(wd(ATy)) <= eps * (-bty / nb))
 
         def code(k):
             return torch.full((), k, dtype=torch.int32, device=z.device)
@@ -284,6 +336,12 @@ class HSDEForm:
                         torch.where(infeasible, code(Status.INFEASIBLE),
                                     code(Status.CONTINUE))))
         return HSDECheck(status, p, d, g, ctx, bty, tau, kappa)
+
+    def _weigh_p(self, v):
+        return v if self.dinv is None else self.dinv * v
+
+    def _weigh_d(self, v):
+        return v if self.einv is None else self.einv * v
 
     # --- stall detection / recovery ------------------------------------
     # host hooks (the chunked engine, ``chk`` from HSDECheck.to_host) and
@@ -404,8 +462,8 @@ class HSDEForm:
             return None
         s1b = self.sets.s1.replace(tol_floor=floors[1])
         form = HSDEForm(TwoSets(s1b, self.sets.s2), self.A, self.b, self.c,
-                        self.norm_b, self.norm_c, self.n, self.m,
-                        self.K2_spec, self.strict_certificates,
+                        self.norm_b, self.norm_c, self.n, self.m, self.dinv,
+                        self.einv, self.K2_spec, self.strict_certificates,
                         self.compensated)
         form._norms = self._host_norms()
         return form
@@ -414,7 +472,10 @@ class HSDEForm:
     def header(self, init_duration_s: float) -> str:
         from fos_tpu_torch.utils import printing
 
-        return printing.hsde_header(init_duration_s, self.direct)
+        head = printing.hsde_header(init_duration_s, self.direct)
+        if self.psd_method is None:
+            return head
+        return f"PSD projection: {self.psd_method}, {self.route} route\n{head}"
 
     def _cgiter(self, st, cgiter):
         if self.direct:
@@ -463,6 +524,7 @@ class Solution(NamedTuple):
     iters: int
     history: object = None
     raw_z: torch.Tensor = None
+    route: str = None   # HSDEForm.route: "cpu", "graph" or "eager"
 
     @property
     def optimal(self) -> bool:
@@ -472,7 +534,9 @@ class Solution(NamedTuple):
 def populate_solution(form: HSDEForm, guess, status_code: int, iters: int,
                       history=None, raw_z=None) -> Solution:
     """(x, y, s) = (u_x, u_y, v_s) / tau; :Continue -> :Indeterminate
-    (HSDE.jl:49-61).  A certificate returns the unscaled ray."""
+    (HSDE.jl:49-61).  A certificate returns the unscaled ray.  With
+    equilibration the solution is mapped back: x = E xh, y = D yh,
+    s = D^-1 sh (the objective (Ec)'xh = c'x needs no unscaling)."""
     x, y, tau, r, s, kappa = form.split(guess)
     status = Status.name(status_code)
     if status == "Continue":
@@ -480,6 +544,39 @@ def populate_solution(form: HSDEForm, guess, status_code: int, iters: int,
     if status in ("Unbounded", "Infeasible"):
         tau = torch.ones_like(tau)
     xs, ys, ss = x / tau, y / tau, s / tau
-    return Solution(x=xs, y=ys, s=ss, status=status,
-                    objval=float(torch.dot(form.c, xs)), iters=iters,
-                    history=history, raw_z=raw_z)
+    objval = float(torch.dot(form.c, xs))
+    if form.einv is not None:
+        xs, ys, ss = xs / form.einv, ys / form.dinv, ss * form.dinv
+    return Solution(x=xs, y=ys, s=ss, status=status, objval=objval,
+                    iters=iters, history=history, raw_z=raw_z,
+                    route=form.route)
+
+
+def _equilibrate(A, b, c, K1, K2, iters):
+    """Ruiz-scale (A, b, c) on the host: (A_s, b_s, c_s, 1/d, 1/e) in the
+    dtype and on the device of ``b``.  A scipy A stays scipy (the same
+    nonzero pattern, packed afterwards); a dense tensor stays dense."""
+    from fos_tpu_torch.problems.scaling import (ruiz_equilibrate,
+                                                ruiz_equilibrate_sparse)
+
+    device, dtype = b.device, b.dtype
+    bh = b.detach().cpu().numpy()
+    ch = c.detach().cpu().numpy()
+    if _is_scipy_sparse(A):
+        As, bs, cs, d, e = ruiz_equilibrate_sparse(A, bh, ch, K1, K2,
+                                                   iters=iters)
+        As = As.astype(bh.dtype)
+    elif isinstance(A, torch.Tensor):
+        As, bs, cs, d, e = ruiz_equilibrate(A.detach().cpu().numpy(), bh, ch,
+                                            K1, K2, iters=iters)
+        As = torch.as_tensor(As).to(device=device, dtype=dtype)
+    else:
+        raise ValueError(
+            "equilibrate needs A as a dense tensor or sparse data (scipy."
+            "sparse or torch sparse COO); equilibrate BEFORE packing A into "
+            f"an operator (got {type(A).__name__})")
+
+    def dev(v):
+        return torch.as_tensor(v).to(device=device, dtype=dtype)
+
+    return As, dev(bs), dev(cs), dev(1.0 / d), dev(1.0 / e)

@@ -40,10 +40,13 @@ class SolverState(NamedTuple):
 
 
 class ConeSet:
-    """Stateless projectable set backed by a compiled cone projector."""
+    """Stateless projectable set backed by a compiled cone projector;
+    ``psd_method`` ("auto", "eigh" or "poly") picks the PSD blocks'
+    projection, "auto" by the device of the projected vector."""
 
-    def __init__(self, spec: ConeSpec):
+    def __init__(self, spec: ConeSpec, psd_method: str = "auto"):
         self.spec = spec
+        self.psd_method = psd_method
 
     def init_state(self, dtype):
         return ()
@@ -51,10 +54,10 @@ class ConeSet:
     def prepare(self, like):
         """Copy the projection's tables to ``like``'s device before a CUDA
         graph is captured (:func:`fos_tpu_torch.cones.project.prepare`)."""
-        cone_prepare(self.spec, like)
+        cone_prepare(self.spec, like, self.psd_method)
 
     def project(self, x, state):
-        return cone_project(self.spec, x), state
+        return cone_project(self.spec, x, self.psd_method), state
 
 
 class TwoSets:

@@ -210,7 +210,8 @@ def run(form, alg, *, initx=None, init_duration: float = 0.0,
     """Chunked solve with the reference's check/print/exit semantics.
 
     On the card every chunk is a captured CUDA graph and the host reads one
-    transfer per check; a capture that fails raises.  Extra options:
+    transfer per check (unless the form's ``graph_route`` is False: then
+    the chunks run eagerly); a capture that fails raises.  Extra options:
     ``resume_state`` continues from a :class:`SolverState`;
     ``check_finite`` raises FloatingPointError when a check turns
     non-finite; ``profile_dir`` writes a ``torch.profiler`` trace of the
@@ -246,7 +247,8 @@ def _run(form, alg, eager, initx, init_duration, resume_state, options):
     else:
         x0 = initx if initx is not None else form.initial_value(form.dtype)
         st = init_solver_state(alg, form.sets, x0)
-    chunks = _Chunks(alg, eps, graph=st.x.is_cuda and not eager)
+    chunks = _Chunks(alg, eps, graph=st.x.is_cuda and not eager
+                     and _graphable(form))
     prof = _start_profile(profile_dir, st.x)
     try:
         res = _iterate(form, alg, chunks, st, resume_state is not None,
@@ -255,6 +257,13 @@ def _run(form, alg, eager, initx, init_duration, resume_state, options):
     finally:
         _stop_profile(prof, profile_dir, st.x)
     return res
+
+
+def _graphable(form) -> bool:
+    """A form that cannot be captured (``graph_route`` False: PSD blocks
+    projected by eigh) runs eagerly on the card too, a choice made when the
+    form was built."""
+    return getattr(form, "graph_route", True)
 
 
 def _start_profile(profile_dir, like):
@@ -449,7 +458,7 @@ def fused_solve(alg, form, x0, *, max_iters: int = 10000, eps: float = 1e-5,
                       tight_floor=floors[1] if recovery else None,
                       plateau=plateau)
 
-    if not st0.x.is_cuda:
+    if not (st0.x.is_cuda and _graphable(form)):
         return solve(st0, budget)
     g = _graph(form, ("fused", alg, max_iters, eps, checki, record_history,
                       recovery, plateau), solve, (st0, budget))

@@ -408,3 +408,146 @@ def test_condition_kernels_set_their_nodes(cuda):
                         (float("nan"), 1, True), (2.0, 2, True)):
             rn.fill_(r), tol2.fill_(1.0), it.fill_(i), flag.fill_(f)
             assert bool(g(hit)[0]) == make().plain(), (name, r, i, f)
+
+
+# -------------------------------------------------------------- the cones
+@pytest.mark.parametrize("d", [64, 256])
+def test_psd_poly_on_card_vs_f64_oracle(cuda, d):
+    """The tuned polynomial filter on the card in f32 (TF32 off) within
+    1e-5 ||X||_2 of the eigenvalue clamp computed on the host in f64."""
+    from fos_tpu_torch.cones.psd_poly import psd_project_poly
+
+    rng = np.random.default_rng(29 + d)
+    B = rng.standard_normal((2, d, d)) / np.sqrt(d)
+    X = ((B + np.swapaxes(B, -1, -2)) / 2).astype(np.float32)
+    got = psd_project_poly(torch.as_tensor(X, device=cuda))
+    assert got.dtype == torch.float32
+    w, V = np.linalg.eigh(X.astype(np.float64))
+    ref = (V * np.maximum(w, 0.0)[:, None, :]) @ np.swapaxes(V, -1, -2)
+    err = np.abs(got.double().cpu().numpy() - ref).max()
+    assert err <= 1e-5 * np.abs(w).max()
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+def _sdp_form(cuda, psd_method, d=16):
+    """The lambda-min SDP (min <C, X> s.t. tr X = 1, X psd) at a small side
+    through chip_smoke's matrix-free operator."""
+    import chip_smoke
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    prob, sC, lam = chip_smoke.sdp_problem(d, cuda)
+    return (lambda: HSDEForm.build(prob, densify=False,
+                                   psd_method=psd_method)), sC, lam
+
+
+def test_psd_form_captures_under_sync_debug_error(cuda):
+    """A form with PSD blocks projected by "auto" (poly on the card): run's
+    graph chunks give the eager route's status, iterations and bits, and
+    fused_solve captures and replays with no host read (sync debug mode
+    "error")."""
+    from fos_tpu_torch import DR
+    from fos_tpu_torch.solvers import engine
+
+    make_form, _, _ = _sdp_form(cuda, "auto")
+    assert make_form().psd_method == "poly" and make_form().graph_route
+    kw = dict(eps=1e-5, max_iters=300, checki=50, verbose=0)
+    eager = engine._run_eager(make_form(), DR(), **kw)
+    graph = engine.run(make_form(), DR(), **kw)
+    assert (graph.status, graph.iters) == (eager.status, eager.iters)
+    assert torch.equal(graph.guess, eager.guess)
+    form = make_form()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused = engine.fused_solve(DR(), form, form.initial_value(form.dtype),
+                                   max_iters=300, eps=1e-5, checki=50)
+        again = engine.fused_solve(DR(), form, form.initial_value(form.dtype),
+                                   max_iters=300, eps=1e-5, checki=50)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(fused.iters) == eager.iters
+    assert torch.equal(fused.guess, eager.guess)
+    assert torch.equal(again.guess, fused.guess)
+
+
+def test_eigh_runs_the_eager_route_on_card(cuda, capsys):
+    """psd_method="eigh" on the card: the form is built for the eager route
+    (a capture of torch.linalg.eigh is refused), the solve says so in its
+    header and on its solution, and reaches lambda_min."""
+    from fos_tpu_torch import DR, solve
+    from fos_tpu_torch.problems.hsde import populate_solution
+    from fos_tpu_torch.solvers import engine
+
+    make_form, sC, lam = _sdp_form(cuda, "eigh")
+    form = make_form()
+    assert form.psd_method == "eigh" and not form.graph_route
+    assert form.route == "eager"
+    res = engine.run(form, DR(), eps=1e-6, max_iters=20000, verbose=1)
+    assert "PSD projection: eigh, eager route" in capsys.readouterr().out
+    sol = populate_solution(form, res.guess, res.status, res.iters)
+    assert sol.status == "Optimal" and sol.route == "eager"
+    assert abs(sol.objval - lam) <= 1e-3 * abs(lam)
+    fused = engine.fused_solve(DR(), form, form.initial_value(form.dtype),
+                               max_iters=200, eps=1e-6, checki=50)
+    assert int(fused.iters) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_exp_pow_on_card_vs_f64_host(cuda, dtype):
+    """The exp and power projections on the card against the same functions
+    run in f64 on the host: f64 within 1e-10 (1 + |v|); f32 finite, in the
+    dtype, and repeating bit for bit (its error in the degenerate exp
+    regime is the JAX package's too: PERF.md)."""
+    from fos_tpu_torch.cones.exp import project_exp, project_exp_dual
+    from fos_tpu_torch.cones.pow import project_pow, project_pow_dual
+
+    rng = np.random.default_rng(31)
+    V = rng.standard_normal((4096, 3)) * 2.0
+    a = rng.uniform(0.05, 0.95, 4096)
+    Vd, ad = torch.as_tensor(V, device=cuda, dtype=dtype), torch.as_tensor(
+        a, device=cuda, dtype=dtype)
+    Vh, ah = torch.as_tensor(V), torch.as_tensor(a)
+    scale = 1.0 + Vh.abs().amax(-1, keepdim=True)
+    for card, host in ((lambda: project_exp(Vd), lambda: project_exp(Vh)),
+                       (lambda: project_exp_dual(Vd),
+                        lambda: project_exp_dual(Vh)),
+                       (lambda: project_pow(Vd, ad),
+                        lambda: project_pow(Vh, ah)),
+                       (lambda: project_pow_dual(Vd, ad),
+                        lambda: project_pow_dual(Vh, ah))):
+        got = card()
+        assert got.dtype == dtype and bool(torch.isfinite(got).all())
+        assert torch.equal(card(), got)
+        if dtype == torch.float64:
+            err = ((got.cpu() - host()).abs() / scale).max().item()
+            assert err <= 1e-10
+
+
+def test_equilibrated_banded_lp_launches_k2(cuda):
+    """A banded LP handed to solve as scipy sparse with equilibrate=True is
+    scaled on the host, packed into a BandedBlockOp, and solved through K2
+    (launches counted on the device) to its certificate."""
+    from fos_tpu_torch import DR, nonneg, solve
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    op = _tile_op("band", cuda)
+    A = sp.coo_matrix(op.todense().cpu().numpy())
+    m, n = A.shape
+    rng = np.random.default_rng(3)
+    x0, y0, s0, r0 = _lp_vectors(rng, m, n)
+    b, c = A @ x0 + s0, r0 - A.T @ y0
+    opt = float(c.astype(np.float64) @ x0)
+    # at 512^2 "auto" keeps this grid sparse (storage ratio >= 0.5), as the
+    # JAX package does; "bell" packs it (banded: span ratio 1)
+    form = HSDEForm.build(conic_problem(A, b, c, nonneg(m), nonneg(n),
+                                        device=cuda), equilibrate=True,
+                          densify=False, sparse_format="bell")
+    assert type(form.A).__name__ == "BandedBlockOp"
+    assert form.dinv is not None and form.setup_seconds["equilibrate"] > 0
+    _cuda.device_launch_counts(reset=True)
+    sol = solve(A, b, c, nonneg(m), nonneg(n), alg=DR(), eps=1e-5,
+                max_iters=5000, verbose=0, device=cuda, equilibrate=True,
+                densify=False, sparse_format="bell")
+    assert _cuda.device_launch_counts(reset=True)["band_mv_pair"] > 0
+    assert sol.status == "Optimal" and sol.route == "graph"
+    assert abs(sol.objval - opt) <= 1e-3 * abs(opt)

@@ -6,6 +6,7 @@ across from JAX mid-solve, compensated reductions and the status table.
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -81,23 +82,29 @@ def test_cone_projection_matches_jax(name):
     rng = np.random.default_rng(7)
     X = rng.standard_normal((6, jspec.dim)) * 3.0
     X[0] = 0.0
-    for x in X:
-        want = np.asarray(jproj(jspec, jnp.asarray(x)))
+    # the JAX projections of all rows in one compiled call each (op by op
+    # they cost seconds of dispatch); the port projects row by row, then
+    # batched
+    want = np.asarray(jax.jit(lambda v: jproj(jspec, v))(jnp.asarray(X)))
+    want_d = np.asarray(jax.jit(lambda v: jproj_dual(jspec, v))(
+        jnp.asarray(X)))
+    for x, w, w_d in zip(X, want, want_d):
         got = tproj(tspec, _t(x)).numpy()
-        np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
-        want_d = np.asarray(jproj_dual(jspec, jnp.asarray(x)))
+        np.testing.assert_allclose(got, w, rtol=0, atol=1e-12)
         got_d = tproj_dual(tspec, _t(x)).numpy()
-        np.testing.assert_allclose(got_d, want_d, rtol=0, atol=1e-12)
+        np.testing.assert_allclose(got_d, w_d, rtol=0, atol=1e-12)
     # batched leading axes project row by row
-    np.testing.assert_allclose(
-        tproj(tspec, _t(X)).numpy(),
-        np.asarray(jproj(jspec, jnp.asarray(X))), atol=1e-12)
+    np.testing.assert_allclose(tproj(tspec, _t(X)).numpy(), want, atol=1e-12)
 
 
 def test_unported_cones_raise_at_plan_build():
-    with pytest.raises(NotImplementedError, match="other cones"):
-        tproj(interop.cone_spec_from_blocks([("PSD", 6)]),
-                         torch.zeros(6, dtype=torch.float64))
+    """Every cone is ported; a plan of power-cone blocks without their
+    exponents still raises when it is built (it would project them as
+    free), as the JAX package's does."""
+    from fos_tpu_torch.cones.project import make_projector
+
+    with pytest.raises(ValueError, match="alpha"):
+        make_projector(((fos_tpu_torch.Cone.POW_PRIMAL, 3),), "eigh", ())
 
 
 def test_q_mul_matches_jax():
