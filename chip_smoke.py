@@ -65,6 +65,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    dense LP with ``DR(direct=True)`` (host QR seconds, K1 launches, phase
    2's gate); then the SDP, the kitchen sink (poly), the equilibrated LPs
    and the direct LP through the three routes, gated equal as in phase 5.
+   The SDP cells also run the TPU's own instance (bench.py's
+   ``PRNGKey(29)`` draw, ``fos_tpu_torch/tools/data``);
+7. ``slice``: refine, the wrappers and the batched solve (a lane axis
+   through CG and fused_solve).  ``refine_dense_lp``: the dense LP at
+   eps = 1e-5 in f32 through K1, then an f64 sweep from its iterate
+   (gated: 100x closer to the certificate, no K1 launch).
+   ``wrappers_dense_lp``: DR, LineSearch, Anderson and Longstep through
+   the three routes (gated equal), and K1's device count over one
+   line-search step against the count its CG passes imply (exact).
+   ``wrappers_feasibility``: LineSearch(AP) and Longstep(DR) through K4,
+   LineSearch(DR) through K5, per probe lane (routes, Optimal, residual).
+   ``batched_lp_128`` / ``_1024``: bench.py's batched LPs, every instance
+   Optimal and within 1e-3 of HiGHS, segments and routes equal.
+   ``batched_sdp_64``: 64 lambda-min SDPs sharing one stride-0 A.
+   Route agreement in phases 5 and 6 runs at a smaller depth where a
+   repeated solve would cost minutes (the constants say which).
 
 Each kernel counts its launches on the device (``_cuda.
 device_launch_counts``), graph replays included: the counts are zeroed
@@ -72,7 +88,10 @@ just before each path (2, 3, 4, 6) and read just after it (and after each
 of its solves, for that solve's count), and every kernel must have been
 launched by its path; these are the ``launches`` of the kernels line
 (phase 6's counts of K1-K3, the kernels of its path, are
-``launches_cones_path``).  The
+``launches_cones_path``; phase 7's, of every kernel, ``launches_phase7``,
+gated > 0 for K1, K4, K5 and the lane condition ``cg_continue_lanes``,
+whose path it is).  The line before the kernels line gives each phase's
+seconds.  The
 wrappers' host counts (``_cuda.LAUNCHES``) count the calls that launched
 or captured a kernel (``captured_calls``): a replay calls no wrapper.
 The line before the last lists the kernels; the last line is the run's
@@ -142,14 +161,24 @@ PSD_SIDES = (512, 1024)
 PSD_GATE = 1e-5
 SDP_GATE = 1e-3
 SDP_ROUTE_ITERS = 300
-# (d, quality-run iterations, DR rate iterations, gated)
+# route agreement at a smaller depth than the solves it repeats, so that
+# the whole script stays within its time (phase 7's batched LPs take most
+# of it): the kitchen sink's (its eager route runs ~8 it/s; the gated solve
+# reaches Optimal at 300 on its own), the equilibrated LPs' and the
+# algorithm tier's (most of its algorithms run their whole budget)
+KITCHEN_ROUTE_ITERS = 100
+EQUILIBRATED_ROUTE_ITERS = 2000
+TIER_ROUTE_ITERS = 1000
+# (d, quality-run iterations, DR rate iterations, gated on the numpy
+# instance)
 SDP_CELLS = ((512, 8000, 100, True), (1024, 5000, 50, False))
 EXP_POW_BLOCKS = 65536
 
 
 # ------------------------------------------------------------- problems
-def certificate_lp(m, n, seed):
-    """Dense LP with a primal-dual certificate: (A, b, c, optimum), f32.
+def certificate_lp(m, n, seed, dtype=np.float32):
+    """Dense LP with a primal-dual certificate: (A, b, c, optimum), in
+    ``dtype`` (f32 by default; the certificate is exact for the f64 data).
     The recipe of bench.py's ``make_problem`` (seed 7 at 1000x1000)."""
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((m, n)) / np.sqrt(n)
@@ -161,8 +190,7 @@ def certificate_lp(m, n, seed):
     s0 = np.abs(rng.standard_normal(m)) * (~ymask)
     b = A @ x0 + s0
     c = r0 - A.T @ y0
-    f32 = np.float32
-    return A.astype(f32), b.astype(f32), c.astype(f32), float(c @ x0)
+    return A.astype(dtype), b.astype(dtype), c.astype(dtype), float(c @ x0)
 
 
 def scaling_lp(mn, seed=11):
@@ -503,6 +531,28 @@ def condition_kernels(dev):
         bad += taken() != control.CGContinue(rn, tol2, it, 5).plain()
     out["cg_continue"] = {"max_abs_err": float(bad)}
 
+    # cg_continue_lanes: any lane live, tol2 shared or one per lane, NaN
+    # included, at the lane counts the paths use (one, the line search's
+    # 31, a batch of 1024)
+    bad = 0
+    lrng = np.random.default_rng(0)
+    for lanes, shared in itertools.product((1, 31, 1024), (True, False)):
+        lrn = torch.zeros(lanes, dtype=f32, device=dev)
+        lit = torch.zeros(lanes, dtype=i32, device=dev)
+        ltol = torch.ones(() if shared else lanes, dtype=f32, device=dev)
+        taken = _if_taken(dev, lambda: control.CGContinueLanes(lrn, ltol, lit,
+                                                               5))
+        for trial in range(12):
+            lrn.copy_(torch.as_tensor(lrng.choice(
+                [0.0, 0.5, 2.0, math.nan], lanes).astype(np.float32)))
+            lit.copy_(torch.as_tensor(lrng.choice(
+                [0, 4, 5, 6], lanes).astype(np.int32)))
+            if trial % 3 == 0:
+                lrn.fill_(0.5)   # no lane live
+            bad += taken() != control.CGContinueLanes(lrn, ltol, lit,
+                                                      5).plain()
+    out["cg_continue_lanes"] = {"max_abs_err": float(bad)}
+
     # count_continue: every mode, with and without a status
     bad = 0
     for mode, with_status in itertools.product(
@@ -516,6 +566,16 @@ def condition_kernels(dev):
             k.fill_(kv)
             want = control.Count(k, mode, 3, st_arg, 0).plain()
             bad += (got != want) + (k_got != int(k))
+    # with one status per lane (a batched solve's chunk loop): any lane
+    lstatus = torch.zeros(1024, dtype=i32, device=dev)
+    taken = _if_taken(dev, lambda: control.Count(k, control.TEST, 3, lstatus,
+                                                 0))
+    for kv, live_lanes in itertools.product((0, 2, 3), (0, 1, 1024)):
+        lstatus.fill_(1)
+        lstatus[:live_lanes].fill_(0)
+        k.fill_(kv)
+        bad += taken() != control.Count(k, control.TEST, 3, lstatus,
+                                        0).plain()
     out["count_continue"] = {"max_abs_err": float(bad)}
 
     # flag_continue: the flag and its negation
@@ -545,23 +605,37 @@ def condition_kernels(dev):
     def count_loop(c):
         return control.fori_loop(passes, lambda _, c: c, c)
 
+    lane_rn = torch.ones(1024, dtype=f32, device=dev)
+
+    def lanes_loop(c):
+        return control.while_loop(
+            lambda c: control.CGContinueLanes(lane_rn, tol2, c[0], passes),
+            lambda c: (c[0] + 1,), c)
+
     rn.fill_(1.0), tol2.fill_(0.0)
     zero = torch.zeros((), dtype=i32, device=dev)
+    lane_it = torch.zeros(1024, dtype=i32, device=dev)
     for name, loop, plain in (
             ("cg_continue", cg_loop,
              lambda: control.CGContinue(rn, tol2, zero, passes).plain()),
             ("count_continue", count_loop,
              lambda: control.Count(k, control.TEST, passes).plain()),
             ("flag_continue", flag_loop,
-             lambda: control.Flag(zero < passes).plain())):
-        g = graphs.Captured(loop, ((zero,),))
-        res = g((zero,))
-        if name != "count_continue" and int(res[0]) != passes:
+             lambda: control.Flag(zero < passes).plain()),
+            ("cg_continue_lanes", lanes_loop,
+             lambda: control.CGContinueLanes(lane_rn, tol2, lane_it,
+                                             passes).plain())):
+        start = lane_it if name == "cg_continue_lanes" else zero
+        g = graphs.Captured(loop, ((start,),))
+        res = g((start,))
+        if name != "count_continue" and bool((res[0] != passes).any()):
             raise AssertionError(f"{name}: a WHILE loop made {int(res[0])} "
                                  f"passes, expected {passes}")
         out[name].update(
-            ms=median_ms(lambda: g((zero,)), reps=10) / passes,
-            plain_ms=median_ms(plain), **bound(16, 1), library_ms=None)
+            ms=median_ms(lambda: g((start,)), reps=10) / passes,
+            plain_ms=median_ms(plain), library_ms=None,
+            **(bound(12 * 1024, 2 * 1024) if name == "cg_continue_lanes"
+               else bound(16, 1)))
     bad = [k for k, v in out.items() if v["max_abs_err"]]
     if bad:
         raise AssertionError(f"condition kernels disagree with plain: {bad}")
@@ -588,17 +662,21 @@ def host_syncs():
                          and "prototype" not in str(w.message))
 
 
-def run_routes(name, make_form, x0_of, eps, max_iters, checki=100):
+def run_routes(name, make_form, x0_of, eps, max_iters, checki=100,
+               alg=None):
     """One solve three ways in this process: the eager chunks (the plain
     version), the graph chunks of ``engine.run`` (twice on one form: the
     first call captures), and ``fused_solve`` (twice: capture, then a
     replay), both fused calls under sync debug mode "error".  Gates equal
     status, iterations, CG iterations and final iterates (bit for bit)
     against the eager route's, and reports the memory each first call's
-    capture added to what PyTorch reserves on the card."""
+    capture added to what PyTorch reserves on the card.  ``alg``: DR unless
+    given."""
     import torch
     from fos_tpu_torch import DR
     from fos_tpu_torch.solvers import engine
+
+    alg = DR() if alg is None else alg
 
     def cg_total(state):
         cg = state.s1_state
@@ -615,10 +693,10 @@ def run_routes(name, make_form, x0_of, eps, max_iters, checki=100):
         return torch.cuda.memory_reserved() / 2**20
 
     opts = dict(eps=eps, max_iters=max_iters, checki=checki, verbose=0)
-    out = {"phase": "graphs", "path": name}
+    out = {"phase": "graphs", "path": name, "alg": type(alg).__name__}
     name_of = engine.Status.name
     with host_syncs() as syncs:
-        eager, secs = timed(lambda: engine._run_eager(make_form(), DR(),
+        eager, secs = timed(lambda: engine._run_eager(make_form(), alg,
                                                       **opts))
     out["eager"] = {"status": name_of(eager.status), "iters": eager.iters,
                     "host_syncs": len(syncs),
@@ -628,7 +706,7 @@ def run_routes(name, make_form, x0_of, eps, max_iters, checki=100):
     for key in ("graph_first", "graph"):   # the first call captures
         before = reserved_mib()
         with host_syncs() as syncs:
-            res, secs = timed(lambda: engine.run(form, DR(), **opts))
+            res, secs = timed(lambda: engine.run(form, alg, **opts))
         out[key] = {"status": name_of(res.status), "iters": res.iters,
                     "reserved_mib_added": reserved_mib() - before,
                     "host_syncs": len(syncs),
@@ -644,7 +722,7 @@ def run_routes(name, make_form, x0_of, eps, max_iters, checki=100):
         torch.cuda.set_sync_debug_mode("error")
         try:
             fres, secs = timed(lambda: engine.fused_solve(
-                DR(), form, x0, max_iters=max_iters, eps=eps, checki=checki))
+                alg, form, x0, max_iters=max_iters, eps=eps, checki=checki))
         finally:
             torch.cuda.set_sync_debug_mode(0)
         iters = int(fres.iters)
@@ -680,7 +758,7 @@ def run_routes(name, make_form, x0_of, eps, max_iters, checki=100):
                                  f"{cg[0]} (eager {cg[1]}), final iterate "
                                  f"bit-equal {r['bit_equal']} (max |d| "
                                  f"{r['max_abs_diff']})")
-    return out
+    return out, eager
 
 
 def profile_routes(name, make_form, eps):
@@ -758,19 +836,24 @@ class LambdaMinSdpOp:
         return self.mv(x1), self.rmv(x2)
 
 
-def sdp_problem(d, dev, seed=SDP_SEED):
+def sdp_problem(d, dev, seed=SDP_SEED, instance="numpy"):
     """bench.py's lambda-min SDP, ``min <C, X> s.t. tr X = 1, X psd``, in
-    f32: (problem, svec(C), lambda_min(C) from a host f64 eigvalsh).  C is
-    made with numpy from ``seed`` (the JAX package's ``PRNGKey(29)`` draws
-    cannot be reproduced without jax), scaled as bench.py scales it."""
+    f32: (problem, svec(C), lambda_min(C) from a host f64 eigvalsh).
+    ``instance`` "numpy": C made with numpy from ``seed``, scaled as
+    bench.py scales it; "tpu": bench.py's own ``PRNGKey(29)`` draw, read
+    from the repo's file (``fos_tpu_torch/tools/sdp_instance.py``)."""
     import torch
     from fos_tpu_torch.cones import Cone, ConeSpec, free, svec
     from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.tools import sdp_instance
 
-    rng = np.random.default_rng(seed)
-    C = (rng.standard_normal((d, d), dtype=np.float32)
-         / np.float32(np.sqrt(d)))
-    C = (C + C.T) / np.float32(2.0)
+    if instance == "tpu":
+        C = sdp_instance.load(d)
+    else:
+        rng = np.random.default_rng(seed)
+        C = (rng.standard_normal((d, d), dtype=np.float32)
+             / np.float32(np.sqrt(d)))
+        C = (C + C.T) / np.float32(2.0)
     L = d * (d + 1) // 2
     sC = svec(torch.as_tensor(C, device=dev))
     op = LambdaMinSdpOp(svec(torch.eye(d, device=dev)))
@@ -986,18 +1069,23 @@ def psd_projections(dev):
 
 
 def sdp_cells(dev):
-    """sdp_single_512 and sdp_single_1024: DR iterations/s on the graph
-    route (fused_solve, eps = 0, timed after its capture), then the quality
-    run, GAPA(0.8, 0.9) at eps = 1e-5 in one fused_solve, and at d = 1024
-    also in bench.py's 1000-iteration segments.  d = 512 is gated: Optimal
-    and |obj - lambda_min| / |lambda_min| <= 1e-3."""
+    """sdp_single_512 and sdp_single_1024, each on the numpy-seed instance
+    and on the TPU's own (bench.py's ``PRNGKey(29)`` draw, from the repo's
+    file): DR iterations/s on the graph route (fused_solve, eps = 0, timed
+    after its capture), then the quality run, GAPA(0.8, 0.9) at eps = 1e-5
+    in one fused_solve (bench.py's 1000-iteration segments gave the same
+    bits at d = 1024 on both instances, PERF.md).  d = 512 on the numpy
+    instance is gated: Optimal and |obj - lambda_min| / |lambda_min| <=
+    1e-3; the others are printed, with the final tau and kappa."""
     import torch
     from fos_tpu_torch import DR, GAPA, Status
     from fos_tpu_torch.problems.hsde import HSDEForm
     from fos_tpu_torch.solvers import engine
 
-    for d, quality_iters, rate_iters, gated in SDP_CELLS:
-        prob, sC, lam = sdp_problem(d, dev)
+    for (d, quality_iters, rate_iters, first), instance in (
+            (cell, inst) for inst in ("numpy", "tpu") for cell in SDP_CELLS):
+        gated = first and instance == "numpy"
+        prob, sC, lam = sdp_problem(d, dev, instance=instance)
         L = d * (d + 1) // 2
         form = HSDEForm.build(prob, densify=False)
         x0 = form.initial_value(form.dtype)
@@ -1015,41 +1103,22 @@ def sdp_cells(dev):
             return obj, abs(obj - lam) / abs(lam)
 
         obj, rel = rel_obj(res)
-        segmented = None
-        if not gated:
-            # bench.py's own quality loop: 1000-iteration segments resumed
-            # with budget_iters = done + 1000, so the plateau test sees a
-            # short budget in every segment (the TPU's d = 1024 reading came
-            # from this loop)
-            def segment(**kw):
-                return engine.fused_solve(GAPA(0.8, 0.9), form, x0,
-                                          max_iters=1000, eps=1e-5,
-                                          checki=100, **kw)
-
-            t0 = time.perf_counter()
-            seg = segment()
-            while (int(seg.status) == Status.CONTINUE
-                   and int(seg.iters) < quality_iters):
-                seg = segment(resume_state=seg.state,
-                              budget_iters=int(seg.iters) + 1000)
-            torch.cuda.synchronize()
-            segmented = {"status": Status.name(int(seg.status)),
-                         "iters": int(seg.iters),
-                         "seconds": time.perf_counter() - t0,
-                         "rel_obj_err": rel_obj(seg)[1]}
-        row = {"phase": f"sdp_single_{d}", "d": d, "L": L,
+        tau, kappa = (float(res.guess[k]) for k in (form.l - 1,
+                                                    2 * form.l - 1))
+        row = {"phase": f"sdp_single_{d}", "instance": instance, "d": d,
+               "L": L,
                "psd_method": form.psd_method, "route": form.route,
                "dr_iters_per_s_first_call": rate[0],
                "dr_iters_per_s": rate[1], "quality_alg": "GAPA(0.8, 0.9)",
                "eps": 1e-5, "status": Status.name(int(res.status)),
                "iters": int(res.iters), "seconds": secs,
                "iters_per_s": int(res.iters) / secs, "obj": obj,
-               "lambda_min_f64": lam, "rel_obj_err": rel, "gated": gated,
-               "segmented_like_bench": segmented}
+               "tau": tau, "kappa": kappa, "lambda_min_f64": lam,
+               "rel_obj_err": rel, "gated": gated}
         emit(row)
         if gated and (row["status"] != "Optimal" or rel > SDP_GATE):
-            raise AssertionError(f"sdp_single_{d}: {row['status']}, rel obj "
-                                 f"err {rel}")
+            raise AssertionError(f"sdp_single_{d} ({instance}): "
+                                 f"{row['status']}, rel obj err {rel}")
         del form, res
 
 
@@ -1284,8 +1353,8 @@ def cones_phase(dev, A1, b1, c1, opt1, lp_tables, unscaled_iters):
          1e-5, SDP_ROUTE_ITERS),
         ("kitchen_sink_poly", lambda: HSDEForm.build(
             conic_problem(A, b, cc, K1, K2, device=dev), psd_method="poly"),
-         1e-8, 2000),
-        *((name, lambda f=f: fresh(f), GATE_EPS, 10000)
+         1e-8, KITCHEN_ROUTE_ITERS),
+        *((name, lambda f=f: fresh(f), GATE_EPS, EQUILIBRATED_ROUTE_ITERS)
           for name, f in eq_forms.items()),
         ("direct_dense_lp", lambda: fresh(direct), GATE_EPS, 10000))
     for name, make_form, eps, iters in routes:
@@ -1294,6 +1363,434 @@ def cones_phase(dev, A1, b1, c1, opt1, lp_tables, unscaled_iters):
     del eq_forms, direct
     torch.cuda.empty_cache()
     return counts
+
+
+# ------------------------------------------------------------ phase 7: slice
+# refine_dense_lp: the f64 sweep's budget and eps, and its objective gate:
+# at least REFINE_GAIN times closer to the certificate than the f32 stage.
+# DR's f64 sweep on this LP gains about a decade of residual per 15000
+# iterations: eps 1e-9, or an objective within 1e-6, are out of reach of
+# the time this script has (PERF.md, Findings)
+REFINE_ITERS = 20000
+REFINE_EPS = 1e-9
+REFINE_GAIN = 100.0
+# wrappers: the conic cells' budget; the feasibility cells' wrapper interval
+# and check interval.  In f32 the feasibility test (consecutive iterates
+# within eps) passes at the first check, whatever the algorithm (see
+# FEAS_EPS_FLOORS), so the answer is what the iterations before it give:
+# 100 iterations leave AP and the line search over AP at 4x the residual
+# limit on the banded problem, DR within it; a first check at 1000 gives
+# every wrapper the iterations it needs (the longstep wrapper with its
+# default interval, 100: at 50 it stood 5% over the limit at 500)
+WRAPPER_BUDGET = 5000
+WRAPPER_FEAS_INTERVAL = 50
+WRAPPER_FEAS_CHECKI = 1000
+# batched LPs: bench.py:846-873's recipe, B x (64 x 96), numpy seeds;
+# the budget (the loop runs until the slowest instance is Optimal, tens of
+# thousands of iterations: PERF.md); the segment length and the budget
+# over which segments are held to the single run (a whole second solve of
+# the 1024 instances takes longer than this script may); the route-
+# agreement and rate budget; the objective gate against host f64 HiGHS,
+# |obj - f*| <= 1e-3 (1 + |f*|)
+BATCHED_LP_CELLS = ((128, 13), (1024, 17))
+BATCHED_LP_SHAPE = (64, 96)
+BATCHED_LP_ITERS = 60000
+BATCHED_SEGMENT = 1000
+BATCHED_SEGMENT_CHECK = 3000
+BATCHED_ROUTE_ITERS = 200
+BATCHED_LP_GATE = 1e-3
+# batched SDP: bench.py:173-229, instances, side, iterations, gate
+BATCHED_SDP = (64, 64, 4000)
+BATCHED_SDP_GATE = 1e-3
+
+
+def refine_dense_lp(dev, totals):
+    """refine_dense_lp: phase 2's 1000x1000 LP with DR and pallas=True at
+    eps = 1e-5 (handed over in f64 and cast to f32: phase 2's data, through
+    K1), then ``refine`` in f64 toward eps = 1e-9 on the f64 data for up to
+    REFINE_ITERS iterations (the plain products: the kernels take f32
+    only).  Gates: the f32 stage Optimal, the sweep in f64 with no K1
+    launch, its objective REFINE_GAIN times closer to the certificate than
+    the f32 stage's (which stops 2.4e-3 from it).  The sweep's status is
+    printed: eps 1e-9 takes DR far longer than REFINE_ITERS here.  The f32
+    stage is also run alone first, for its iterations and time."""
+    import torch
+    from fos_tpu_torch import DR, nonneg, solve
+
+    A1, b1, c1, opt1 = certificate_lp(DENSE_N, DENSE_N, seed=7,
+                                      dtype=np.float64)
+    N = A1.shape[0]
+    kw = dict(alg=DR(), eps=GATE_EPS, dtype=torch.float32, pallas=True,
+              device=dev, verbose=0)
+    counted(totals)
+    first, first_s = timed_solve(lambda: solve(A1, b1, c1, nonneg(N),
+                                               nonneg(N), **kw))
+    k1_f32 = counted(totals)["fused_matvec"]
+    sol, all_s = timed_solve(lambda: solve(
+        A1, b1, c1, nonneg(N), nonneg(N), refine=REFINE_ITERS,
+        refine_kwargs={"eps": REFINE_EPS}, **kw))
+    k1_both = counted(totals)["fused_matvec"]
+    sweep_iters, sweep_s = sol.iters - first.iters, all_s - first_s
+    rel = abs(sol.objval - opt1) / abs(opt1)
+    gate = abs(first.objval - opt1) / abs(opt1) / REFINE_GAIN
+    row = {"phase": "refine_dense_lp", "shape": [N, N],
+           "f32_eps": GATE_EPS, "f32_status": first.status,
+           "f32_iters": first.iters, "f32_seconds": first_s,
+           "f32_rel_obj_err": abs(first.objval - opt1) / abs(opt1),
+           "refine_eps": REFINE_EPS, "status": sol.status,
+           "refine_iters": sweep_iters, "total_iters": sol.iters,
+           "refine_seconds": sweep_s,
+           "refine_iters_per_s": sweep_iters / max(sweep_s, 1e-9),
+           "dtype": str(sol.x.dtype).replace("torch.", ""),
+           "obj": sol.objval, "obj_certificate": opt1, "rel_obj_err": rel,
+           "rel_obj_gate": gate, "fused_matvec_launches_f32": k1_f32,
+           "fused_matvec_launches_f64_sweep": k1_both - k1_f32}
+    emit(row)
+    if (rel > gate or sol.x.dtype != torch.float64
+            or row["fused_matvec_launches_f64_sweep"] != 0
+            or first.status != "Optimal"):
+        raise AssertionError(f"refine_dense_lp: {row}")
+
+
+def linesearch_k1_count(form, interval, totals):
+    """K1's device count over one LineSearch(DR) boundary step of the dense
+    LP, eager and replayed from a CUDA graph, against the count the step's
+    CG passes imply: the real projection's pair for r0 plus 2 unroll pairs
+    per pass, and per probe lane the same, the 31 lanes' passes running to
+    the slowest lane (``it_j`` CG iterations take ceil(it_j / unroll)
+    passes).  Those counts come from the step's pieces run eagerly first."""
+    import torch
+    from fos_tpu_torch import DR, LineSearchWrapper
+    from fos_tpu_torch.solvers import engine, graphs, wrappers
+    from fos_tpu_torch.solvers.base import init_solver_state
+
+    alg = LineSearchWrapper(DR(), lsinterval=interval)
+    sets, inner = form.sets, alg.alg
+    st = init_solver_state(alg, sets, form.initial_value(form.dtype))
+    st = engine._run_steps(alg, form, st, interval - 1, 0)
+    unroll = sets.s1.cg_unroll
+    tmp2, s1 = inner.relaxed_s1(sets, st.x, st.s1_state, st.aux)
+    _, x_new, _ = inner.relaxed_s2(sets, tmp2, st.s2_state, st.aux)
+    res = x_new - st.x
+    cands = st.x[None] + wrappers.ls_alphas(st.x)[:, None] * res[None]
+    _, probes = sets.s1.project(cands, s1)
+    lanes = cands.shape[0]
+    real_passes = -(-int(s1.last_iters) // unroll)
+    probe_iters = probes.last_iters.cpu().numpy()
+    probe_passes = int(-(-probe_iters.max() // unroll))
+    implied = (1 + 2 * unroll * real_passes
+               + lanes * (1 + 2 * unroll * probe_passes))
+    counted(totals)
+    eager = alg.step(sets, st, interval - 1)
+    n_eager = counted(totals)
+    form.prepare(st.x)
+    g = graphs.Captured(lambda s: (alg.step(sets, s, None),), (st,))
+    counted(totals)
+    replayed = g(st)[0]
+    n_graph = counted(totals)
+    out = {"phase": "linesearch_k1_count", "lsinterval": interval,
+           "probe_lanes": lanes, "cg_unroll": unroll,
+           "real_cg_iters": int(s1.last_iters),
+           "probe_cg_iters_max": int(probe_iters.max()),
+           "probe_cg_iters_min": int(probe_iters.min()),
+           "k1_implied": implied,
+           "k1_eager": n_eager["fused_matvec"],
+           "k1_graph": n_graph["fused_matvec"],
+           "k1_sum_graph": n_graph["fused_matvec_sum"],
+           "cg_continue_lanes_graph": n_graph["cg_continue_lanes"],
+           "bit_equal": bool(torch.equal(replayed.x, eager.x))}
+    emit(out)
+    if not (implied == out["k1_eager"] == out["k1_graph"]
+            == out["k1_sum_graph"]) or not out["bit_equal"]:
+        raise AssertionError(f"LineSearch boundary step: K1 {out}")
+    g.release()
+
+
+def wrapper_dense_cells(dev, A1, b1, c1, totals):
+    """wrappers_dense_lp: DR, LineSearch(DR, 100), Anderson(DR) and
+    Longstep(DR, 100, 10) on the dense 1000x1000 LP with pallas=True at
+    eps = 1e-5, each through the three routes (gated equal); then K1's
+    exact count over one line-search step.  Not gated on Optimal: the
+    longstep wrapper's sensitivity to its settings is reference
+    behaviour."""
+    import torch
+    from fos_tpu_torch import (DR, AndersonWrapper, LineSearchWrapper,
+                               LongstepWrapper, nonneg)
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    N = A1.shape[0]
+
+    def make():
+        return HSDEForm.build(conic_problem(
+            A1, b1, c1, nonneg(N), nonneg(N), device=dev,
+            dtype=torch.float32), pallas=True)
+
+    algs = (("dr", DR()), ("linesearch", LineSearchWrapper(DR(),
+                                                           lsinterval=100)),
+            ("anderson", AndersonWrapper(DR())),
+            ("longstep", LongstepWrapper(DR(), longinterval=100, nsave=10)))
+    rows = {}
+    for name, alg in algs:
+        out, _ = run_routes(f"wrappers_dense_lp_{name}", make,
+                            lambda f: f.initial_value(f.dtype), GATE_EPS,
+                            WRAPPER_BUDGET, alg=alg)
+        rows[name] = {k: out["graph"][k] for k in ("status", "iters",
+                                                   "iters_per_s", "cg_iters")}
+        rows[name]["fused_iters_per_s"] = out["fused"]["iters_per_s"]
+        rows[name]["eager_iters_per_s"] = out["eager"]["iters_per_s"]
+    emit({"phase": "wrappers_dense_lp", "shape": [N, N], "eps": GATE_EPS,
+          "budget": WRAPPER_BUDGET, **rows})
+    linesearch_k1_count(make(), 100, totals)
+
+
+def wrapper_feasibility_cells(dev, feas, m, n, totals):
+    """wrappers_feasibility: LineSearch(AP) and Longstep(DR) on the banded
+    32768^2 feasibility problem (K4 per probe lane), LineSearch(DR) on the
+    scattered one (K5), each through the three routes (gated equal) with
+    the first check at WRAPPER_FEAS_CHECKI, gated Optimal with the answer
+    inside the box, s >= 0, and phase 3's f64 host residual limit."""
+    import torch
+    from fos_tpu_torch import (AP, DR, AffinePlusLinearProjector, BlockSet,
+                               Box, Feasibility, LineSearchWrapper,
+                               LongstepWrapper, NonNeg)
+    from fos_tpu_torch.problems.feasibility import FeasibilityForm
+
+    eps = FEAS_EPS_FLOORS * (m + n) * float(np.finfo(np.float32).eps)
+    k = WRAPPER_FEAS_INTERVAL
+    cells = (("linesearch_ap_banded", "band",
+              LineSearchWrapper(AP(), lsinterval=k)),
+             ("longstep_dr_banded", "band", LongstepWrapper(DR())),
+             ("linesearch_dr_scattered", "bell",
+              LineSearchWrapper(DR(), lsinterval=k)))
+    for name, kind, alg in cells:
+        op, blocks_np, slots, b = feas[kind]
+
+        def make():
+            S1 = AffinePlusLinearProjector.create(op, b.astype(np.float32),
+                                                  0.0, -1, device=dev)
+            S2 = BlockSet([(Box(0.0, 1.0), n), (NonNeg(), m)])
+            return FeasibilityForm.build(Feasibility(S1, S2, n + m),
+                                         device=dev)
+
+        counted(totals)
+        out, eager = run_routes(f"wrappers_feasibility_{name}", make,
+                                lambda f: f.initial_value(f.dtype), eps,
+                                10000, checki=WRAPPER_FEAS_CHECKI, alg=alg)
+        key = f"{kind}_mv"
+        count = counted(totals)[key]
+        z = eager.guess
+        inside = (bool((z[:n] >= 0).all()) and bool((z[:n] <= 1).all())
+                  and bool((z[n:] >= 0).all()))
+        zh = z.double().cpu().numpy()
+        resid = float(np.abs(host_tile_mv(blocks_np, slots, zh[:n]) + zh[n:]
+                             - b).max())
+        gate = FEAS_RESID * (1.0 + float(np.abs(b).max()))
+        status = out["eager"]["status"]
+        emit({"phase": "wrappers_feasibility", "cell": name,
+              "shape": [m, n], "eps": eps, "status": status,
+              "iters": out["eager"]["iters"],
+              "graph_iters_per_s": out["graph"]["iters_per_s"],
+              "inside_box_and_s_nonneg": inside, "resid_inf": resid,
+              "resid_gate": gate, f"{key}_launches_three_routes": count})
+        if status != "Optimal" or not inside or resid > gate or count == 0:
+            raise AssertionError(f"wrappers_feasibility {name}: {status}, "
+                                 f"inside {inside}, residual {resid} (gate "
+                                 f"{gate}), {key} launches {count}")
+        del eager
+        torch.cuda.empty_cache()
+
+
+def batched_lp(B, seed):
+    """bench.py:846-873's batched LPs with numpy in place of jax.random:
+    A ~ N(0, 1) (B, 64, 96), b = A |g| + |g'|, c = |g''|, f32."""
+    rng = np.random.default_rng(seed)
+    m, n = BATCHED_LP_SHAPE
+    A = rng.standard_normal((B, m, n), dtype=np.float32)
+    b = (np.einsum("bmn,bn->bm", A, np.abs(rng.standard_normal(
+        (B, n), dtype=np.float32)))
+         + np.abs(rng.standard_normal((B, m), dtype=np.float32)))
+    c = np.abs(rng.standard_normal((B, n), dtype=np.float32))
+    return A, b, c
+
+
+def batched_lp_cells(dev):
+    """batched_lp_128 / batched_lp_1024: DR in one ``solve_batched`` (a
+    lane axis through fused_solve, one captured graph) at eps = 1e-5.
+    Gates: every instance Optimal, every objective within 1e-3 (1 + |f*|)
+    of a host f64 HiGHS solve; over the first BATCHED_SEGMENT_CHECK
+    iterations, 1000-iteration segments give the single run's statuses,
+    counts and bits (every instance that no segment boundary stopped); the
+    eager and graph routes equal (status, iterations, CG iterations, bits)
+    over BATCHED_ROUTE_ITERS iterations.  Prints the aggregate iterations/s
+    (instances x iterations / wall) of a BATCHED_ROUTE_ITERS-iteration
+    replay that runs every instance, and the memory peak."""
+    import torch
+    from scipy.optimize import linprog
+    from fos_tpu_torch import DR, build_batched_form, nonneg, solve_batched
+    from fos_tpu_torch.parallel import batched
+
+    m, n = BATCHED_LP_SHAPE
+    l = m + n + 1
+    for B, seed in BATCHED_LP_CELLS:
+        A, b, c = batched_lp(B, seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        form = build_batched_form(A, b, c, nonneg(m), nonneg(n), device=dev)
+
+        def run(**kw):
+            return timed_solve(lambda: solve_batched(
+                DR(), form, eps=GATE_EPS, checki=100, unroll=4, **kw))
+
+        res, secs = run(max_iters=BATCHED_LP_ITERS)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        status = res.status.cpu().numpy()
+        iters = res.iters.cpu().numpy()
+        g = res.guess.double().cpu().numpy()
+        obj = np.einsum("bn,bn->b", c.astype(np.float64),
+                        g[:, :n] / g[:, l - 1:l])
+        t0 = time.perf_counter()
+        ref = np.array([linprog(c[i].astype(np.float64),
+                                A_ub=A[i].astype(np.float64),
+                                b_ub=b[i].astype(np.float64),
+                                bounds=(0, None), method="highs").fun
+                        for i in range(B)])
+        host_s = time.perf_counter() - t0
+        err = np.abs(obj - ref) / (1.0 + np.abs(ref))
+        whole, _ = run(max_iters=BATCHED_SEGMENT_CHECK)
+        seg, _ = run(max_iters=BATCHED_SEGMENT_CHECK,
+                     segment_iters=BATCHED_SEGMENT)
+        same = seg.iters == whole.iters
+        segments = {
+            "iters": BATCHED_SEGMENT_CHECK,
+            "segment_iters": BATCHED_SEGMENT,
+            "statuses": np.bincount(seg.status.cpu().numpy(),
+                                    minlength=4).tolist(),
+            "status_equal": bool(torch.equal(seg.status, whole.status)),
+            "stopped_at_a_boundary": int((~same).sum()),
+            "bit_equal": bool(torch.equal(seg.guess[same],
+                                          whole.guess[same]))}
+        opts = dict(max_iters=BATCHED_ROUTE_ITERS, eps=GATE_EPS, checki=100)
+        eager, eager_s = timed_solve(lambda: batched._solve_batched_eager(
+            DR(), form, **opts))
+        graph, _ = timed_solve(lambda: solve_batched(DR(), form, **opts))
+        # the rate: a replay that runs every instance for all its
+        # iterations (eps = 0), after the call that captures it
+        solve_batched(DR(), form, max_iters=BATCHED_ROUTE_ITERS, eps=0.0)
+        _, rate_s = timed_solve(lambda: solve_batched(
+            DR(), form, max_iters=BATCHED_ROUTE_ITERS, eps=0.0))
+        routes = {
+            "iters": BATCHED_ROUTE_ITERS, "eager_seconds": eager_s,
+            "status_equal": bool(torch.equal(eager.status, graph.status)),
+            "iters_equal": bool(torch.equal(eager.iters, graph.iters)),
+            "cg_iters_equal": bool(torch.equal(
+                eager.state.s1_state.total_iters,
+                graph.state.s1_state.total_iters)),
+            "bit_equal": bool(torch.equal(eager.guess, graph.guess))}
+        row = {"phase": f"batched_lp_{B}", "instances": B,
+               "shape": [m, n], "eps": GATE_EPS, "budget": BATCHED_LP_ITERS,
+               "optimal": int((status == 1).sum()),
+               "statuses": np.bincount(status, minlength=4).tolist(),
+               "iters_max": int(iters.max()),
+               "iters_mean": float(iters.mean()),
+               "iters_min": int(iters.min()), "seconds": secs,
+               "agg_iters_per_s": B * BATCHED_ROUTE_ITERS / rate_s,
+               "iters_per_s": BATCHED_ROUTE_ITERS / rate_s,
+               "max_rel_obj_err_vs_highs": float(err.max()),
+               "host_highs_seconds": host_s, "segments": segments,
+               "routes": routes, "peak_mib": peak, "route": form.route}
+        emit(row)
+        if (row["optimal"] != B or row["max_rel_obj_err_vs_highs"]
+                > BATCHED_LP_GATE
+                or not all(v for k, v in (*segments.items(),
+                                          *routes.items())
+                           if k.endswith("equal"))):
+            raise AssertionError(f"batched_lp_{B}: {row}")
+        del form, res, whole, seg, eager, graph
+        torch.cuda.empty_cache()
+
+
+def batched_sdp_cell(dev):
+    """batched_sdp_64: bench.py:173-229's 64 lambda-min SDPs of side 64 (C
+    from numpy's seed 29), DR in 1000-iteration segments for 4000
+    iterations at eps = 1e-5.  A = [svec(I)'; -I_L] is one (2081, 2080)
+    matrix that every instance shares: it stays one matrix (a stride-0
+    ``expand``) and its products are one matmul for all instances.  Gates:
+    every instance Optimal, max |obj - lambda_min| / (1 + |lambda_min|)
+    against a host f64 eigvalsh <= 1e-3."""
+    import torch
+    from fos_tpu_torch import DR, build_batched_form, solve_batched
+    from fos_tpu_torch.cones import Cone, ConeSpec, free, svec
+
+    Bs, d, iters = BATCHED_SDP
+    L = d * (d + 1) // 2
+    rng = np.random.default_rng(SDP_SEED)
+    C = rng.standard_normal((Bs, d, d), dtype=np.float32) / np.float32(
+        np.sqrt(d))
+    C = (C + np.swapaxes(C, -1, -2)) / np.float32(2.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sC = svec(torch.as_tensor(C, device=dev))
+    sI = svec(torch.eye(d, device=dev))
+    A = torch.cat([sI[None], -torch.eye(L, device=dev)], 0).expand(
+        Bs, 1 + L, L)
+    bq = torch.zeros(Bs, 1 + L, device=dev)
+    bq[:, 0] = 1.0
+    form = build_batched_form(A, bq, sC, ConeSpec(((Cone.ZERO, 1),
+                                                   (Cone.PSD, L))),
+                              free(L), device=dev)
+    res, secs = timed_solve(lambda: solve_batched(
+        DR(), form, max_iters=iters, eps=1e-5, checki=100, unroll=2,
+        segment_iters=1000))
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    g = res.guess.double()
+    obj = ((sC.double() * g[:, :L]).sum(-1) / g[:, form.l - 1]).cpu().numpy()
+    lam = np.linalg.eigvalsh(C.astype(np.float64))[:, 0]
+    err = np.abs(obj - lam) / (1.0 + np.abs(lam))
+    status = res.status.cpu().numpy()
+    it = res.iters.cpu().numpy()
+    row = {"phase": "batched_sdp_64", "instances": Bs, "d": d, "L": L,
+           "iters_budget": iters, "psd_method": form.psd_method,
+           "optimal_frac": float((status == 1).mean()),
+           "iters_max": int(it.max()), "iters_mean": float(it.mean()),
+           "seconds": secs, "agg_iters_per_s": Bs * int(it.max()) / secs,
+           "max_rel_obj_err_vs_eigh": float(err.max()),
+           "A_stride0": form.A.stride(0) == 0,
+           "A_mib": form.A.untyped_storage().nbytes() / 2**20,
+           "A_materialised_mib": Bs * (1 + L) * L * 4 / 2**20,
+           "peak_mib": peak}
+    emit(row)
+    if row["optimal_frac"] != 1.0 or row["max_rel_obj_err_vs_eigh"] > \
+            BATCHED_SDP_GATE:
+        raise AssertionError(f"batched_sdp_64: {row}")
+
+
+def counted(totals):
+    """The device's launch counts since the last read (which zeroes them),
+    added to ``totals``."""
+    from fos_tpu_torch.linalg import _cuda
+
+    got = _cuda.device_launch_counts(reset=True)
+    totals.update(got)
+    return got
+
+
+def slice_phase(dev, A1, b1, c1, feas, m, n):
+    """Phase 7 (this slice's path): refine, the wrappers and the batched
+    solve.  Returns the device's launch counts over the phase."""
+    from fos_tpu_torch.linalg import _cuda
+
+    _cuda.device_launch_counts(reset=True)
+    totals = collections.Counter()
+    refine_dense_lp(dev, totals)
+    wrapper_dense_cells(dev, A1, b1, c1, totals)
+    wrapper_feasibility_cells(dev, feas, m, n, totals)
+    batched_lp_cells(dev)
+    batched_sdp_cell(dev)
+    counted(totals)
+    return totals
 
 
 # ------------------------------------------------------------------- main
@@ -1322,6 +1819,7 @@ def main() -> int:
                                                  bell_mv_plain)
     from fos_tpu_torch.tools import launch_probe
 
+    clock = [("phase0", time.perf_counter())]
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1367,6 +1865,7 @@ def main() -> int:
             "bell": (ell, blk_ell, cols,
                      host_tile_mv(blk_ell, cols, x0f) + s0f)}
 
+    clock.append(("phase1", time.perf_counter()))
     # --- phase 1: each kernel against its plain version, on the card
     rng = np.random.default_rng(3)
 
@@ -1524,6 +2023,7 @@ def main() -> int:
         kernels[name] = {"source": "fos_tpu_torch/csrc/graph.cu",
                          "replaces": None, "shape": [], **res}
 
+    clock.append(("phase2", time.perf_counter()))
     # --- phase 2: the conic path, the path K1-K3's launch counts must show
     def launched(totals):
         """The device's launch counts since the last read, added to the
@@ -1608,6 +2108,7 @@ def main() -> int:
         raise AssertionError(f"K1 on the conic path: {tiles} tile launches, "
                              f"{sums} sum launches")
 
+    clock.append(("phase3", time.perf_counter()))
     # --- phase 3: the set-feasibility path, through K4 and K5
     _cuda.reset_launch_counts()
     feas_counts = collections.Counter()
@@ -1687,6 +2188,7 @@ def main() -> int:
     for name in ("cg_continue", "count_continue", "flag_continue"):
         kernels[name]["launches"] = conic_counts[name] + feas_counts[name]
 
+    clock.append(("phase4", time.perf_counter()))
     # --- phase 4: the launch probe, through P1 and P2
     xp = torch.ones((8, 128), device=dev) * 1.5
     idx = torch.arange(8, dtype=torch.int32, device=dev)
@@ -1722,11 +2224,13 @@ def main() -> int:
           "p1_within_target": route["p1_over_torch"] <= LAUNCH_ROUTE_TARGET})
     for name in ("probe_tiny", "probe_prefetch"):
         kernels[name]["launches"] = _cuda.LAUNCHES[name]
-    missing = [k for k, e in kernels.items()
-               if e["launches"] == 0 or e.get("captured_calls") == 0]
+    # the lane condition's path is phase 7's (counted there)
+    missing = [k for k, e in kernels.items() if k != "cg_continue_lanes"
+               and (e["launches"] == 0 or e.get("captured_calls") == 0)]
     if missing:
         raise AssertionError(f"kernels never launched by their path: {missing}")
 
+    clock.append(("phase5", time.perf_counter()))
     # --- phase 5: the graph route against the eager route, in one process
     from fos_tpu_torch.problems.conic import conic_problem
     from fos_tpu_torch.problems.feasibility import FeasibilityForm
@@ -1774,7 +2278,7 @@ def main() -> int:
                               ("graph", engine.run)):
                 form = FeasibilityForm.build(prob, device=dev)
                 res, secs = timed_solve(lambda: fn(
-                    form, alg, max_iters=5000, checki=100, eps=eps,
+                    form, alg, max_iters=TIER_ROUTE_ITERS, checki=100, eps=eps,
                     verbose=0))
                 routes[route] = (Status.name(res.status), res.iters, secs,
                                  res.guess)
@@ -1792,6 +2296,7 @@ def main() -> int:
                                  f"route differs from the eager route in "
                                  f"{bad}")
 
+    clock.append(("phase6", time.perf_counter()))
     # --- phase 6: the cones, equilibration and the direct mode (this
     # slice's path), with the device's launch counts zeroed before it
     cone_counts = cones_phase(
@@ -1804,10 +2309,28 @@ def main() -> int:
                                         "bell_mv_pair")):
         raise AssertionError(f"phase 6 did not launch K1-K3: {cone_counts}")
 
+    clock.append(("phase7", time.perf_counter()))
+    # --- phase 7: refine, the wrappers and the batched solve (this slice's
+    # path), with the device's launch counts zeroed before it
+    slice_counts = slice_phase(dev, A1, b1, c1, feas, m, n)
+    for name in kernels:
+        kernels[name]["launches_phase7"] = slice_counts[name]
+    kernels["cg_continue_lanes"]["launches"] = slice_counts["cg_continue_lanes"]
+    if not all(slice_counts[k] for k in ("fused_matvec", "band_mv",
+                                         "bell_mv", "cg_continue_lanes")):
+        raise AssertionError(f"phase 7 did not launch K1, K4, K5 and the "
+                             f"lane condition: {dict(slice_counts)}")
+
+    clock.append(("end", time.perf_counter()))
+    emit({"phase": "timing", "seconds": {
+        name: t1 - t0 for (name, t0), (_, t1) in zip(clock, clock[1:])},
+        "total_seconds": clock[-1][1] - clock[0][1]})
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "plain_device_ms", "captured_calls", "sum_launches",
-            "shape", "max_rel_err", "deterministic", "launches_cones_path")
+            "shape", "max_rel_err", "deterministic", "launches_cones_path",
+            "launches_phase7")
     emit({"kernels": [{k: e.get(k) for k in keys}
                       for e in ({"name": name, "route": "cuda", **entry}
                                 for name, entry in kernels.items())]})

@@ -11,7 +11,11 @@ caller asks for the CPU (``device="cpu"``):
 * the set-feasibility solve, ``solve_feasibility``, with the GAP family
   (GAP, DR, AP, GAPA, GAPP, FISTA, Dykstra), the sets library and
   :class:`AffinePlusLinearProjector`, whose CG runs the tile operators'
-  single products through hand-written kernels (``csrc/tile_mv.cu``).
+  single products through hand-written kernels (``csrc/tile_mv.cu``);
+* the wrappers (:class:`LineSearchWrapper`, :class:`AndersonWrapper`,
+  :class:`LongstepWrapper`), the batched solve (``build_batched_form``,
+  ``solve_batched``) and the f64 refinement sweep (``solve(...,
+  refine=N)``).
 
 On CPU tensors the same functions run their plain PyTorch versions.  This
 package imports neither jax nor fos_tpu.
@@ -36,7 +40,8 @@ from fos_tpu_torch.cones import (  # noqa: F401
     zero,
 )
 from fos_tpu_torch.solvers import (  # noqa: F401
-    AP, DR, FISTA, GAP, GAPA, GAPP, Dykstra, Status)
+    AP, DR, FISTA, GAP, GAPA, GAPP, AndersonWrapper, Dykstra,
+    LineSearchWrapper, LongstepWrapper, Status)
 from fos_tpu_torch.problems import ConicProblem, Solution, conic_problem  # noqa: F401
 from fos_tpu_torch.problems.feasibility import Feasibility  # noqa: F401
 from fos_tpu_torch.linalg.affine import AffinePlusLinearProjector  # noqa: F401
@@ -45,5 +50,7 @@ from fos_tpu_torch.sets import (  # noqa: F401
     AffineSet, Ball, BlockSet, Box, ConeSet, FunctionSet, Halfspace, NonNeg,
     NonPos, Point)
 from fos_tpu_torch.interface import solve, solve_feasibility  # noqa: F401
+from fos_tpu_torch.parallel.batched import (  # noqa: F401
+    build_batched_form, form_initial_value, solve_batched)
 
 __version__ = "0.1.0"

@@ -26,7 +26,7 @@ import fos_tpu_torch.config  # noqa: F401  (pins full-f32 matmuls)
 
 #: the uniform schedule's quintic coefficients
 _QUINTIC = (3.4445, -4.7750, 2.0315)
-#: the uniform schedule's step counts when only one of them is given
+#: the uniform schedule's usual step counts (chip_smoke.py times it at these)
 UNIFORM_QUINTICS, UNIFORM_CUBICS = 10, 12
 
 # The tuned schedule: each quintic maximises the post-step lower bound over
@@ -59,16 +59,21 @@ def _coef(v, dtype) -> float:
 
 
 def _matrix_sign(Y, quintic_iters=None, cubic_iters=None):
-    """sign(Y) for a symmetric Y with spectrum in [-1, 1].  With both counts
-    None the tuned schedule; otherwise the uniform schedule, a count left
-    None taking its default (:data:`UNIFORM_QUINTICS`,
-    :data:`UNIFORM_CUBICS`)."""
-    if quintic_iters is None and cubic_iters is None:
+    """sign(Y) for a symmetric Y with spectrum in [-1, 1].  Without
+    ``quintic_iters`` the tuned schedule (``cubic_iters`` alone is ignored,
+    as the JAX package ignores it); with it the uniform schedule of
+    ``quintic_iters`` quintics and ``cubic_iters`` cubics, which must then
+    be given too (the JAX package fails inside its scan without it)."""
+    if quintic_iters is None:
         coefs, cubics = _SCHEDULE, _SCHEDULE_CUBICS
     else:
-        q = UNIFORM_QUINTICS if quintic_iters is None else quintic_iters
-        coefs = np.tile(np.asarray(_QUINTIC)[None], (q, 1))
-        cubics = UNIFORM_CUBICS if cubic_iters is None else cubic_iters
+        if cubic_iters is None:
+            raise ValueError(
+                "psd_project_poly: quintic_iters selects the uniform "
+                "schedule and needs cubic_iters too (e.g. quintic_iters="
+                f"{UNIFORM_QUINTICS}, cubic_iters={UNIFORM_CUBICS})")
+        coefs = np.tile(np.asarray(_QUINTIC)[None], (quintic_iters, 1))
+        cubics = cubic_iters
     Z = Y
     for a, b, c in coefs:
         Z2 = torch.matmul(Z, Z)
@@ -102,7 +107,7 @@ def _spectral_bound(X, iters: int = POWER_ITERS):
 def psd_project_poly(X, *, quintic_iters=None, cubic_iters=None):
     """Project symmetric ``X`` (..., d, d) onto the PSD cone with matrix
     products only; the dtype of X is kept.  Default: the tuned 31-product
-    schedule; giving ``quintic_iters`` or ``cubic_iters`` selects the
+    schedule; giving ``quintic_iters`` (with ``cubic_iters``) selects the
     uniform schedule (:func:`_matrix_sign`)."""
     R = _spectral_bound(X)
     Z = _matrix_sign(X / R, quintic_iters, cubic_iters)

@@ -23,12 +23,18 @@
 // the one an IF node tests once.
 //   cg_continue     (rn > tol2) && (it < max_iters): CG's stopping test,
 //                   the condition of lax.while_loop in fos_tpu/linalg/cg.py;
+//   cg_continue_lanes  the same test over a lane axis, true while any lane
+//                   is live: CG under the JAX package's vmap (the line
+//                   search's candidate steps, a batched solve's instances);
+//                   one block, the lanes strided over its threads;
 //   count_continue  a counter, reset or advanced, below a limit and,
-//                   optionally, a status equal to a code: the step loop
-//                   (j < nsteps) and fused_solve's chunk loop
-//                   (status == CONTINUE && k < nchunks);
+//                   optionally, a status (one, or one per lane: any lane)
+//                   equal to a code: the step loop (j < nsteps) and
+//                   fused_solve's chunk loop (status == CONTINUE &&
+//                   k < nchunks);
 //   flag_continue   a bool PyTorch computed (a branch), or its negation.
-// What bounds them: one launch each; they read at most 16 bytes.  A loop
+// What bounds them: one launch each; they read at most 16 bytes, 12 per
+// lane over a lane axis.  A loop
 // pays one condition kernel per pass of its body, so CG pays one per group
 // of `unroll` iterations, where the eager loop pays a host read.
 
@@ -47,17 +53,37 @@ __global__ void cg_continue(cudaGraphConditionalHandle h,
   cudaGraphSetConditional(h, (*rn > *tol2) && (*it < max_iters) ? 1u : 0u);
 }
 
+// tol_stride 0: one tol2 for every lane; 1: one per lane.
+template <typename T>
+__global__ void cg_continue_lanes(cudaGraphConditionalHandle h,
+                                  const T* __restrict__ rn,
+                                  const T* __restrict__ tol2,
+                                  const int* __restrict__ it, int max_iters,
+                                  int lanes, int tol_stride) {
+  count_launch(3);
+  int live = 0;
+  for (int j = threadIdx.x; j < lanes; j += blockDim.x)
+    live |= (rn[j] > tol2[j * tol_stride]) && (it[j] < max_iters);
+  live = __syncthreads_or(live);
+  if (threadIdx.x == 0) cudaGraphSetConditional(h, live ? 1u : 0u);
+}
+
 // mode 0: test *k; 1: set *k = 0, then test; 2: add one to *k, then test.
+// With a status, also: some of its `lanes` entries equal `want`.
 __global__ void count_continue(cudaGraphConditionalHandle h, int* k, int mode,
                                int limit, const int* __restrict__ status,
-                               int want) {
+                               int want, int lanes) {
   count_launch(1);
   int v = *k;
   if (mode == 1) v = 0;
   if (mode == 2) v += 1;
   if (mode != 0) *k = v;
   bool live = v < limit;
-  if (status != nullptr) live = live && (*status == want);
+  if (status != nullptr && live) {
+    bool any = false;
+    for (int j = 0; j < lanes && !any; ++j) any = status[j] == want;
+    live = any;
+  }
   cudaGraphSetConditional(h, live ? 1u : 0u);
 }
 
@@ -87,8 +113,8 @@ cudaError_t capture_info(cudaStream_t stream, cudaGraph_t* graph,
 
 extern "C" {
 
-// Device launch counts of cg_continue, count_continue, flag_continue
-// (read_launch_counts in common.cuh).
+// Device launch counts of cg_continue, count_continue, flag_continue,
+// cg_continue_lanes (read_launch_counts in common.cuh).
 int fos_graph_launch_counts(const long long* slots) {
   return read_launch_counts(slots);
 }
@@ -176,13 +202,31 @@ int fos_cg_continue(const long long* slots) {
   return (int)cudaGetLastError();
 }
 
+// cg_continue_lanes.  Record: 0 handle, 1 rn (lanes), 2 tol2 (lanes, or
+// one), 3 it (lanes, int32), 4 max_iters, 5 1 for f64, 6 lanes, 7 1 when
+// tol2 has one entry per lane, 8 stream.
+int fos_cg_continue_lanes(const long long* slots) {
+  const Record a{slots};
+  auto h = static_cast<cudaGraphConditionalHandle>(slots[0]);
+  if (a.num(5))
+    cg_continue_lanes<double><<<1, kThreads, 0, a.stream(8)>>>(
+        h, a.ptr<const double>(1), a.ptr<const double>(2),
+        a.ptr<const int>(3), a.num(4), a.num(6), a.num(7));
+  else
+    cg_continue_lanes<float><<<1, kThreads, 0, a.stream(8)>>>(
+        h, a.ptr<const float>(1), a.ptr<const float>(2), a.ptr<const int>(3),
+        a.num(4), a.num(6), a.num(7));
+  return (int)cudaGetLastError();
+}
+
 // count_continue.  Record: 0 handle, 1 k (0-dim int32), 2 mode, 3 limit,
-// 4 status (0-dim int32) or 0, 5 the status code wanted, 6 stream.
+// 4 status (int32, `lanes` entries) or 0, 5 the status code wanted,
+// 6 lanes, 7 stream.
 int fos_count_continue(const long long* slots) {
   const Record a{slots};
-  count_continue<<<1, 1, 0, a.stream(6)>>>(
+  count_continue<<<1, 1, 0, a.stream(7)>>>(
       static_cast<cudaGraphConditionalHandle>(slots[0]), a.ptr<int>(1),
-      a.num(2), a.num(3), a.ptr<const int>(4), a.num(5));
+      a.num(2), a.num(3), a.ptr<const int>(4), a.num(5), a.num(6));
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import time
 
+import torch
+
 from fos_tpu_torch.config import as_dtype, as_tensor, default_device
 from fos_tpu_torch.cones.spec import ConeSpec
 from fos_tpu_torch.problems.conic import ConicProblem, conic_problem
@@ -73,6 +75,11 @@ def solve(A=None, b=None, c=None, K1: ConeSpec = None, K2: ConeSpec = None,
 
     ``warm_start`` seeds the iteration from a previous :class:`Solution`
     (sugar for ``initx=prev.raw_z``).
+
+    ``refine=N`` (N > 0) continues an Optimal or unfinished solve for up to
+    N more iterations at f64 from its final iterate
+    (:func:`_refine_solution`); ``refine_kwargs`` (a dict) overrides
+    options of that sweep.
     """
     t0 = time.time()
     if warm_start is not None:
@@ -81,6 +88,7 @@ def solve(A=None, b=None, c=None, K1: ConeSpec = None, K2: ConeSpec = None,
         if warm_start.raw_z is None:
             raise ValueError("warm_start solution carries no raw_z iterate")
         initx = warm_start.raw_z
+    raw_inputs = (A, b, c, K1, K2)
     if problem is None:
         problem = conic_problem(A, b, c, K1, K2, device=default_device(device),
                                 dtype=as_dtype(dtype))
@@ -89,10 +97,10 @@ def solve(A=None, b=None, c=None, K1: ConeSpec = None, K2: ConeSpec = None,
     opts = dict(alg.options)
     opts.update(options)
     engine.validate_options(opts)
-    if int(opts.pop("refine", 0)) > 0:
-        raise NotImplementedError(
-            "refine is not ported yet: ROADMAP queue 1, 'refine'")
-    opts.pop("refine_kwargs", None)
+    refine = int(opts.pop("refine", 0))
+    refine_kwargs = dict(opts.pop("refine_kwargs", ()) or ())
+    equilibrate = bool(opts.pop("equilibrate", False))
+    equilibrate_iters = int(opts.pop("equilibrate_iters", 10))
     form = HSDEForm.build(
         problem,
         direct=getattr(alg, "direct", False),
@@ -102,8 +110,8 @@ def solve(A=None, b=None, c=None, K1: ConeSpec = None, K2: ConeSpec = None,
         psd_method=str(opts.pop("psd_method", "auto")),
         cg_variant=str(opts.pop("cg_variant", "standard")),
         cg_unroll=int(opts.pop("cg_unroll", 2)),
-        equilibrate=bool(opts.pop("equilibrate", False)),
-        equilibrate_iters=int(opts.pop("equilibrate_iters", 10)),
+        equilibrate=equilibrate,
+        equilibrate_iters=equilibrate_iters,
         strict_certificates=bool(opts.pop("strict_certificates", False)),
         densify=opts.pop("densify", "auto"),
         compensated=opts.pop("compensated", "auto"),
@@ -113,5 +121,60 @@ def solve(A=None, b=None, c=None, K1: ConeSpec = None, K2: ConeSpec = None,
     if initx is not None:
         initx = as_tensor(initx, form.dtype, form.device)
     res = engine.run(form, alg, initx=initx, init_duration=init_duration, **opts)
+    if refine > 0 and res.status in (engine.Status.CONTINUE,
+                                     engine.Status.OPTIMAL):
+        return _refine_solution(raw_inputs, problem, alg, res, refine,
+                                refine_kwargs, opts, equilibrate,
+                                equilibrate_iters)
     return populate_solution(form, res.guess, res.status, res.iters,
                              res.history, raw_z=res.state.x)
+
+
+def _refine_solution(raw_inputs, problem, alg, res, refine, refine_kwargs,
+                     opts, equilibrate=False, equilibrate_iters=10):
+    """The f64 refinement sweep: continue the iteration at f64 from the
+    solve's final raw iterate, for at most ``refine`` iterations.
+
+    An f32 solve bottoms out at the f32 storage floor (~6e-8 relative on
+    the iterate); warm-started at residual ~1e-5, the f64 sweep removes it
+    in a few hundred iterations (the reference's all-f64 operating points,
+    testDRandGAPA.jl:44-49, eps down to 1e-9).  The form is rebuilt in f64
+    on the same device from the data as the caller passed them (before any
+    ``dtype`` cast: the f32-rounded problem is another problem, and the
+    sweep can stall on it), or from ``problem``'s, with the solve's
+    ``equilibrate`` setting, because the iterate lives in the Ruiz-scaled
+    coordinates and Ruiz is deterministic in (A, b, c).  The hand kernels
+    take f32 only, so the sweep runs the plain products (``pallas`` is not
+    carried), uses no compensated reductions (f64 needs none) and takes
+    ``cg_max_iters`` and ``psd_method`` from ``refine_kwargs`` only.
+    ``refine_kwargs`` override the solve's eps, checki, verbose and debug;
+    the iterations of both stages add up in :attr:`Solution.iters`.
+    """
+    A, b, c, K1, K2 = raw_inputs
+    if A is None:   # solve(problem=...): refine from the problem's data
+        A, b, c, K1, K2 = (problem.A, problem.b, problem.c, problem.K1,
+                           problem.K2)
+    f64 = torch.float64
+    if hasattr(A, "mv_pair"):
+        raise ValueError(
+            f"refine rebuilds the form in f64 from array, tensor or "
+            f"scipy.sparse data; got the operator {type(A).__name__} (its "
+            "kernels take f32 only)")
+    device = problem.b.device
+    prob64 = conic_problem(A, b, c, K1, K2, device=device, dtype=f64)
+    rk = dict(refine_kwargs)
+    form64 = HSDEForm.build(
+        prob64, direct=getattr(alg, "direct", False),
+        cg_max_iters=int(rk.pop("cg_max_iters", 1000)),
+        psd_method=str(rk.pop("psd_method", "auto")), compensated=False,
+        equilibrate=equilibrate, equilibrate_iters=equilibrate_iters)
+    run_opts = {k: v for k, v in opts.items()
+                if k in ("eps", "checki", "verbose", "debug")}
+    run_opts.update(rk)
+    run_opts["max_iters"] = refine
+    # warm start from the final raw iterate, the fixed-point object of the
+    # iteration, not from the projected guess (solverwrapper.jl:10's initx)
+    res64 = engine.run(form64, alg, initx=res.state.x.to(f64), **run_opts)
+    return populate_solution(form64, res64.guess, res64.status,
+                             res.iters + res64.iters, res64.history,
+                             raw_z=res64.state.x)

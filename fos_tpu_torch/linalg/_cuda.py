@@ -38,7 +38,8 @@ went through the kernels.
 
 The graph entry points of ``csrc/graph.cu`` (:func:`graph_handle`,
 :func:`cond_open`, :func:`cond_close`) and its condition kernels
-(:func:`cg_continue`, :func:`count_continue`, :func:`flag_continue`) serve
+(:func:`cg_continue`, :func:`cg_continue_lanes`, :func:`count_continue`,
+:func:`flag_continue`) serve
 :mod:`fos_tpu_torch.linalg.control`; they are called while a graph is
 captured, not per iteration, and take a launch record made per call.
 """
@@ -154,7 +155,7 @@ ENTRY_POINTS = ("fos_dense_pair", "fos_band_pair", "fos_bell_pair",
                 "fos_band_mv", "fos_bell_mv", "fos_probe_tiny",
                 "fos_probe_prefetch", "fos_graph_handle", "fos_graph_cond_open",
                 "fos_graph_cond_close", "fos_stream_create", "fos_cg_continue",
-                "fos_count_continue", "fos_flag_continue",
+                "fos_cg_continue_lanes", "fos_count_continue", "fos_flag_continue",
                 "fos_pair_launch_counts", "fos_tile_mv_launch_counts",
                 "fos_graph_launch_counts")
 
@@ -164,7 +165,7 @@ DEVICE_COUNTERS = {
                                "fused_matvec_sum"),
     "fos_tile_mv_launch_counts": ("band_mv", "bell_mv"),
     "fos_graph_launch_counts": ("cg_continue", "count_continue",
-                                "flag_continue"),
+                                "flag_continue", "cg_continue_lanes"),
 }
 
 
@@ -375,6 +376,39 @@ def cg_continue(handle: int, rn, tol2, it, max_iters: int) -> None:
                  int(rn.dtype == torch.float64), _current(rn))
 
 
+def _lanes(t: torch.Tensor, dtype, name: str) -> int:
+    if (t.device.type != "cuda" or t.dtype != dtype or t.dim() != 1
+            or not t.is_contiguous() or t.numel() == 0):
+        raise ValueError(f"{name}: expected a contiguous 1-d {dtype} CUDA "
+                         f"tensor, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t.data_ptr()
+
+
+def cg_continue_lanes(handle: int, rn, tol2, it, max_iters: int) -> None:
+    """Set ``handle`` to whether any lane j has ``(rn[j] > tol2[j]) &
+    (it[j] < max_iters)`` (CG's stopping test over a lane axis; ``tol2``
+    one per lane or one 0-dim value for all)."""
+    if rn.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"cg_continue_lanes: rn is {rn.dtype}")
+    name = "cg_continue_lanes"
+    n = rn.numel()
+    ptr_rn = _lanes(rn, rn.dtype, name)
+    if it.shape != rn.shape:
+        raise ValueError(f"{name}: it {tuple(it.shape)} and rn "
+                         f"{tuple(rn.shape)} differ")
+    shared = tol2.dim() == 0
+    if not shared and tol2.shape != rn.shape:
+        raise ValueError(f"{name}: tol2 {tuple(tol2.shape)} is neither 0-dim "
+                         f"nor shaped like rn {tuple(rn.shape)}")
+    ptr_tol = (_scalar(tol2, rn.dtype, name) if shared
+               else _lanes(tol2, rn.dtype, name))
+    _record_call("fos_cg_continue_lanes", ctypes.c_longlong(handle).value,
+                 ptr_rn, ptr_tol, _lanes(it, torch.int32, name),
+                 int(max_iters), int(rn.dtype == torch.float64), n,
+                 0 if shared else 1, _current(rn))
+
+
 #: :func:`count_continue` modes
 TEST, RESET, ADVANCE = 0, 1, 2
 
@@ -382,14 +416,19 @@ TEST, RESET, ADVANCE = 0, 1, 2
 def count_continue(handle: int, k, mode: int, limit: int, status=None,
                    want: int = 0) -> None:
     """Set ``handle`` to ``k < limit`` (and ``status == want`` when a status
-    is given) after ``mode`` reset (``k = 0``) or advanced (``k += 1``) the
-    int32 counter ``k`` on the device."""
+    is given; with one status per lane, for any lane) after ``mode`` reset
+    (``k = 0``) or advanced (``k += 1``) the int32 counter ``k`` on the
+    device."""
+    name = "count_continue"
+    if status is None:
+        ptr, lanes = 0, 0
+    elif status.dim() == 0:
+        ptr, lanes = _scalar(status, torch.int32, name), 1
+    else:
+        ptr, lanes = _lanes(status, torch.int32, name), status.numel()
     _record_call("fos_count_continue", ctypes.c_longlong(handle).value,
-                 _scalar(k, torch.int32, "count_continue"), int(mode),
-                 int(limit),
-                 0 if status is None else _scalar(status, torch.int32,
-                                                  "count_continue"),
-                 int(want), _current(k))
+                 _scalar(k, torch.int32, name), int(mode), int(limit), ptr,
+                 int(want), lanes, _current(k))
 
 
 def flag_continue(handle: int, flag, negate: bool = False) -> None:

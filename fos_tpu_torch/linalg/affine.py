@@ -10,6 +10,11 @@
 * :class:`AffinePlusLinearProjector`, an S1 set of the set-feasibility
   solve: the prox of ``q'x + ind(Ax - beta z = b)``, by CG on ``I + AA'``
   (indirect) or by a cached host QR (direct, :func:`_ls_projection_fac`).
+
+Both project a lane axis (:mod:`fos_tpu_torch.linalg.lanes`): points
+``(B, dim)`` against one state (the line search's candidate steps, which
+share the step's warm start) or against a state with the same lane axis
+(a batched solve); CG then runs per lane.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import numpy as np
 import torch
 
 from fos_tpu_torch.config import as_dtype, as_tensor, default_device, eps_of
-from fos_tpu_torch.linalg import hsde_ops
+from fos_tpu_torch.linalg import hsde_ops, lanes
 from fos_tpu_torch.linalg.cg import (CGState, conjugate_gradient,
                                      conjugate_gradient_tracked,
                                      decreasing_tolerance)
@@ -111,8 +116,14 @@ class HSDEAffineProjector:
     Indirect (default): warm-started CG on ``(I + Q'Q) u = u0 - Q v0``.
     Direct (``fac`` given): ``u = P' z`` with ``P = Q_f R^{-T}`` of
     ``QR([I; Q])``, (2l, l), then ``v = Q u``; the CG state is carried with
-    ``last_iters = 0``.
+    ``last_iters = 0``.  ``A``, ``b``, ``c`` (and ``fac``) may carry a
+    leading instance axis (:mod:`fos_tpu_torch.parallel.batched`).
     """
+
+    #: the projection map is linear in z (the line search's probe cache):
+    #: the HSDE set {(u, v): Qu = v} is a subspace
+    projection_is_affine = True
+    projection_offset_free = True
 
     def __init__(self, A, b, c, fac=None, *, decreasing_accuracy=True,
                  cg_max_iters=1000, tol_floor=None, cg_unroll=2,
@@ -127,7 +138,7 @@ class HSDEAffineProjector:
         self.tol_floor = tol_floor
         self.cg_unroll = cg_unroll
         self.compensated = compensated
-        self._neg_cb = -torch.cat([c, b])
+        self._neg_cb = -torch.cat([c, b], -1)
 
     @classmethod
     def create(cls, A, b, c, *, direct=False, decreasing_accuracy=True,
@@ -159,7 +170,7 @@ class HSDEAffineProjector:
 
     @property
     def l(self) -> int:
-        return self.b.shape[0] + self.c.shape[0] + 1
+        return self.b.shape[-1] + self.c.shape[-1] + 1
 
     @property
     def dim(self) -> int:
@@ -169,19 +180,29 @@ class HSDEAffineProjector:
         return hsde_ops.q_mul(self.A, self.b, self.c, u, self._neg_cb)
 
     def init_state(self, dtype) -> CGState:
-        return CGState.create(self.l, dtype, self.b.device)
+        return CGState.create(self.l, dtype, self.b.device,
+                              self.b.shape[:-1])
 
     def init_state_from(self, z0) -> CGState:
         """Warm start seeded from the initial iterate: ``warm = u0`` and
         ``v_warm = Q u0``, one pair paid once so that every projection
         forms its CG residual with a single pair.  Direct mode reads no warm
-        start and keeps the plain state."""
+        start and keeps the plain state.  The state takes ``z0``'s lanes."""
+        state = CGState.create(self.l, z0.dtype, z0.device,
+                               lanes.lane_shape(z0))
         if self.direct:
-            return CGState.create(self.l, z0.dtype, z0.device)
-        u0 = z0[: self.l]
-        return CGState.create(self.l, z0.dtype, z0.device)._replace(
-            warm=u0, v_warm=self._q(u0),
-            initialized=torch.ones((), dtype=torch.bool, device=z0.device))
+            return state
+        u0 = z0[..., : self.l]
+        return state._replace(warm=u0, v_warm=self._q(u0),
+                              initialized=torch.ones_like(state.initialized))
+
+    def _fac_t(self, z):
+        """P' z (direct mode), per lane."""
+        if z.dim() == 1:
+            return torch.matmul(self.fac.T, z)
+        if self.fac.dim() == 3:
+            return torch.bmm(z[:, None, :], self.fac)[:, 0]
+        return torch.matmul(z, self.fac)
 
     def refresh_state(self, cg: CGState) -> CGState:
         """Re-anchor the tracked invariant ``v_warm = Q warm`` with one fresh
@@ -195,16 +216,16 @@ class HSDEAffineProjector:
     def project(self, z, cg: CGState):
         if self.direct:
             # one full-f32 GEMV (TF32 is off, fos_tpu_torch.config)
-            u = torch.matmul(self.fac.T, z)
+            u = self._fac_t(z)
             new_cg = cg._replace(call_idx=cg.call_idx + 1,
                                  last_iters=torch.zeros_like(cg.last_iters))
-            return torch.cat([u, self._q(u)]), new_cg
+            return torch.cat([u, self._q(u)], -1), new_cg
         if cg.v_warm is None:
             raise ValueError(
                 "CGState without v_warm: seed it with init_state_from")
         l = self.l
-        u0 = z[:l]
-        v0 = z[l:]
+        u0 = z[..., :l]
+        v0 = z[..., l:]
         # one pair for the initial residual, by skew-symmetry:
         #   r0 = u0 - Q v0 - warm - Q'(Q warm) = u0 - Q(v0 - v_warm) - warm
         warm = cg.warm
@@ -228,7 +249,7 @@ class HSDEAffineProjector:
                              initialized=torch.ones_like(cg.initialized),
                              call_idx=cg.call_idx + 1, last_iters=res.iters,
                              total_iters=total)
-        return torch.cat([res.x, res.Qx]), new_cg
+        return torch.cat([res.x, res.Qx], -1), new_cg
 
 
 def _matrix(A, device):
@@ -327,11 +348,12 @@ class AffinePlusLinearProjector:
 
     def project(self, x, cg: CGState):
         n = self.n
-        x1 = x[:n]
-        x2 = x[n:]
+        x1 = x[..., :n]
+        x2 = x[..., n:]
         if self.direct:
-            zls = torch.cat([x1 - self.q, -(self.beta * x2 + self.b)])
-            lam = torch.matmul(self.fac.T, zls)
+            zls = torch.cat([x1 - self.q, -(self.beta * x2 + self.b)], -1)
+            lam = (torch.matmul(self.fac.T, zls) if zls.dim() == 1
+                   else torch.matmul(zls, self.fac))
             new_cg = cg._replace(call_idx=cg.call_idx + 1,
                                  last_iters=torch.zeros_like(cg.last_iters))
         else:
@@ -354,4 +376,4 @@ class AffinePlusLinearProjector:
                                  last_iters=res.iters, total_iters=total)
         y1 = x1 - self.q - hsde_ops.rmv(self.A, lam)
         y2 = x2 + self.beta * lam
-        return torch.cat([y1, y2]), new_cg
+        return torch.cat([y1, y2], -1), new_cg

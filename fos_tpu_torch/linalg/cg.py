@@ -9,6 +9,15 @@ iterates and the iteration count match it.  Eagerly the stopping test
 (the plain version); inside a CUDA graph it is the ``cg_continue`` kernel
 setting a WHILE node's condition on the device, and the group is the
 node's body.
+
+Both solvers take a lane axis: right-hand sides of shape ``(B, k)`` are B
+independent systems (the JAX package's ``vmap`` of CG), whose ``rn``,
+``alpha``, ``beta`` and counts are per lane.  Each lane stops on its own
+``(rn > tol^2) & (it < max_iters)``, tested at the start of each group as a
+vmapped ``lax.while_loop`` tests it: a group's result is kept only for the
+lanes that were live when it began, so lane j ends where a solve of lane j
+alone ends.  The loop runs while any lane is live (``cg_continue_lanes`` on
+the card).
 """
 
 from __future__ import annotations
@@ -17,7 +26,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from fos_tpu_torch.linalg import control
+from fos_tpu_torch.linalg import control, lanes
 
 
 class CGResult(NamedTuple):
@@ -48,15 +57,18 @@ class CGState(NamedTuple):
     v_warm: Any = None
 
     @staticmethod
-    def create(size: int, dtype, device=None) -> "CGState":
+    def create(size: int, dtype, device=None, lanes=()) -> "CGState":
+        """A fresh state; ``lanes`` (e.g. ``(B,)``) gives every field a
+        leading lane axis (a batched solve's per-instance states)."""
         # fills on the device, no copies from the host
+        lanes = tuple(lanes)
         i32 = dict(dtype=torch.int32, device=device)
         return CGState(
-            warm=torch.zeros(size, dtype=dtype, device=device),
-            initialized=torch.zeros((), dtype=torch.bool, device=device),
-            call_idx=torch.ones((), **i32),
-            last_iters=torch.zeros((), **i32),
-            total_iters=torch.zeros((), **i32),
+            warm=torch.zeros(lanes + (size,), dtype=dtype, device=device),
+            initialized=torch.zeros(lanes, dtype=torch.bool, device=device),
+            call_idx=torch.ones(lanes, **i32),
+            last_iters=torch.zeros(lanes, **i32),
+            total_iters=torch.zeros(lanes, **i32),
         )
 
 
@@ -65,27 +77,58 @@ def _dot_fn(compensated: bool):
         from fos_tpu_torch.linalg.compensated import cdot
 
         return cdot
-    return torch.dot
+    return lanes.vdot
 
 
 def _cg_step(dot, Ap, p, x, r, rn, it, tol2):
     """The masked CG update shared by both variants; returns
-    (alpha, x, r, p, rn, it)."""
+    (alpha, x, r, p, rn, it), ``alpha`` per lane."""
     live = rn > tol2
     den = dot(Ap, p)
     nz = den != 0
     alpha = torch.where(live & nz, rn / torch.where(nz, den, 1.0), 0.0)
-    x = x + alpha * p
-    r = r - alpha * Ap
+    a = lanes.per_lane(alpha, p)
+    x = x + a * p
+    r = r - a * Ap
     rn_new = dot(r, r)
     beta = torch.where(live, rn_new / torch.where(rn > 0, rn, 1.0), 0.0)
-    p = torch.where(live, r + beta * p, p)
+    p = torch.where(lanes.per_lane(live, p),
+                    r + lanes.per_lane(beta, p) * p, p)
     return alpha, x, r, p, torch.where(live, rn_new, rn), it + live
+
+
+def _loop(group, carry, rn_at, it_at, tol2, max_iters):
+    """CG's outer loop over groups: one system stops on its test; with
+    lanes a group's result is kept for the lanes live at its start, and the
+    loop runs while any lane is live."""
+    if carry[0].dim() == 1:
+        return control.while_loop(
+            lambda c: control.CGContinue(c[rn_at], tol2, c[it_at], max_iters),
+            group, carry)
+
+    def lane_group(c):
+        go = (c[rn_at] > tol2) & (c[it_at] < max_iters)
+        return tuple(lanes.select(go, new, old)
+                     for new, old in zip(group(c), c))
+
+    return control.while_loop(
+        lambda c: control.CGContinueLanes(c[rn_at], tol2, c[it_at],
+                                          max_iters),
+        lane_group, carry)
+
+
+def _like_lanes(v, like):
+    """``v`` with ``like``'s lane axes: a shared warm start copied to every
+    lane of a lane-axis solve."""
+    if v.shape == like.shape:
+        return v
+    return v.expand(like.shape).contiguous()
 
 
 def _tol2(tol, like):
     """tol^2 in ``like``'s dtype on its device, made there (a fill, not a
-    copy from the host, so that it can be captured)."""
+    copy from the host, so that it can be captured); a tensor ``tol`` may
+    hold one tolerance per lane."""
     if isinstance(tol, torch.Tensor):
         return tol.to(like.dtype) ** 2
     return torch.full((), tol, dtype=like.dtype, device=like.device) ** 2
@@ -106,9 +149,10 @@ def conjugate_gradient(
     iteration in float-float arithmetic."""
     dot = _dot_fn(compensated)
     r = b - matvec(x0)
+    x0 = _like_lanes(x0, r)
     rn = dot(r, r)
     tol2 = _tol2(tol, b)
-    it = torch.zeros((), dtype=torch.int32, device=b.device)
+    it = torch.zeros(rn.shape, dtype=torch.int32, device=b.device)
 
     def group(c):
         x, r, p, rn, it = c
@@ -117,9 +161,7 @@ def conjugate_gradient(
             _, x, r, p, rn, it = _cg_step(dot, Ap, p, x, r, rn, it, tol2)
         return x, r, p, rn, it
 
-    x, r, p, rn, it = control.while_loop(
-        lambda c: control.CGContinue(c[3], tol2, c[4], max_iters), group,
-        (x0, r, r, rn, it))
+    x, r, p, rn, it = _loop(group, (x0, r, r, rn, it), 3, 4, tol2, max_iters)
     return CGResult(x=x, iters=it, rnorm=torch.sqrt(rn))
 
 
@@ -151,7 +193,7 @@ def conjugate_gradient_tracked(
     dot = _dot_fn(compensated)
     rn = dot(r0, r0)
     tol2 = _tol2(tol, r0)
-    it = torch.zeros((), dtype=torch.int32, device=r0.device)
+    it = torch.zeros(rn.shape, dtype=torch.int32, device=r0.device)
 
     def group(c):
         x, Qx, r, p, rn, it = c
@@ -160,13 +202,13 @@ def conjugate_gradient_tracked(
             Ap = p - q_fn(Qp)
             alpha, x, r, p_new, rn, it = _cg_step(dot, Ap, p, x, r, rn, it,
                                                   tol2)
-            Qx = Qx + alpha * Qp
+            Qx = Qx + lanes.per_lane(alpha, Qp) * Qp
             p = p_new
         return x, Qx, r, p, rn, it
 
-    x, Qx, r, p, rn, it = control.while_loop(
-        lambda c: control.CGContinue(c[4], tol2, c[5], max_iters), group,
-        (x0, Qx0, r0, r0, rn, it))
+    x, Qx, r, p, rn, it = _loop(
+        group, (_like_lanes(x0, r0), _like_lanes(Qx0, r0), r0, r0, rn, it),
+        4, 5, tol2, max_iters)
     return CGTrackedResult(x=x, Qx=Qx, iters=it, rnorm=torch.sqrt(rn))
 
 

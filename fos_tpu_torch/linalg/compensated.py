@@ -47,27 +47,29 @@ def _two_prod(a, b):
 
 
 def _ff_tree_sum_ff(hi, lo):
-    """Sum a vector of float-float (hi, lo) pairs by binary-tree reduction,
-    carrying the low parts; returns a normalised scalar (hi, lo) pair."""
-    n = hi.shape[0]
+    """Sum float-float (hi, lo) pairs over the last axis by binary-tree
+    reduction, carrying the low parts; returns a normalised (hi, lo) pair
+    (scalars, or one per lane when the inputs have leading lane axes)."""
+    n = hi.shape[-1]
     p = 1
     while p < n:
         p *= 2
     if p != n:
-        pad = hi.new_zeros(p - n)
-        hi = torch.cat([hi, pad])
-        lo = torch.cat([lo, pad])
+        pad = hi.new_zeros(hi.shape[:-1] + (p - n,))
+        hi = torch.cat([hi, pad], -1)
+        lo = torch.cat([lo, pad], -1)
     while p > 1:
         h = p // 2
-        s, e = _two_sum(hi[:h], hi[h:])
-        lo = lo[:h] + lo[h:] + e
+        s, e = _two_sum(hi[..., :h], hi[..., h:])
+        lo = lo[..., :h] + lo[..., h:] + e
         hi = s
         p = h
-    return _two_sum(hi[0], lo[0])
+    return _two_sum(hi[..., 0], lo[..., 0])
 
 
 def cdot_ff(x, y):
-    """Compensated dot product as a float-float (hi, lo) scalar pair: for a
+    """Compensated dot product over the last axis (one per lane) as a
+    float-float (hi, lo) pair: for a
     caller that differences two near-equal dots (the HSDE gap
     ``|c'x + b'y|``) without losing the low-order half."""
     p, e = _two_prod(x, y)
@@ -81,7 +83,8 @@ def cdot(x, y):
 
 
 def cnorm(x):
-    """Compensated 2-norm via the compensated sum of exact squares."""
+    """Compensated 2-norm over the last axis via the compensated sum of
+    exact squares."""
     return torch.sqrt(cdot(x, x))
 
 

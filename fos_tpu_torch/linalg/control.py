@@ -100,23 +100,42 @@ class CGContinue(NamedTuple):
         _cuda.cg_continue(handle, self.rn, self.tol2, self.it, self.max_iters)
 
 
+class CGContinueLanes(NamedTuple):
+    """CG's stopping test over lanes: any lane with ``(rn > tol2) & (it <
+    max_iters)``; ``rn`` and ``it`` have one entry per lane, ``tol2`` one
+    per lane or one for all."""
+
+    rn: torch.Tensor
+    tol2: torch.Tensor
+    it: torch.Tensor
+    max_iters: int
+
+    def plain(self) -> bool:
+        return bool(((self.rn > self.tol2) & (self.it < self.max_iters)).any())
+
+    def launch(self, handle: int) -> None:
+        _cuda.cg_continue_lanes(handle, self.rn, self.tol2, self.it,
+                                self.max_iters)
+
+
 def count_continue_plain(k, mode: int, limit: int, status=None,
                          want: int = 0) -> bool:
     """The plain version of the ``count_continue`` kernel: reset or advance
-    the counter ``k`` in place, then ``k < limit`` (and ``status == want``)."""
+    the counter ``k`` in place, then ``k < limit`` (and ``status == want``
+    for some lane of ``status``)."""
     if mode == RESET:
         k.fill_(0)
     elif mode == ADVANCE:
         k.add_(1)
     live = k < limit
     if status is not None:
-        live = live & (status == want)
+        live = live & (status == want).any()
     return bool(live)
 
 
 class Count(NamedTuple):
     """A counter reset or advanced, then ``k < limit`` (and, with a status,
-    ``status == want``)."""
+    ``status == want``; with a status per lane, for any lane)."""
 
     k: torch.Tensor
     mode: int
@@ -236,7 +255,8 @@ class _Captured:
 # ------------------------------------------------------- loops, branches
 def while_loop(cond, body, carry):
     """``while cond(carry): carry = body(carry)``; ``cond`` returns a
-    condition (:class:`CGContinue`, :class:`Count`, :class:`Flag`)."""
+    condition (:class:`CGContinue`, :class:`CGContinueLanes`,
+    :class:`Count`, :class:`Flag`)."""
     first = _first(carry)
     route = _route(first)
     if route is None:

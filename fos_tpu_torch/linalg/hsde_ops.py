@@ -20,6 +20,14 @@ kernels: :class:`~fos_tpu_torch.linalg.dense_pair.PaddedDenseOp`,
 :class:`~fos_tpu_torch.linalg.sparse_ell.BlockedEllOp`), a torch sparse
 COO tensor, or a dense tensor, whose products go to ``torch.matmul`` at
 full f32 (``fos_tpu_torch.config`` turns TF32 off).
+
+Every product takes a lane axis (:mod:`fos_tpu_torch.linalg.lanes`):
+vectors ``(B, k)`` against one A are B products, through an operator's
+hand kernel once per lane (the JAX package's ``vmap`` over a
+``pallas_call`` runs its kernel per lane too) or one ``torch.matmul`` for
+a tensor; a batched A ``(B, m, n)`` (a batched solve's instances) takes
+``torch.bmm``, or one ``torch.matmul`` when its instances share one
+matrix through a stride-0 batch axis (``expand``).
 """
 
 from __future__ import annotations
@@ -27,14 +35,38 @@ from __future__ import annotations
 import torch
 
 import fos_tpu_torch.config  # noqa: F401  (pins full-f32 matmuls)
+from fos_tpu_torch.linalg import lanes
 
 
 def _is_sparse(A) -> bool:
     return isinstance(A, torch.Tensor) and A.layout == torch.sparse_coo
 
 
+def _per_lane(fn, *xs):
+    """An operator's single-vector product applied lane by lane."""
+    return torch.stack([fn(*v) for v in zip(*xs)])
+
+
+def _lanes_mv(A, x, transpose):
+    """A @ x (or A' @ x) for vectors with a lane axis."""
+    if not isinstance(A, torch.Tensor):   # an operator
+        return _per_lane(A.rmv if transpose else A.mv, x)
+    if _is_sparse(A):
+        At = A.t() if transpose else A
+        return torch.sparse.mm(At, x.T).T
+    if A.dim() == 3:   # one matrix per lane
+        if A.stride(0) == 0:   # one matrix shared by every lane
+            A0 = A[0]
+            return torch.matmul(x, A0 if transpose else A0.T)
+        At = A.transpose(1, 2) if transpose else A
+        return torch.bmm(At, x[..., None])[..., 0]
+    return torch.matmul(x, A if transpose else A.T)
+
+
 def mv(A, x):
     """A @ x for a dense tensor, a sparse COO tensor or an operator."""
+    if x.dim() > 1:
+        return _lanes_mv(A, x, False)
     if hasattr(A, "mv"):
         return A.mv(x)
     if _is_sparse(A):
@@ -44,6 +76,8 @@ def mv(A, x):
 
 def rmv(A, y):
     """A' @ y for a dense tensor, a sparse COO tensor or an operator."""
+    if y.dim() > 1:
+        return _lanes_mv(A, y, True)
     if hasattr(A, "rmv"):
         return A.rmv(y)
     if _is_sparse(A):
@@ -53,28 +87,33 @@ def rmv(A, y):
 
 def mv_pair(A, x1, x2):
     """(A @ x1, A' @ x2); one pass over A where the operator has a fused
-    pair kernel."""
+    pair kernel (once per lane)."""
     if hasattr(A, "mv_pair"):
+        if x1.dim() > 1:
+            pairs = [A.mv_pair(u, v) for u, v in zip(x1, x2)]
+            return (torch.stack([p[0] for p in pairs]),
+                    torch.stack([p[1] for p in pairs]))
         return A.mv_pair(x1, x2)
     return mv(A, x1), rmv(A, x2)
 
 
 def q_mul(A, b, c, z, neg_cb=None):
-    """Q @ z, matrix-free: one (A x, A' z) pair plus rank-1 terms.
+    """Q @ z, matrix-free: one (A x, A' z) pair plus rank-1 terms; ``z``
+    may carry a lane axis, and ``A``, ``b``, ``c`` too (a batched form).
 
     ``neg_cb`` is ``-cat([c, b])``, which a caller applying Q many times
     precomputes: the last entry ``-c'z1 - b'z2`` is then one dot product.
     """
-    n = c.shape[0]
-    m = b.shape[0]
-    z1 = z[:n]
-    z2 = z[n: n + m]
-    z3 = z[n + m]
+    n = c.shape[-1]
+    m = b.shape[-1]
+    z1 = z[..., :n]
+    z2 = z[..., n: n + m]
+    z3 = lanes.per_lane(z[..., n + m], z1)
     Az1, ATz2 = mv_pair(A, z1, z2)
     if neg_cb is None:
-        neg_cb = -torch.cat([c, b])
-    y3 = torch.dot(neg_cb, z[: n + m])
-    return torch.cat([ATz2 + c * z3, b * z3 - Az1, y3[None]])
+        neg_cb = -torch.cat([c, b], -1)
+    y3 = lanes.vdot(neg_cb, z[..., : n + m])
+    return torch.cat([ATz2 + c * z3, b * z3 - Az1, y3[..., None]], -1)
 
 
 def q_dense(A, b, c):

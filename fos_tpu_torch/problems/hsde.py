@@ -25,7 +25,7 @@ from fos_tpu_torch.config import eps_of
 from fos_tpu_torch.cones.project import resolve_psd_method
 from fos_tpu_torch.cones.spec import Cone, ConeSpec, nonneg
 from fos_tpu_torch.linalg.affine import HSDEAffineProjector, _default_floor
-from fos_tpu_torch.linalg import hsde_ops
+from fos_tpu_torch.linalg import hsde_ops, lanes
 from fos_tpu_torch.problems.conic import ConicProblem
 from fos_tpu_torch.solvers.base import ConeSet, TwoSets
 from fos_tpu_torch.solvers.status import Status
@@ -273,8 +273,8 @@ class HSDEForm:
 
     def split(self, z):
         n, m, l = self.n, self.m, self.l
-        return (z[:n], z[n: n + m], z[l - 1], z[l: l + n],
-                z[l + n: l + n + m], z[2 * l - 1])
+        return (z[..., :n], z[..., n: n + m], z[..., l - 1], z[..., l: l + n],
+                z[..., l + n: l + n + m], z[..., 2 * l - 1])
 
     def check(self, z, eps: float, prev=None) -> HSDECheck:
         """SCS-style residual check (HSDEStatus.jl:27-71) on the device.
@@ -282,10 +282,13 @@ class HSDEForm:
         Keeps the reference arithmetic, including its normalise-twice quirk:
         the displayed residual is ``||.|| / (1 + ||b||)`` while the
         optimality test re-multiplies the tolerance by ``(1 + ||b||)``.
+        A ``z`` with a lane axis (a batched form) gets one value per lane
+        in every field.
         """
         x, y, tau, r, s, kappa = self.split(z)
         b, c = self.b, self.c
         nb, nc = self.norm_b, self.norm_c
+        tv = lanes.per_lane(tau, x)   # tau against the lanes' vectors
         Ax, ATy = hsde_ops.mv_pair(self.A, x, y)
         if self.compensated:
             # float-float: the gap numerator |c'x + b'y| cancels near the
@@ -299,15 +302,15 @@ class HSDEForm:
             gap_num = ff_add(ctx_ff, bty_ff)
             gap_num = torch.abs(gap_num[0] + gap_num[1])
         else:
-            _norm = torch.linalg.norm
-            ctx = torch.dot(c, x)
-            bty = torch.dot(b, y)
+            _norm = lanes.vnorm
+            ctx = lanes.vdot(c, x)
+            bty = lanes.vdot(b, y)
             gap_num = torch.abs(ctx + bty)
         # with equilibration the residuals are unscaled back to the original
         # problem (weights D^-1, E^-1); nb and nc are the original norms
         wp, wd = self._weigh_p, self._weigh_d
-        p = _norm(wp(Ax / tau + s / tau - b)) / (1.0 + nb)
-        d = _norm(wd(ATy / tau + c - r / tau)) / (1.0 + nc)
+        p = _norm(wp(Ax / tv + s / tv - b)) / (1.0 + nb)
+        d = _norm(wd(ATy / tv + c - r / tv)) / (1.0 + nc)
         gden = 1.0 + torch.abs(ctx / tau) + torch.abs(bty / tau)
         g = (gap_num / tau) / gden
 

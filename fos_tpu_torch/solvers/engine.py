@@ -26,7 +26,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from fos_tpu_torch.linalg import control
+from fos_tpu_torch.linalg import control, lanes
 from fos_tpu_torch.linalg.cg import CGState
 from fos_tpu_torch.solvers import graphs
 from fos_tpu_torch.solvers.base import SolverState, init_solver_state
@@ -426,7 +426,30 @@ def fused_solve(alg, form, x0, *, max_iters: int = 10000, eps: float = 1e-5,
     is ``budget_iters``, by default this call's ``max_iters`` plus the
     iterations already done (added on the device).  ``unroll`` is accepted
     for the JAX package's signature and has no effect.
+
+    An ``x0`` of shape ``(B, dim)`` on a batched form solves B instances at
+    once (the JAX package's ``vmap`` of this function): status, iteration
+    count, recovery and history are per lane, each lane's state freezes
+    when its status leaves :Continue, and the chunk loop runs while any
+    lane continues.
     """
+    return _fused_solve(alg, form, x0, False, max_iters=max_iters, eps=eps,
+                        checki=checki, record_history=record_history,
+                        resume_state=resume_state, budget_iters=budget_iters)
+
+
+def _fused_solve_eager(alg, form, x0, **kw) -> FusedResult:
+    """:func:`fused_solve` with its loops run eagerly on the card (the plain
+    version of the captured graph, which reads the host once per loop
+    pass).  Tests and ``chip_smoke.py`` compare the two; no solve path
+    calls it."""
+    kw.pop("unroll", None)
+    return _fused_solve(alg, form, x0, True, **kw)
+
+
+def _fused_solve(alg, form, x0, eager, *, max_iters=10000, eps=1e-5,
+                 checki=100, record_history=False, resume_state=None,
+                 budget_iters=None) -> FusedResult:
     nchunks, rem = divmod(max_iters, checki)
     floors = (form.fused_cg_floors()
               if hasattr(form, "fused_cg_floors") else None)
@@ -438,9 +461,11 @@ def fused_solve(alg, form, x0, *, max_iters: int = 10000, eps: float = 1e-5,
     recovery = (floors is not None and isinstance(st0.s1_state, CGState)
                 and hasattr(form, "gap_stalled_traced"))
     if recovery and resume_state is None:
+        lane = lanes.lane_shape(x0)
         st0 = st0._replace(s1_state=st0.s1_state._replace(
-            floor=torch.full((), floors[0], dtype=x0.dtype, device=x0.device),
-            win_score=torch.full((), math.inf, dtype=x0.dtype,
+            floor=torch.full(lane, floors[0], dtype=x0.dtype,
+                             device=x0.device),
+            win_score=torch.full(lane, math.inf, dtype=x0.dtype,
                                  device=x0.device)))
     i32 = dict(dtype=torch.int32, device=x0.device)
     if budget_iters is not None:
@@ -458,7 +483,7 @@ def fused_solve(alg, form, x0, *, max_iters: int = 10000, eps: float = 1e-5,
                       tight_floor=floors[1] if recovery else None,
                       plateau=plateau)
 
-    if not (st0.x.is_cuda and _graphable(form)):
+    if eager or not (st0.x.is_cuda and _graphable(form)):
         return solve(st0, budget)
     g = _graph(form, ("fused", alg, max_iters, eps, checki, record_history,
                       recovery, plateau), solve, (st0, budget))
@@ -470,9 +495,10 @@ def _fused(alg, form, st0, budget, *, nchunks, rem, checki, eps,
            record_history, tight_floor, plateau) -> FusedResult:
     """The body of :func:`fused_solve` (captured whole on the card)."""
     dtype, dev = st0.x.dtype, st0.x.device
+    lane = lanes.lane_shape(st0.x)
     ncols = len(form.CHECK._fields)
-    hist0 = (torch.zeros((nchunks + (1 if rem else 0), ncols), dtype=dtype,
-                         device=dev) if record_history
+    hist0 = (torch.zeros(lane + (nchunks + (1 if rem else 0), ncols),
+                         dtype=dtype, device=dev) if record_history
              else torch.zeros((0, 0), dtype=dtype, device=dev))
     W = getattr(form, "STALL_WINDOW", 10)
 
@@ -485,10 +511,11 @@ def _fused(alg, form, st0, budget, *, nchunks, rem, checki, eps,
         chk = form.check(st_new.z_check, eps, prev=st_new.z_check_prev)
         cont = status == Status.CONTINUE   # freeze once terminated
         if record_history:
-            row = torch.stack([v.to(dtype) for v in chk])
-            at = (torch.arange(hist.shape[0], device=dev) == k)[:, None]
-            hist = torch.where(at & cont, row[None, :], hist)
-        st = control.tree_map(lambda new, old: torch.where(cont, new, old),
+            row = torch.stack([v.to(dtype) for v in chk], -1)
+            at = (torch.arange(hist.shape[-2], device=dev) == k)[:, None]
+            hist = torch.where(at & lanes.per_lane(cont, hist),
+                               row[..., None, :], hist)
+        st = control.tree_map(lambda new, old: lanes.select(cont, new, old),
                               st_new, st)
         status = torch.where(cont, chk.status, status)
         if tight_floor is not None:
@@ -521,8 +548,8 @@ def _fused(alg, form, st0, budget, *, nchunks, rem, checki, eps,
         return st, status, k + 1, hist, stall
 
     i32 = dict(dtype=torch.int32, device=dev)
-    carry = (st0, torch.full((), Status.CONTINUE, **i32),
-             torch.zeros((), **i32), hist0, torch.zeros((), **i32))
+    carry = (st0, torch.full(lane, Status.CONTINUE, **i32),
+             torch.zeros((), **i32), hist0, torch.zeros(lane, **i32))
     st, status, k, hist, stall = control.while_loop(
         lambda c: control.Count(c[2], control.TEST, nchunks, c[1],
                                 Status.CONTINUE),

@@ -118,14 +118,33 @@ def test_psd_poly_matches_jax(dtype, tol, counts):
 
 
 def test_psd_poly_uniform_counts_alone():
-    """Either count alone selects the uniform schedule with the other at
-    its default (10 quintics, 12 cubics), where the JAX package raises on
-    quintic_iters alone and ignores cubic_iters alone."""
+    """A count given alone selects what the JAX package selects:
+    cubic_iters alone is ignored (the tuned schedule runs), quintic_iters
+    alone is refused with an error naming cubic_iters.  The port used to
+    run the uniform schedule for either count alone."""
     X = torch.from_numpy(_sym(np.random.default_rng(6), (), 16))
     both = tpoly(X, quintic_iters=10, cubic_iters=12)
-    assert torch.equal(tpoly(X, quintic_iters=10), both)
-    assert torch.equal(tpoly(X, cubic_iters=12), both)
-    assert not torch.equal(tpoly(X), both)
+    assert torch.equal(tpoly(X, cubic_iters=12), tpoly(X))
+    assert not torch.equal(tpoly(X, cubic_iters=12), both)
+    with pytest.raises(ValueError, match="cubic_iters"):
+        tpoly(X, quintic_iters=10)
+
+
+def test_psd_poly_schedule_selection_matches_jax():
+    """Each way of passing the counts against fos_tpu.cones.psd_poly at
+    f64, 1e-10 ||X||_2: none and cubic_iters alone (both the tuned
+    schedule), both counts (uniform); quintic_iters alone fails in both
+    packages (JAX inside its scan, the port with a ValueError)."""
+    X = _sym(np.random.default_rng(7), (2,), 24)
+    norm2 = np.linalg.norm(X, 2, axis=(-2, -1)).max()
+    for kw in ({}, dict(cubic_iters=5), dict(quintic_iters=6, cubic_iters=4)):
+        want = np.asarray(jpoly(jnp.asarray(X), **kw))
+        got = tpoly(torch.from_numpy(X), **kw).numpy()
+        assert np.abs(got - want).max() <= 1e-10 * norm2, kw
+    with pytest.raises(Exception):
+        jpoly(jnp.asarray(X), quintic_iters=6)
+    with pytest.raises(ValueError, match="cubic_iters"):
+        tpoly(torch.from_numpy(X), quintic_iters=6)
 
 
 def test_poly_project_keeps_f32_and_tf32_stays_off():

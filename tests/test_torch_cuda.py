@@ -551,3 +551,191 @@ def test_equilibrated_banded_lp_launches_k2(cuda):
     assert _cuda.device_launch_counts(reset=True)["band_mv_pair"] > 0
     assert sol.status == "Optimal" and sol.route == "graph"
     assert abs(sol.objval - opt) <= 1e-3 * abs(opt)
+
+
+# ------------------------------------------- the lane axis, wrappers, batches
+def _if_node(cuda, make):
+    """A graph whose IF node ``make()`` decides; returns ``taken()``."""
+    from fos_tpu_torch.linalg import control
+    from fos_tpu_torch.solvers import graphs
+
+    hit = torch.zeros((), dtype=torch.int32, device=cuda)
+
+    def fn(h):
+        control._Captured.if_(h, make, lambda: h.fill_(1))
+        return (h,)
+
+    g = graphs.Captured(fn, (hit,))
+    return lambda: bool(g(hit)[0])
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 1024])
+def test_cg_continue_lanes_sets_its_node(cuda, lanes):
+    """cg_continue_lanes (any lane with rn > tol2 and it < max_iters; tol2
+    shared or per lane, NaN included) and count_continue over a lane
+    status decide an IF node as their plain versions decide on the host,
+    and the lane kernel counts its launches on the device."""
+    from fos_tpu_torch.linalg import control
+
+    rng = np.random.default_rng(lanes)
+    rn = torch.zeros(lanes, device=cuda)
+    it = torch.zeros(lanes, dtype=torch.int32, device=cuda)
+    for tol2 in (torch.ones((), device=cuda), torch.ones(lanes, device=cuda)):
+        taken = _if_node(cuda, lambda: control.CGContinueLanes(rn, tol2, it,
+                                                               5))
+        _cuda.device_launch_counts(reset=True)
+        for trial in range(8):
+            rn.copy_(torch.as_tensor(rng.choice(
+                [0.0, 0.5, 2.0, np.nan], lanes).astype(np.float32)))
+            it.copy_(torch.as_tensor(rng.choice([0, 4, 5, 6], lanes)
+                                     .astype(np.int32)))
+            if trial % 2:
+                rn.fill_(0.5)
+            assert taken() == control.CGContinueLanes(rn, tol2, it,
+                                                      5).plain()
+        assert _cuda.device_launch_counts(reset=True)["cg_continue_lanes"] \
+            == 8
+    k = torch.zeros((), dtype=torch.int32, device=cuda)
+    status = torch.ones(lanes, dtype=torch.int32, device=cuda)
+    taken = _if_node(cuda, lambda: control.Count(k, control.TEST, 3, status,
+                                                 0))
+    for kv, live in ((0, 0), (0, 1), (2, lanes), (3, 1)):
+        status.fill_(1)
+        status[:live].fill_(0)
+        k.fill_(kv)
+        assert taken() == control.Count(k, control.TEST, 3, status, 0).plain()
+
+
+def _dense_lp_form(cuda, m=120, n=200):
+    from fos_tpu_torch import nonneg
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    rng = np.random.default_rng(4)
+    A = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
+    x0, y0, s0, r0 = _lp_vectors(rng, m, n)
+    return lambda: HSDEForm.build(conic_problem(
+        A, A @ x0 + s0, r0 - A.T @ y0, nonneg(m), nonneg(n), device=cuda),
+        pallas=True)
+
+
+def test_linesearch_step_k1_count(cuda):
+    """One LineSearch(DR) boundary step on a dense LP with pallas=True,
+    eagerly and replayed from a CUDA graph: K1's device counts equal each
+    other and the count the CG passes imply (the real projection's r0 pair
+    and 2 unroll pairs per pass, and per probe lane the same, the 31 lanes'
+    passes running to the slowest), with the same bits."""
+    from fos_tpu_torch import DR, LineSearchWrapper
+    from fos_tpu_torch.solvers import engine, graphs, wrappers
+    from fos_tpu_torch.solvers.base import init_solver_state
+
+    form = _dense_lp_form(cuda)()
+    alg = LineSearchWrapper(DR(), lsinterval=20)
+    sets, u = form.sets, form.sets.s1.cg_unroll
+    st = engine._run_steps(alg, form, init_solver_state(
+        alg, sets, form.initial_value(form.dtype)), 19, 0)
+    tmp2, s1 = alg.alg.relaxed_s1(sets, st.x, st.s1_state, st.aux)
+    _, x_new, _ = alg.alg.relaxed_s2(sets, tmp2, st.s2_state, st.aux)
+    cands = st.x[None] + wrappers.ls_alphas(st.x)[:, None] * (
+        x_new - st.x)[None]
+    _, probes = sets.s1.project(cands, s1)
+    passes = -(-probes.last_iters.cpu().numpy().max() // u)
+    implied = (1 + 2 * u * (-(-int(s1.last_iters) // u))
+               + 31 * (1 + 2 * u * int(passes)))
+    _cuda.device_launch_counts(reset=True)
+    eager = alg.step(sets, st, 19)
+    n_eager = _cuda.device_launch_counts(reset=True)["fused_matvec"]
+    form.prepare(st.x)
+    g = graphs.Captured(lambda s: (alg.step(sets, s, None),), (st,))
+    _cuda.device_launch_counts(reset=True)
+    out = g(st)[0]
+    counts = _cuda.device_launch_counts(reset=True)
+    assert implied == n_eager == counts["fused_matvec"] \
+        == counts["fused_matvec_sum"]
+    assert counts["cg_continue_lanes"] > 0
+    assert torch.equal(out.x, eager.x)
+
+
+@pytest.mark.parametrize("wrapper", ["linesearch", "anderson", "longstep"])
+def test_wrappers_through_graphs(cuda, wrapper):
+    """A wrapped DR solve through run's graphs and fused_solve (under sync
+    debug mode "error": the Anderson solve, the longstep FISTA loop and the
+    line search's lanes hold no host read) gives the eager route's status,
+    iterations and bits."""
+    from fos_tpu_torch import (DR, AndersonWrapper, LineSearchWrapper,
+                               LongstepWrapper)
+    from fos_tpu_torch.solvers import engine
+
+    alg = {"linesearch": LineSearchWrapper(DR(), lsinterval=20),
+           "anderson": AndersonWrapper(DR(), adaptive=False),
+           "longstep": LongstepWrapper(DR(), longinterval=20,
+                                       nsave=5)}[wrapper]
+    make = _dense_lp_form(cuda)
+    kw = dict(eps=1e-5, max_iters=300, checki=50, verbose=0)
+    eager = engine._run_eager(make(), alg, **kw)
+    graph = engine.run(make(), alg, **kw)
+    assert (graph.status, graph.iters) == (eager.status, eager.iters)
+    assert torch.equal(graph.guess, eager.guess)
+    form = make()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused = engine.fused_solve(alg, form, form.initial_value(form.dtype),
+                                   max_iters=300, eps=1e-5, checki=50)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(fused.iters) == eager.iters
+    assert torch.equal(fused.guess, eager.guess)
+
+
+def test_anderson_solve_captures(cuda):
+    """The Anderson k x k solve (pivoted elimination in tensor operations)
+    captured in a CUDA graph under sync debug mode "error" gives the eager
+    call's bits, and agrees with torch.linalg.solve."""
+    from fos_tpu_torch.solvers import graphs
+    from fos_tpu_torch.solvers.wrappers import _solve_small
+
+    rng = np.random.default_rng(9)
+    F = torch.as_tensor(rng.standard_normal((10, 300)), dtype=torch.float32,
+                        device=cuda)
+    M = F @ F.T
+    M = M / M.trace() + 1e-5 * torch.eye(10, device=cuda)
+    M[7, 7] += 1e30
+    rhs = torch.ones(10, device=cuda)
+    eager = _solve_small(M, rhs)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g = graphs.Captured(lambda a, b: (_solve_small(a, b),), (M, rhs))
+        got = g(M, rhs)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, eager)
+    want = torch.linalg.solve(M.double(), rhs.double()).float()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_solve_batched_routes_agree(cuda):
+    """solve_batched on 16 instances of 32 x 48: the captured fused graph
+    (under sync debug mode "error") and its loops run eagerly give equal
+    statuses, iterations, CG iterations and bits, per instance."""
+    from fos_tpu_torch import DR, build_batched_form, nonneg, solve_batched
+    from fos_tpu_torch.parallel import batched
+
+    rng = np.random.default_rng(6)
+    B, m, n = 16, 32, 48
+    A = rng.standard_normal((B, m, n)).astype(np.float32)
+    b = (np.einsum("bmn,bn->bm", A, np.abs(rng.standard_normal((B, n))))
+         + np.abs(rng.standard_normal((B, m)))).astype(np.float32)
+    c = np.abs(rng.standard_normal((B, n))).astype(np.float32)
+    form = build_batched_form(A, b, c, nonneg(m), nonneg(n), device=cuda)
+    kw = dict(max_iters=600, eps=1e-5, checki=100)
+    eager = batched._solve_batched_eager(DR(), form, **kw)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph = solve_batched(DR(), form, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(graph.status, eager.status)
+    assert torch.equal(graph.iters, eager.iters)
+    assert torch.equal(graph.state.s1_state.total_iters,
+                       eager.state.s1_state.total_iters)
+    assert torch.equal(graph.guess, eager.guess)

@@ -194,15 +194,22 @@ def test_bench_banded_lp_through_the_band_pair():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(refine=10), "refine"),
+    (dict(refine=10), None),
     (dict(epsilon=1e-3), "unknown"),
 ], ids=["refine", "unknown_option"])
 def test_unported_options_raise(kw, match):
-    """refine is not ported and a misspelled option is refused;
-    equilibrate and direct mode are ported (tests/test_torch_scaling_
-    direct.py)."""
+    """A misspelled option is refused.  ``refine`` is ported (its parity
+    with the JAX package: tests/test_torch_refine.py): here it continues an
+    f32 solve of the banded LP for its 10 iterations in f64, the counts of
+    both stages adding up; equilibrate and direct mode are ported too
+    (tests/test_torch_scaling_direct.py)."""
     A, b, c = _banded_lp()
     K = fos_tpu_torch.nonneg(512)
+    opts = dict(max_iters=10, verbose=0, device="cpu", dtype=torch.float32)
+    if match is None:
+        sol = fos_tpu_torch.solve(A.toarray(), b, c, K, K, **opts, **kw)
+        assert sol.x.dtype == torch.float64 and sol.iters == 20
+        assert bool(torch.isfinite(sol.raw_z).all())
+        return
     with pytest.raises((NotImplementedError, TypeError), match=match):
-        fos_tpu_torch.solve(A.toarray(), b, c, K, K, max_iters=10,
-                            verbose=0, device="cpu", **kw)
+        fos_tpu_torch.solve(A.toarray(), b, c, K, K, **opts, **kw)
