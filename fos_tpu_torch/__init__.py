@@ -15,7 +15,10 @@ caller asks for the CPU (``device="cpu"``):
 * the wrappers (:class:`LineSearchWrapper`, :class:`AndersonWrapper`,
   :class:`LongstepWrapper`), the batched solve (``build_batched_form``,
   ``solve_batched``) and the f64 refinement sweep (``solve(...,
-  refine=N)``).
+  refine=N)``);
+* implicit differentiation of the conic solve, :func:`diff_solve`: reverse
+  and forward mode through the DR/GAP fixed point, with K1's derivative
+  rules (``linalg/dense_pair.DensePairFn``) on the card.
 
 On CPU tensors the same functions run their plain PyTorch versions.  This
 package imports neither jax nor fos_tpu.
@@ -52,5 +55,6 @@ from fos_tpu_torch.sets import (  # noqa: F401
 from fos_tpu_torch.interface import solve, solve_feasibility  # noqa: F401
 from fos_tpu_torch.parallel.batched import (  # noqa: F401
     build_batched_form, form_initial_value, solve_batched)
+from fos_tpu_torch.diff import diff_solve  # noqa: F401
 
 __version__ = "0.1.0"

@@ -42,6 +42,7 @@ import torch
 from fos_tpu_torch.cones import exp as exp_cone
 from fos_tpu_torch.cones import pow as pow_cone
 from fos_tpu_torch.cones.spec import Cone, ConeSpec, psd_side_from_len
+from fos_tpu_torch.utils.autograd import differentiated
 
 _SQRT2 = math.sqrt(2.0)
 
@@ -237,13 +238,74 @@ def _rotate(vals, pos):
     return out
 
 
+def _eigh_project(X):
+    w, V = torch.linalg.eigh(X)
+    return torch.matmul(V * torch.clamp_min(w, 0.0)[..., None, :], V.mT), w, V
+
+
+def _divided_differences(w):
+    """The Daleckii-Krein matrix ``K_ij = (f(w_i) - f(w_j)) / (w_i - w_j)``
+    of ``f = max(., 0)``, with the symmetric subgradient ``(step(w_i) +
+    step(w_j)) / 2`` where two eigenvalues are equal to within ``100 eps
+    max(max|w|, 1)`` (a repeated eigenvalue, where eigh's own derivative
+    divides by zero)."""
+    f = torch.clamp_min(w, 0.0)
+    den = w[..., :, None] - w[..., None, :]
+    scale = torch.amax(torch.abs(w), dim=-1, keepdim=True)[..., None]
+    tiny = 100.0 * torch.finfo(w.dtype).eps
+    same = torch.abs(den) <= tiny * torch.clamp_min(scale, 1.0)
+    step = (w > 0.0).to(w.dtype)
+    avg = 0.5 * (step[..., :, None] + step[..., None, :])
+    num = f[..., :, None] - f[..., None, :]
+    return torch.where(same, avg, num / torch.where(same, 1.0, den))
+
+
+def _dk_apply(w, V, E):
+    """``V (K o (V' E V)) V'``: the projection's derivative along E, and
+    (K is symmetric) its adjoint."""
+    Et = torch.matmul(torch.matmul(V.mT, E), V)
+    return torch.matmul(torch.matmul(V, _divided_differences(w) * Et), V.mT)
+
+
+class PsdEighFn(torch.autograd.Function):
+    """The eigh projection with a degeneracy-safe derivative (the port of
+    the JAX package's ``custom_jvp`` on ``psd_project_eigh``): ``DP(X)[E] =
+    V (K o (V' E V)) V'`` with the divided differences of
+    :func:`_divided_differences`.  JAX transposes the JVP; here the backward
+    is the same map applied to the symmetrised cotangent.  Returns ``(P, w,
+    V)``; only P is differentiable."""
+
+    @staticmethod
+    def forward(X):
+        return _eigh_project(X)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, w, V = output
+        ctx.mark_non_differentiable(w, V)
+        ctx.save_for_backward(w, V)
+        ctx.save_for_forward(w, V)
+
+    @staticmethod
+    def backward(ctx, G, _gw, _gV):
+        w, V = ctx.saved_tensors
+        return _dk_apply(w, V, 0.5 * (G + G.mT))
+
+    @staticmethod
+    def jvp(ctx, E):
+        w, V = ctx.saved_tensors
+        return _dk_apply(w, V, E), None, None
+
+
 def psd_project_eigh(X):
     """Project symmetric ``X`` (..., d, d) onto the PSD cone by an
-    eigendecomposition: ``V max(w, 0) V'``.  (Forward only; the JAX
-    package's degeneracy-safe derivative belongs to the differentiation
-    module, not ported.)"""
-    w, V = torch.linalg.eigh(X)
-    return torch.matmul(V * torch.clamp_min(w, 0.0)[..., None, :], V.mT)
+    eigendecomposition: ``V max(w, 0) V'``.  Under autograd (a gradient or
+    a forward-mode tangent) it goes through :class:`PsdEighFn`, whose
+    derivative stays finite at repeated eigenvalues; otherwise the same
+    arithmetic runs directly."""
+    if differentiated(X):
+        return PsdEighFn.apply(X)[0]
+    return _eigh_project(X)[0]
 
 
 def _psd_project(X, psd_method):

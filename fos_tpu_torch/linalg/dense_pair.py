@@ -10,6 +10,16 @@ CPU tensor it runs :func:`fused_matvec_plain`, the same function in plain
 PyTorch.  A CUDA input the kernel does not take (not f32, not contiguous,
 mixed devices) raises; nothing falls back.
 
+The pair is differentiable through :class:`DensePairFn` (a
+``torch.autograd.Function``) whenever A, x1 or x2 needs a gradient or a
+forward-mode tangent is live; otherwise the kernel is called directly, so
+the solve's own path is unchanged.  The pair is its own adjoint: the
+backward is one more K1 call, ``K1(A, gz, gy) = (A gz, A' gy)`` with its
+outputs swapped, and A's cotangent ``gy x1' + x2 gz'`` is a rank-2 update
+formed only when A needs it; the forward-mode rule is ``K1(A, dx1, dx2) +
+K1(dA, x1, x2)``.  The TPU kernel has no derivative rule: the JAX package
+differentiates its plain XLA products instead.
+
 :class:`PaddedDenseOp` keeps the JAX package's name so that the
 counterpart is easy to find.  It pads nothing: the kernel masks its ragged
 edges.
@@ -21,6 +31,7 @@ import torch
 
 import fos_tpu_torch.config  # noqa: F401  (pins full-f32 matmuls)
 from fos_tpu_torch.linalg import _cuda
+from fos_tpu_torch.utils.autograd import differentiated
 
 
 def fused_matvec_plain(A, x1, x2):
@@ -63,20 +74,84 @@ class DensePair:
         return y, z
 
 
+def _launch(A, pair, x1, x2):
+    """The pair of plain tensors: the bound kernel, or on the CPU the plain
+    version (never on a CUDA A)."""
+    if pair is None:
+        if A.device.type != "cpu":
+            raise ValueError(f"fused_matvec: no kernel bound to the "
+                             f"{A.device} matrix")
+        return fused_matvec_plain(A, x1, x2)
+    y, z = pair(x1.contiguous(), x2.contiguous())
+    return y, z
+
+
+class DensePairFn(torch.autograd.Function):
+    """``(A @ x1, A' @ x2)`` with K1's derivative rules.
+
+    ``pair`` is K1 bound to A (:class:`DensePair`), or None on the CPU,
+    where the plain version runs.  Reverse: ``(g_x1, g_x2) = (A' gy,
+    A gz)``, one K1 call; ``g_A = gy x1' + x2 gz'`` only when A needs it.
+    Forward: ``K1(A, dx1, dx2) + K1(dA, x1, x2)``, the second term only
+    when A carries a tangent (``dA`` binds through :func:`fused_matvec`).
+    The backward goes through this Function again, so it can itself be
+    differentiated."""
+
+    @staticmethod
+    def forward(A, x1, x2, pair):
+        return _launch(A, pair, x1, x2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        A, x1, x2, pair = inputs
+        ctx.pair = pair
+        ctx.save_for_backward(A, x1, x2)
+        ctx.save_for_forward(A, x1, x2)
+
+    @staticmethod
+    def backward(ctx, gy, gz):
+        A, x1, x2 = ctx.saved_tensors
+        need_A, need_1, need_2 = ctx.needs_input_grad[:3]
+        g_A = g_1 = g_2 = None
+        if need_1 or need_2:
+            g_2, g_1 = DensePairFn.apply(A, gz, gy, ctx.pair)
+        if need_A:
+            g_A = torch.addr(torch.outer(gy, x1), x2, gz)
+        return g_A, g_1, g_2, None
+
+    @staticmethod
+    def jvp(ctx, dA, dx1, dx2, _):
+        A, x1, x2 = ctx.saved_tensors
+        dy = dz = None
+        if dx1 is not None or dx2 is not None:
+            dy, dz = _launch(A, ctx.pair,
+                             torch.zeros_like(x1) if dx1 is None else dx1,
+                             torch.zeros_like(x2) if dx2 is None else dx2)
+        if dA is not None:
+            ey, ez = fused_matvec(dA.contiguous(), x1, x2)
+            dy, dz = (ey, ez) if dy is None else (dy + ey, dz + ez)
+        return dy, dz
+
+
 def fused_matvec(A, x1, x2):
     """(A @ x1, A' @ x2) from one pass over A.
 
     A: (M, N); x1: (N,); x2: (M,).  On the card all f32 and contiguous.
+    Differentiable (:class:`DensePairFn`).
     """
     M, N = A.shape
     if tuple(x1.shape) != (N,) or tuple(x2.shape) != (M,):
         raise ValueError(
             f"fused_matvec: A {tuple(A.shape)}, x1 {tuple(x1.shape)}, "
             f"x2 {tuple(x2.shape)}")
-    if all(t.device.type == "cpu" for t in (A, x1, x2)):
+    pair = None
+    if not all(t.device.type == "cpu" for t in (A, x1, x2)):
+        pair = _cuda.bound_kernel(("fused_matvec", _cuda.operand_key(A)),
+                                  lambda: DensePair(A))
+    if differentiated(A, x1, x2):
+        return DensePairFn.apply(A, x1, x2, pair)
+    if pair is None:
         return fused_matvec_plain(A, x1, x2)
-    pair = _cuda.bound_kernel(("fused_matvec", _cuda.operand_key(A)),
-                              lambda: DensePair(A))
     return pair(x1, x2)
 
 
@@ -84,7 +159,9 @@ class PaddedDenseOp:
     """Dense A serving the fused pair through K1 and the single products
     through ``torch.matmul``; a duck-typed drop-in for the raw tensor in
     :mod:`fos_tpu_torch.linalg.hsde_ops`.  On a CUDA A the kernel is bound
-    when the op is made (:class:`DensePair`)."""
+    when the op is made (:class:`DensePair`).  ``mv_pair`` is
+    differentiable in A, x1 and x2 (:class:`DensePairFn`); ``mv`` and
+    ``rmv`` are ``torch.matmul``."""
 
     def __init__(self, A):
         self.A = A
@@ -121,6 +198,8 @@ class PaddedDenseOp:
         return self.A.device
 
     def mv_pair(self, x1, x2):
+        if differentiated(self.A, x1, x2):
+            return DensePairFn.apply(self.A, x1, x2, self._pair)
         if self._pair is None:
             return fused_matvec_plain(self.A, x1, x2)
         return self._pair(x1, x2)

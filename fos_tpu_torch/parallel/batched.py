@@ -35,14 +35,17 @@ def _batched(v, device):
 
 
 def build_batched_form(A, b, c, K1: ConeSpec, K2: ConeSpec, *, direct=False,
-                       cg_max_iters: int = 1000, device=None) -> HSDEForm:
+                       cg_max_iters: int = 1000, device=None,
+                       psd_method: str = "auto",
+                       cg_tol_floor: float = None) -> HSDEForm:
     """A ``(B, m, n)``, b ``(B, m)``, c ``(B, n)``: one :class:`HSDEForm`
     whose arrays carry a leading instance axis.  A dense A; a tensor A
     expanded from one ``(m, n)`` matrix (``A0.expand(B, m, n)``) stays that
     one matrix in memory, and its products are one ``torch.matmul`` for
     all instances.  ``direct`` factors ``[I; Q_i]`` of every instance on
     the host in f64 (a ``(B, 2l, l)`` factor).  The data keep their dtype
-    and live on ``device`` (default: the card)."""
+    and live on ``device`` (default: the card).  ``psd_method`` and
+    ``cg_tol_floor`` as for :meth:`HSDEForm.build`."""
     device = default_device(device)
     A, b, c = (_batched(v, device) for v in (A, b, c))
     if A.dim() != 3 or b.dim() != 2 or c.dim() != 2:
@@ -59,8 +62,8 @@ def build_batched_form(A, b, c, K1: ConeSpec, K2: ConeSpec, *, direct=False,
         fac = _ls_projection_fac(Q, eye_first=True, dtype=b.dtype,
                                  device=device)
     s1 = HSDEAffineProjector(A, b, c, fac, decreasing_accuracy=not direct,
-                             cg_max_iters=cg_max_iters)
-    s2 = ConeSet(hsde_cone_spec(K1, K2), resolve_psd_method("auto", device))
+                             cg_max_iters=cg_max_iters, tol_floor=cg_tol_floor)
+    s2 = ConeSet(hsde_cone_spec(K1, K2), resolve_psd_method(psd_method, device))
     # compensated check reductions for f32 batches, as the single build
     norms = (torch.linalg.vector_norm(v, dim=-1) for v in (b, c))
     return HSDEForm(TwoSets(s1, s2), A, b, c, *norms, n, m,

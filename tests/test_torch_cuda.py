@@ -739,3 +739,79 @@ def test_solve_batched_routes_agree(cuda):
     assert torch.equal(graph.state.s1_state.total_iters,
                        eager.state.s1_state.total_iters)
     assert torch.equal(graph.guess, eager.guess)
+
+
+# K1's derivative rules (DensePairFn): the shapes of the first test, the
+# 1000^2 LP's and the tile-counting ones
+@pytest.mark.parametrize("M,N", [(1000, 1000), (33, 129), (1, 4000),
+                                 (4000, 1), (5000, 300), (300, 5000)])
+def test_dense_pair_derivative_rules(cuda, M, N):
+    """backward (with and without A's cotangent; one K1 call, one launch of
+    each of its kernels, for the vectors' cotangents) and jvp (with and
+    without dA) against the plain version under autograd on the card."""
+    import torch.autograd.forward_ad as fwAD
+    from fos_tpu_torch.linalg.dense_pair import DensePairFn
+
+    A, x1, x2 = _dense(M, N, cuda)
+    g = torch.Generator(device="cpu").manual_seed(M + 31 * N)
+    gz, dx1, gy, dx2 = (torch.randn(k, generator=g).to(cuda)
+                        for k in (N, N, M, M))
+    dA = torch.randn(M, N, generator=g).to(cuda)
+    for need_A in (False, True):
+        Ar = A.detach().requires_grad_(need_A)
+        v1, v2 = x1.detach().requires_grad_(), x2.detach().requires_grad_()
+        y, z = PaddedDenseOp(Ar).mv_pair(v1, v2)
+        assert type(y.grad_fn).__name__ == "DensePairFnBackward"
+        ins = (Ar, v1, v2) if need_A else (v1, v2)
+        _cuda.device_launch_counts(reset=True)
+        got = torch.autograd.grad((y, z), ins, (gy, gz))
+        counts = _cuda.device_launch_counts(reset=True)
+        assert counts["fused_matvec"] == counts["fused_matvec_sum"] == 1
+        want = torch.autograd.grad(fused_matvec_plain(Ar, v1, v2), ins,
+                                   (gy, gz))
+        _close(got, want)
+    for with_dA in (False, True):
+        with fwAD.dual_level():
+            Ad = fwAD.make_dual(A, dA) if with_dA else A
+            y, z = PaddedDenseOp(Ad).mv_pair(fwAD.make_dual(x1, dx1),
+                                             fwAD.make_dual(x2, dx2))
+            got = (fwAD.unpack_dual(y).tangent, fwAD.unpack_dual(z).tangent)
+        want = fused_matvec_plain(A, dx1, dx2)
+        if with_dA:
+            want = tuple(w + e for w, e in
+                         zip(want, fused_matvec_plain(dA, x1, x2)))
+        _close(got, want)
+    # the Function's forward launches the kernel, never the plain version
+    before = _cuda.LAUNCHES["fused_matvec"]
+    DensePairFn.apply(A, x1.detach().requires_grad_(), x2,
+                      PaddedDenseOp(A)._pair)
+    assert _cuda.LAUNCHES["fused_matvec"] == before + 1
+
+
+def test_diff_solve_envelope_f32_through_k1(cuda):
+    """diff_solve on the card in f32 through K1 (pallas=True, DR) with the
+    f32 options (fos_tpu_torch/diff.py's note), on a 200x300 LP with a
+    known optimum where DR reaches its fixed point (the orthogonal-basis
+    construction of fos_tpu_torch/tools/lps.py; the Gaussian-basis one of
+    tests/test_diff.py stops short of its optimum at this size: see
+    tests/test_torch_diff_conditioning.py): the envelope identities within
+    1e-3 (1 + ||x0|| + ||y0||), and K1 launched by the backward."""
+    from fos_tpu_torch import DR, diff_solve, nonneg
+    from fos_tpu_torch.tools.lps import orthogonal_basis_lp
+
+    m, n = 200, 300
+    A, b, c, x0, y0 = orthogonal_basis_lp(np.random.default_rng(0), m, n, 67)
+    data = [torch.tensor(t, dtype=torch.float32, device=cuda,
+                         requires_grad=True) for t in (A, b, c)]
+    x, y, _ = diff_solve(*data, nonneg(m), nonneg(n), alg=DR(), pallas=True,
+                         device=cuda, eps=1e-6, max_iters=40000,
+                         diff_cg_tol=1e-6, adjoint_tol=1e-6,
+                         adjoint_iters=300, adjoint_damping=1e-8)
+    _cuda.device_launch_counts(reset=True)
+    gA, gb, gc = (g.double().cpu().numpy() for g in torch.autograd.grad(
+        torch.dot(data[2], x), data))
+    assert _cuda.device_launch_counts(reset=True)["fused_matvec"] > 0
+    scale = 1.0 + np.abs(x0).max() + np.abs(y0).max()
+    assert np.abs(gc - x0).max() <= 1e-3 * scale
+    assert np.abs(gb + y0).max() <= 1e-3 * scale
+    assert np.abs(gA - np.outer(y0, x0)).max() <= 1e-3 * scale
