@@ -76,9 +76,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    line-search step against the count its CG passes imply (exact).
    ``wrappers_feasibility``: LineSearch(AP) and Longstep(DR) through K4,
    LineSearch(DR) through K5, per probe lane (routes, Optimal, residual).
-   ``batched_lp_128`` / ``_1024``: bench.py's batched LPs, every instance
-   Optimal (the 1024 at a smaller budget: the instances that stop) and
-   within 1e-3 of HiGHS, segments and routes equal.
+   ``batched_lp_128`` / ``_1024``: bench.py's batched LPs at a
+   12000-iteration budget (a floor of Optimal instances gated; the
+   instances that stop within 1e-3 of HiGHS), segments and routes equal.
    ``batched_sdp_64``: 64 lambda-min SDPs sharing one stride-0 A.
    Route agreement in phases 5 and 6 runs at a smaller depth where a
    repeated solve would cost minutes (the constants say which);
@@ -95,7 +95,30 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ``diff_gaussian_basis_lp``: tests/test_diff.py's LP at 1000^2 through
    K1 with a cut derivative budget, gated on K1's launches and finite
    gradients (DR stops short of its optimum); ``diff_batched_lp``: 64 LPs
-   differentiated at once, per-lane gradient gated.
+   differentiated at once, per-lane gradient gated;
+9. ``front_end``: the front end (the SCS/MathProgBase interface, the
+   modeling DSL, checkpoints and the examples) driving K1-K3 from modeled
+   data, f32.  ``front_solve_lp``: phase 2's dense LP through ``solve_lp``
+   (K1), gated equal to phase 2's solve in status, iterations and bits,
+   then phase 2's continuation and objective gate.
+   ``front_load_problem_banded``: phase 2's banded LP as scipy CSR through
+   ``load_problem`` with MathProgBase cone lists, routed to BandedBlockOp
+   (K2).  ``front_dsl_sparse_lp``: the same LP in the DSL (``A @ x <= b,
+   x >= 0``, A scipy CSR), lowered to a 65536 x 32768 CSR that the build
+   routes to BlockedEllOp (K3), gated on the certificate and on host f64
+   residuals.  ``front_dsl_lasso``: bench.py's 1000x1000 lasso data as
+   ``0.5 * sum_squares(A @ x - b) + lam * norm1(x)``, densified on the card
+   with ``pallas=True`` (K1), gated against a host FISTA oracle.  A DSL
+   cell that stops short of its gates at eps 1e-5 continues to eps 1e-6
+   from its iterate (phase 2's continuation) and says so in its line.
+   ``front_checkpoint``: 300 GAPA iterations on the dense LP (K1),
+   ``save_state``/``load_state`` on the card, resumed to Optimal within
+   1e-5 (1 + |f|) of a straight-through solve.  ``front_examples``: the
+   ten port examples and ``lasso.main_dsl`` on the card, each asserting its
+   own oracle.  Each cell's line gives the lowering, build and solve
+   seconds, iterations and it/s, the status and the gate's numbers, the
+   operator the build chose and the A shape that reached it, and each
+   kernel's device launch count over the cell.
 
 Each kernel counts its launches on the device (``_cuda.
 device_launch_counts``), graph replays included: the counts are zeroed
@@ -105,10 +128,11 @@ launched by its path; these are the ``launches`` of the kernels line
 (phase 6's counts of K1-K3, the kernels of its path, are
 ``launches_cones_path``; phase 7's, of every kernel, ``launches_phase7``,
 gated > 0 for K1, K4, K5 and the lane condition ``cg_continue_lanes``,
-whose path it is; phase 8's, ``launches_phase8``, gated > 0 for K1).  The line before the kernels line gives each phase's
-seconds.  The
-wrappers' host counts (``_cuda.LAUNCHES``) count the calls that launched
-or captured a kernel (``captured_calls``): a replay calls no wrapper.
+whose path it is; phase 8's, ``launches_phase8``, gated > 0 for K1;
+phase 9's, ``launches_phase9``, gated > 0 for K1, K2 and K3).  The line
+before the kernels line gives each phase's seconds.  The wrappers' host
+counts (``_cuda.LAUNCHES``) count the calls that launched or captured a
+kernel (``captured_calls``): a replay calls no wrapper.
 The line before the last lists the kernels; the last line is the run's
 result.  Needs one CUDA card; fails without one.
 """
@@ -1403,16 +1427,17 @@ WRAPPER_FEAS_CHECKI = 1000
 # batched LPs: bench.py:846-873's recipe, B x (64 x 96), numpy seeds, the
 # budget of each cell (the loop runs until the slowest instance stops,
 # tens of thousands of iterations: PERF.md) and its gate, the least number
-# of instances Optimal within the budget: the 128 instances run to Optimal,
-# all gated; the 1024 instances at a smaller depth (their whole solve took
-# ~283 s of the script's time to its slowest instance's 60000 iterations),
-# gated on a floor under the 239 Optimal by 12000 that two runs measured
-# (NVIDIA H100 80GB HBM3, 700 W), every other instance still running; the
+# of instances Optimal within the budget.  Both cells run at a smaller
+# depth than their whole solves (the 128 instances' took ~137 s to the
+# slowest one's 51800 iterations, the 1024's ~283 s to 60000), each gated
+# on a floor under what was measured at its budget (NVIDIA H100 80GB
+# HBM3, 700 W: 46 of 128 and 239 of 1024 Optimal by 12000), every other
+# instance still running; the
 # segment length and the budget over which segments are held to the
 # single run (a whole second solve of the 1024 instances takes longer than
 # this script may); the route-agreement and rate budget; the objective
 # gate against host f64 HiGHS, |obj - f*| <= 1e-3 (1 + |f*|)
-BATCHED_LP_CELLS = ((128, 13, 60000, 128), (1024, 17, 12000, 230))
+BATCHED_LP_CELLS = ((128, 13, 12000, 44), (1024, 17, 12000, 230))
 BATCHED_LP_SHAPE = (64, 96)
 BATCHED_SEGMENT = 1000
 BATCHED_SEGMENT_CHECK = 3000
@@ -1637,9 +1662,8 @@ def batched_lp_cells(dev):
     """batched_lp_128 / batched_lp_1024: DR in one ``solve_batched`` (a
     lane axis through fused_solve, one captured graph) at eps = 1e-5, with
     each cell's budget.  Gates: at least the cell's ``min_optimal``
-    instances Optimal (all 128 of the first cell; a floor under what was
-    measured at the 1024 cell's smaller budget), every other one still
-    running, every Optimal objective within 1e-3 (1 + |f*|)
+    instances Optimal (a floor under what was measured at the cell's
+    budget), every other one still running, every Optimal objective within 1e-3 (1 + |f*|)
     of a host f64 HiGHS solve; over the first BATCHED_SEGMENT_CHECK
     iterations, 1000-iteration segments give the single run's statuses,
     counts and bits (every instance that no segment boundary stopped); the
@@ -2175,6 +2199,457 @@ def diff_phase(dev, A1, A4):
     return totals, k1
 
 
+# ------------------------------------------------------------- phase 9
+# the front end: the SCS/MathProgBase interface, the modeling DSL,
+# checkpoints and the examples, driving K1-K3 from modeled data.
+# front_dsl_lasso: bench.py:235-313's SOCP-lasso data (seed 3, m = n = 1000,
+# A / sqrt(m), a 10% support, noise 0.01, lam = 0.1 max|A'b|, f32) in the
+# form of examples/lasso.py's main_dsl; its oracle, FISTA on the host in f64,
+# stops when its objective moves less than LASSO_ORACLE_RTOL relative
+LASSO_SHAPE = (1000, 1000)
+LASSO_SEED = 3
+LASSO_ORACLE_RTOL = 1e-9
+FRONT_BUDGET = 20000
+# front_dsl_sparse_lp's feasibility gate, in f64 on the host:
+# max(Ax - b)+ and max(-x)+ <= FRONT_RESID (1 + ||b||_inf)
+FRONT_RESID = 1e-4
+# front_checkpoint: GAPA iterations before the checkpoint
+CHECKPOINT_ITERS = 300
+CHECKPOINT_GATE = 1e-5
+# front_examples: the arguments of tests/test_torch_examples.py (sizes for
+# the CPU), except sparse_banded, which runs at its default on the card
+# (m = 4096, the size the JAX package's example takes off the CPU)
+EXAMPLE_ARGS = {
+    "batched_scenario_lps": dict(B=2, m=6, n=10),
+    "lasso": dict(m=20, n=40),
+    "nnls": dict(m=12, n=8),
+    "parametric_sweep": dict(steps=2, m=8, n=12),
+    "portfolio": dict(n=20, k=3),
+    "portfolio_modeling": dict(n=20, k=3, gammas=(1.0, 5.0)),
+    "youla": dict(nq=4, nt=10),
+}
+EXAMPLES = ("batched_scenario_lps", "differentiable_lp", "lasso", "nnls",
+            "parametric_sweep", "portfolio", "portfolio_modeling",
+            "sdp_min_eigenvalue", "sparse_banded", "youla")
+
+
+@contextlib.contextmanager
+def spied(owner, name):
+    """Record every call of ``owner.name`` made inside the block as
+    (host seconds to a synchronised card, result, positional arguments);
+    the call itself runs unchanged.  A classmethod stays one."""
+    import torch
+
+    raw = owner.__dict__[name]
+    fn = raw.__func__ if isinstance(raw, classmethod) else raw
+    calls = []
+
+    def spy(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, out, args))
+        return out
+
+    setattr(owner, name, classmethod(spy) if isinstance(raw, classmethod)
+            else spy)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, raw)
+
+
+def _built(builds):
+    """The operator one form build chose, the shape that reached it and
+    the build's seconds (the cell's solve builds exactly one form)."""
+    if len(builds) != 1:
+        raise AssertionError(f"expected one form build, got {len(builds)}")
+    secs, form, _ = builds[0]
+    return {"operator": type(form.A).__name__,
+            "operator_shape": list(form.A.shape), "build_seconds": secs}
+
+
+def _launches(counts):
+    return {k: counts[k] for k in ("fused_matvec", "fused_matvec_sum",
+                                   "band_mv_pair", "bell_mv_pair")}
+
+
+def _solve_row(sol, secs, build):
+    """Seconds, iterations and rate of a solve whose form build is in
+    ``build`` (the solve's seconds exclude the build's)."""
+    solve_s = secs - build["build_seconds"]
+    return {"status": sol.status, "iters": sol.iters, "seconds": secs,
+            "solve_seconds": solve_s, "iters_per_s": sol.iters / solve_s,
+            "obj": sol.objval}
+
+
+def lasso_data(m, n, seed=LASSO_SEED):
+    """bench.py's socp_lasso_bench data (numpy seed 3): A, b in f32 and
+    lam = 0.1 max|A'b|."""
+    rng = np.random.default_rng(seed)
+    A = (rng.standard_normal((m, n)) / np.sqrt(m)).astype(np.float32)
+    xstar = rng.standard_normal(n) * (rng.random(n) < 0.1)
+    b = (A @ xstar + 0.01 * rng.standard_normal(m)).astype(np.float32)
+    lam = float(0.1 * np.max(np.abs(A.T @ b)))
+    return A, b, lam
+
+
+def lasso_objective(A, b, lam, x):
+    return float(0.5 * np.sum((A @ x - b) ** 2) + lam * np.abs(x).sum())
+
+
+def lasso_oracle(A, b, lam, rtol=LASSO_ORACLE_RTOL, max_iters=200000):
+    """min 0.5 ||Ax - b||^2 + lam ||x||_1 on the host in f64: proximal
+    gradient (examples/lasso.py's ISTA oracle) accelerated as FISTA, until
+    the objective moves less than ``rtol`` relative.  Returns (objective,
+    iterations)."""
+    A = np.asarray(A, np.float64)
+    b = np.asarray(b, np.float64)
+    L = np.linalg.norm(A, 2) ** 2
+    x = y = np.zeros(A.shape[1])
+    t, f_old = 1.0, math.inf
+    for k in range(1, max_iters + 1):
+        g = A.T @ (A @ y - b)
+        z = y - g / L
+        x_new = np.sign(z) * np.maximum(np.abs(z) - lam / L, 0.0)
+        t_new = (1.0 + math.sqrt(1.0 + 4.0 * t * t)) / 2.0
+        y = x_new + (t - 1.0) / t_new * (x_new - x)
+        x, t = x_new, t_new
+        f = lasso_objective(A, b, lam, x)
+        if abs(f_old - f) <= rtol * abs(f):
+            return f, k
+        f_old = f
+    raise AssertionError(f"lasso oracle: no convergence in {max_iters}")
+
+
+def front_solve_lp(dev, A1, b1, c1, opt1, dense_ref, totals):
+    """front_solve_lp: phase 2's 1000x1000 certificate LP through
+    ``solve_lp(c, A_ub=A, b_ub=b, ...)`` with phase 2's options: the same
+    form (PaddedDenseOp, K1), so the same status, iterations and final
+    iterate bits as phase 2's ``solve``; then phase 2's continuation to eps
+    1e-6 and its 1e-3 objective gate."""
+    import torch
+    from fos_tpu_torch import DR, solve_lp
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    opts = dict(alg=DR(), dtype=torch.float32, pallas=True, device=dev,
+                verbose=0)
+    counted(totals)
+    with spied(HSDEForm, "build") as builds:
+        sol, secs = timed_solve(lambda: solve_lp(c1, A_ub=A1, b_ub=b1,
+                                                 eps=GATE_EPS, **opts))
+    counts = counted(totals)
+    build = _built(builds)
+    same = {"status_equal": sol.status == dense_ref.status,
+            "iters_equal": sol.iters == dense_ref.iters,
+            "bit_equal": bool(torch.equal(sol.raw_z, dense_ref.raw_z))}
+    cont, cont_s = timed_solve(lambda: solve_lp(
+        c1, A_ub=A1, b_ub=b1, eps=GATE_EPS / 10, max_iters=10000,
+        warm_start=sol, **opts))
+    cont_counts = counted(totals)
+    rel = abs(cont.objval - opt1) / abs(opt1)
+    row = {"phase": "front_solve_lp", "shape": list(A1.shape),
+           "eps": GATE_EPS, **build, **_solve_row(sol, secs, build),
+           "phase2_iters": dense_ref.iters, **same,
+           "continued": {"eps": GATE_EPS / 10, "status": cont.status,
+                         "iters": cont.iters, "seconds": cont_s,
+                         "obj": cont.objval, "obj_certificate": opt1,
+                         "rel_obj_err": rel,
+                         "fused_matvec_launches": cont_counts["fused_matvec"]},
+           "launches": _launches(counts)}
+    emit(row)
+    if (not all(same.values()) or build["operator"] != "PaddedDenseOp"
+            or counts["fused_matvec"] == 0 or cont.status != "Optimal"
+            or rel > GATE_OBJ):
+        raise AssertionError(f"front_solve_lp: {row}")
+
+
+def front_load_problem_banded(dev, band, unscaled_iters, totals):
+    """front_load_problem_banded: phase 2's 32768^2 block-tridiagonal LP as
+    scipy CSR through ``load_problem`` with MathProgBase cone lists, then
+    ``solve(problem=...)``: the build routes it to BandedBlockOp (K2).
+    Gate: Optimal at eps 1e-5 within 1e-3 of the certificate, K2 launched;
+    iterations beside phase 2's."""
+    from fos_tpu_torch import DR, load_problem, solve
+    from fos_tpu_torch.linalg.sparse_ell import (band_span_ratio,
+                                                 bell_storage_ratio)
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    blocks, slots, b, c, opt = band
+    t0 = time.perf_counter()
+    A = tile_coo(blocks, slots).tocsr()
+    csr_s = time.perf_counter() - t0
+    m, n = A.shape
+    ratios = {"bell_storage_ratio": bell_storage_ratio(A),
+              "band_span_ratio": band_span_ratio(A)}
+    t0 = time.perf_counter()
+    prob = load_problem(c.cpu().numpy(), A, b.cpu().numpy(),
+                        [("NonNeg", range(m))], [("NonNeg", range(n))],
+                        device=dev)
+    load_s = time.perf_counter() - t0
+    counted(totals)
+    with spied(HSDEForm, "build") as builds:
+        sol, secs = timed_solve(lambda: solve(
+            problem=prob, alg=DR(), eps=GATE_EPS, max_iters=10000,
+            verbose=0))
+    counts = counted(totals)
+    build = _built(builds)
+    rel = abs(sol.objval - opt) / abs(opt)
+    row = {"phase": "front_load_problem_banded", "shape": [m, n],
+           "nnz": int(A.nnz), "eps": GATE_EPS, "host_csr_seconds": csr_s,
+           "load_problem_seconds": load_s, **ratios, **build,
+           **_solve_row(sol, secs, build), "obj_certificate": opt,
+           "rel_obj_err": rel, "phase2_iters": unscaled_iters,
+           "iters_reference": REFERENCE_ITERS["banded_lp"],
+           "launches": _launches(counts)}
+    emit(row)
+    if (sol.status != "Optimal" or rel > GATE_OBJ
+            or build["operator"] != "BandedBlockOp"
+            or counts["band_mv_pair"] == 0):
+        raise AssertionError(f"front_load_problem_banded: {row}")
+
+
+def _dsl_solve(prob, dev, totals, measure, **opts):
+    """``prob.solve`` with DR in f32 at eps 1e-5 on ``dev``; where f32 DR
+    stops short of the cell's gates there, phase 2's continuation: the
+    same solve at eps 1e-6 warm-started from its iterate (queue 3, item 2
+    of ROADMAP.md).  ``measure(sol)`` returns (the gates' numbers, whether
+    they hold).  Returns the rows of the attempts and the lowered data."""
+    import torch
+    from fos_tpu_torch import DR
+    from fos_tpu_torch.interface import conic
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    rows, warm = [], None
+    for eps in (GATE_EPS, GATE_EPS / 10):
+        counted(totals)
+        with spied(HSDEForm, "build") as builds, \
+                spied(conic, "solve_scs") as scs:
+            sol, secs = timed_solve(lambda: prob.solve(
+                alg=DR(), dtype=torch.float32, eps=eps,
+                max_iters=FRONT_BUDGET, verbose=0, device=dev,
+                warm_start=warm, **opts))
+        counts = counted(totals)
+        build = _built(builds)
+        gates, ok = measure(sol)
+        rows.append({"eps": eps, "lowering_seconds": secs - scs[0][0],
+                     **build, **_solve_row(sol, scs[0][0], build),
+                     "value": prob.value, **gates, "gates_met": ok,
+                     "launches": _launches(counts)})
+        if ok:
+            break
+        warm = sol
+    return rows, scs[0][2][0]
+
+
+def front_dsl_sparse_lp(dev, band, totals):
+    """front_dsl_sparse_lp: the same table and certificate in the DSL,
+    ``minimize(c @ x)`` subject to ``A @ x <= b, x >= 0``: the lowering
+    emits [A; -I] as CSR (65536 x 32768, 8.6 GB dense: over the 4 GiB
+    densify limit), whose -I tiles sit far from the band, so the build picks
+    BlockedEllOp (K3).  Gates: Optimal; the objective within 1e-3 (1 +
+    |f*|) of the certificate; in f64 on the host max(Ax - b)+ and max(-x)+
+    <= 1e-4 (1 + ||b||_inf); K3 launched."""
+    from fos_tpu_torch import Problem, Variable, minimize
+    from fos_tpu_torch.linalg.sparse_ell import (band_span_ratio,
+                                                 bell_storage_ratio)
+
+    blocks, slots, b, c, opt = band
+    A = tile_coo(blocks, slots).tocsr().astype(np.float64)
+    bh = b.cpu().numpy().astype(np.float64)
+    ch = c.cpu().numpy().astype(np.float64)
+    m, n = A.shape
+    x = Variable(n)
+    prob = Problem(minimize(ch @ x), [A @ x <= bh, x >= 0])
+    resid_gate = FRONT_RESID * (1.0 + float(np.abs(bh).max()))
+
+    def measure(sol):
+        xv = np.asarray(x.value, np.float64)
+        resid = max(float(np.maximum(A @ xv - bh, 0.0).max()),
+                    float(np.maximum(-xv, 0.0).max()))
+        err = abs(prob.value - opt) / (1.0 + abs(opt))
+        return ({"obj_certificate": opt, "obj_err_scaled": err,
+                 "resid": resid, "resid_gate": resid_gate},
+                sol.status == "Optimal" and err <= GATE_OBJ
+                and resid <= resid_gate)
+
+    rows, data = _dsl_solve(prob, dev, totals, measure)
+    row = {"phase": "front_dsl_sparse_lp", "shape": [m, n],
+           "emitted_shape": list(data["A"].shape),
+           "emitted_nnz": int(data["A"].nnz),
+           "bell_storage_ratio": bell_storage_ratio(data["A"]),
+           "band_span_ratio": band_span_ratio(data["A"]), **rows[0],
+           "continued": rows[1] if len(rows) > 1 else None}
+    emit(row)
+    if (not rows[-1]["gates_met"] or rows[0]["operator"] != "BlockedEllOp"
+            or tuple(data["A"].shape) != (2 * m, n)
+            or any(r["launches"]["bell_mv_pair"] == 0 for r in rows)):
+        raise AssertionError(f"front_dsl_sparse_lp: {row}")
+
+
+def front_dsl_lasso(dev, totals):
+    """front_dsl_lasso: ``minimize(0.5 * sum_squares(A @ x - b) + lam *
+    norm1(x))`` on bench.py's 1000x1000 lasso data: the lowering emits a
+    3002 x 2001 CSR (over _DENSIFY_CELLS), the build densifies it on the
+    card and ``pallas=True`` gives PaddedDenseOp (K1).  Gates: Optimal, the
+    lasso objective at x within 1e-3 (1 + |f*|) of the host FISTA oracle,
+    K1 launched."""
+    from fos_tpu_torch import Problem, Variable, minimize, norm1, sum_squares
+
+    m, n = LASSO_SHAPE
+    A, b, lam = lasso_data(m, n)
+    A64, b64 = A.astype(np.float64), b.astype(np.float64)
+    t0 = time.perf_counter()
+    ref, ref_iters = lasso_oracle(A64, b64, lam)
+    oracle_s = time.perf_counter() - t0
+    x = Variable(n)
+    prob = Problem(minimize(0.5 * sum_squares(A @ x - b) + lam * norm1(x)))
+
+    def measure(sol):
+        obj = lasso_objective(A64, b64, lam, np.asarray(x.value, np.float64))
+        err = abs(obj - ref) / (1.0 + abs(ref))
+        return ({"lasso_obj": obj, "oracle_obj": ref,
+                 "obj_err_scaled": err},
+                sol.status == "Optimal" and err <= GATE_OBJ)
+
+    rows, data = _dsl_solve(prob, dev, totals, measure, pallas=True)
+    row = {"phase": "front_dsl_lasso", "shape": [m, n], "lam": lam,
+           "emitted_shape": list(data["A"].shape),
+           "emitted_sparse": not isinstance(data["A"], np.ndarray),
+           "oracle_iters": ref_iters, "oracle_seconds": oracle_s, **rows[0],
+           "continued": rows[1] if len(rows) > 1 else None}
+    emit(row)
+    if (not rows[-1]["gates_met"] or rows[0]["operator"] != "PaddedDenseOp"
+            or any(r["launches"]["fused_matvec"] == 0 for r in rows)):
+        raise AssertionError(f"front_dsl_lasso: {row}")
+
+
+def front_checkpoint(dev, A1, b1, c1, totals):
+    """front_checkpoint: phase 2's dense LP with GAPA and pallas=True (K1,
+    the graph route): CHECKPOINT_ITERS iterations, ``save_state``,
+    ``load_state`` into ``init_solver_state``'s template on the card, then
+    ``run(resume_state=...)`` to Optimal.  Gate: the resumed objective
+    within 1e-5 (1 + |f|) of a straight-through solve (the contract of
+    tests/test_checkpoint.py); bit equality printed."""
+    import os
+    import tempfile
+
+    import torch
+    from fos_tpu_torch import GAPA, nonneg
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm, populate_solution
+    from fos_tpu_torch.solvers import engine
+    from fos_tpu_torch.solvers.base import init_solver_state
+    from fos_tpu_torch.utils.checkpoint import _leaves, load_state, save_state
+
+    N = A1.shape[0]
+    # GAPA(0.8, 0.9), as phase 6's SDP cells: with its defaults GAPA
+    # stalls on this LP in f32 at eps 1e-5 (the JAX package, CPU, f32:
+    # Indeterminate at 20000 iterations; with (0.8, 0.9) Optimal at 800)
+    form = HSDEForm.build(conic_problem(A1, b1, c1, nonneg(N), nonneg(N),
+                                        device=dev, dtype=torch.float32),
+                          pallas=True)
+    alg = GAPA(0.8, 0.9)
+    opts = dict(eps=GATE_EPS, checki=100, verbose=0)
+    counted(totals)
+    first, first_s = timed_solve(lambda: engine.run(
+        form, alg, max_iters=CHECKPOINT_ITERS, **opts))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        t0 = time.perf_counter()
+        save_state(path, first.state)
+        save_s = time.perf_counter() - t0
+        template = init_solver_state(alg, form.sets,
+                                     form.initial_value(form.dtype))
+        t0 = time.perf_counter()
+        restored = load_state(path, template)
+        load_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+    leaves_equal = all(
+        torch.equal(a, b) and a.device == b.device
+        for a, b in zip(_leaves(restored), _leaves(first.state)))
+    resumed, resumed_s = timed_solve(lambda: engine.run(
+        form, alg, resume_state=restored, max_iters=FRONT_BUDGET, **opts))
+    straight, straight_s = timed_solve(lambda: engine.run(
+        fresh(form), alg, max_iters=FRONT_BUDGET, **opts))
+    counts = counted(totals)
+
+    def objval(res):
+        return populate_solution(form, res.guess, res.status,
+                                 res.iters).objval
+
+    f_res, f_str = objval(resumed), objval(straight)
+    diff = abs(f_res - f_str) / (1.0 + abs(f_str))
+    row = {"phase": "front_checkpoint", "shape": [N, N], "alg": repr(alg),
+           "eps": GATE_EPS, "checkpoint_iters": CHECKPOINT_ITERS,
+           "first_status": first.status, "first_seconds": first_s,
+           "save_seconds": save_s, "load_seconds": load_s,
+           "file_bytes": file_bytes, "leaves_equal": leaves_equal,
+           "resumed": {"status": resumed.status, "iters": resumed.iters,
+                       "seconds": resumed_s, "obj": f_res},
+           "straight": {"status": straight.status, "iters": straight.iters,
+                        "seconds": straight_s, "obj": f_str},
+           "obj_diff_scaled": diff,
+           "bit_equal": bool(torch.equal(resumed.guess, straight.guess)),
+           "operator": type(form.A).__name__, "launches": _launches(counts)}
+    emit(row)
+    if (resumed.status != 1 or straight.status != 1 or not leaves_equal
+            or diff > CHECKPOINT_GATE or counts["fused_matvec"] == 0):
+        raise AssertionError(f"front_checkpoint: {row}")
+
+
+def front_examples(dev, totals):
+    """front_examples: the ten examples of fos_tpu_torch/examples through
+    ``main(device=dev)``, at EXAMPLE_ARGS, and
+    ``lasso.main_dsl``; each asserts its own oracle.  Seconds per
+    example."""
+    import importlib
+    import io
+
+    counted(totals)
+    rows = {}
+    runs = [(name, "main", EXAMPLE_ARGS.get(name, {})) for name in EXAMPLES]
+    runs.append(("lasso", "main_dsl", EXAMPLE_ARGS["lasso"]))
+    for name, fn, kwargs in runs:
+        mod = importlib.import_module(f"fos_tpu_torch.examples.{name}")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            getattr(mod, fn)(device=dev, **kwargs)
+        rows[f"{name}.{fn}"] = {
+            "seconds": time.perf_counter() - t0,
+            "last_line": out.getvalue().strip().splitlines()[-1]}
+    counts = counted(totals)
+    emit({"phase": "front_examples", "examples": rows,
+          "launches": _launches(counts)})
+
+
+def front_end_phase(dev, A1, b1, c1, opt1, dense_ref, band, unscaled_iters):
+    """Phase 9 (this slice's path): the front end.  The device's counts are
+    zeroed before each cell and read after it; returns their sums."""
+    from fos_tpu_torch.linalg import _cuda
+
+    _cuda.device_launch_counts(reset=True)
+    totals = collections.Counter()
+    clock = [time.perf_counter()]
+    cells = (("front_solve_lp", lambda: front_solve_lp(
+                 dev, A1, b1, c1, opt1, dense_ref, totals)),
+             ("front_load_problem_banded", lambda: front_load_problem_banded(
+                 dev, band, unscaled_iters, totals)),
+             ("front_dsl_sparse_lp", lambda: front_dsl_sparse_lp(
+                 dev, band, totals)),
+             ("front_dsl_lasso", lambda: front_dsl_lasso(dev, totals)),
+             ("front_checkpoint", lambda: front_checkpoint(
+                 dev, A1, b1, c1, totals)),
+             ("front_examples", lambda: front_examples(dev, totals)))
+    for _, cell in cells:
+        cell()
+        clock.append(time.perf_counter())
+    emit({"phase": "front_end_timing", "seconds": dict(zip(
+        (name for name, _ in cells), np.diff(clock).tolist()))})
+    return totals
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -2422,6 +2897,7 @@ def main() -> int:
     sol, secs = timed_solve(lambda: solve(
         A1, b1, c1, nonneg(N1), nonneg(N1), alg=DR(), eps=GATE_EPS,
         dtype=f32, pallas=True, device=dev, verbose=0))
+    dense_ref = sol     # phase 9's solve_lp is held to this solve's bits
     rel = abs(sol.objval - opt1) / abs(opt1)
     emit({"phase": "dense_lp", "shape": [N1, N1], "eps": GATE_EPS,
           "status": sol.status, "iters": sol.iters, "seconds": secs,
@@ -2715,6 +3191,20 @@ def main() -> int:
         raise AssertionError(f"phase 8 did not launch K1: "
                              f"{dict(diff_counts)}")
 
+    clock.append(("phase9", time.perf_counter()))
+    # --- phase 9: the front end (this slice's path), with the device's
+    # launch counts zeroed before each of its cells
+    front_counts = front_end_phase(
+        dev, A1, b1, c1, opt1, dense_ref,
+        (blk_band, band_slots, b_band, c_band, opt_band),
+        lp_iters["equilibrated_banded_lp"])
+    for name in kernels:
+        kernels[name]["launches_phase9"] = front_counts[name]
+    if not all(front_counts[k] for k in ("fused_matvec", "band_mv_pair",
+                                         "bell_mv_pair")):
+        raise AssertionError(f"phase 9 did not launch K1, K2 and K3: "
+                             f"{dict(front_counts)}")
+
     clock.append(("end", time.perf_counter()))
     emit({"phase": "timing", "seconds": {
         name: t1 - t0 for (name, t0), (_, t1) in zip(clock, clock[1:])},
@@ -2724,7 +3214,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "plain_device_ms", "captured_calls", "sum_launches",
             "shape", "max_rel_err", "deterministic", "launches_cones_path",
-            "launches_phase7", "launches_phase8", "backward_ms")
+            "launches_phase7", "launches_phase8", "launches_phase9",
+            "backward_ms")
     emit({"kernels": [{k: e.get(k) for k in keys}
                       for e in ({"name": name, "route": "cuda", **entry}
                                 for name, entry in kernels.items())]})

@@ -18,7 +18,14 @@ caller asks for the CPU (``device="cpu"``):
   refine=N)``);
 * implicit differentiation of the conic solve, :func:`diff_solve`: reverse
   and forward mode through the DR/GAP fixed point, with K1's derivative
-  rules (``linalg/dense_pair.DensePairFn``) on the card.
+  rules (``linalg/dense_pair.DensePairFn``) on the card;
+* the front end: the MathProgBase-style and SCS-style entry points
+  (:func:`load_problem`, :func:`solve_scs`, :func:`solve_lp`), the modeling
+  DSL (:class:`Variable`, :class:`Problem`, :func:`minimize`, the atoms;
+  ``fos_tpu_torch.modeling``), the CVXPY seam (:func:`solve_conic_data`,
+  :func:`register_with_cvxpy`), checkpoints (``utils/checkpoint.py``) and
+  the examples (``fos_tpu_torch/examples``).  Options such as
+  ``dtype=torch.float32`` and ``pallas=True`` pass through to ``solve``.
 
 On CPU tensors the same functions run their plain PyTorch versions.  This
 package imports neither jax nor fos_tpu.
@@ -26,6 +33,11 @@ package imports neither jax nor fos_tpu.
     from fos_tpu_torch import solve, DR, nonneg
     sol = solve(A, b, c, nonneg(m), nonneg(n), alg=DR(), eps=1e-5,
                 dtype=torch.float32, pallas=True)
+
+    from fos_tpu_torch import Problem, Variable, minimize, norm1, sum_squares
+    x = Variable(n)
+    prob = Problem(minimize(0.5 * sum_squares(A @ x - b) + lam * norm1(x)))
+    prob.solve(alg=DR(), eps=1e-5, dtype=torch.float32, pallas=True)
 """
 
 from fos_tpu_torch import config as config  # noqa: F401  (pins full-f32 matmuls)
@@ -52,9 +64,14 @@ from fos_tpu_torch.linalg.sparse_ell import BandedBlockOp, BlockedEllOp  # noqa:
 from fos_tpu_torch.sets import (  # noqa: F401
     AffineSet, Ball, BlockSet, Box, ConeSet, FunctionSet, Halfspace, NonNeg,
     NonPos, Point)
-from fos_tpu_torch.interface import solve, solve_feasibility  # noqa: F401
+from fos_tpu_torch.interface import (  # noqa: F401
+    load_problem, register_with_cvxpy, solve, solve_conic_data,
+    solve_feasibility, solve_lp, solve_scs, supported_cones)
 from fos_tpu_torch.parallel.batched import (  # noqa: F401
     build_batched_form, form_initial_value, solve_batched)
 from fos_tpu_torch.diff import diff_solve  # noqa: F401
+from fos_tpu_torch.modeling import (  # noqa: F401
+    ExpCone, PowCone, Problem, Variable, maximize, minimize, norm1, norm2,
+    norm_inf, quad_form, sum_squares, trace)
 
 __version__ = "0.1.0"

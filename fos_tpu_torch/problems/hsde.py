@@ -491,9 +491,12 @@ class HSDEForm:
         last projection's CG count read with them (else read from ``st``)."""
         from fos_tpu_torch.utils import printing
 
+        # IEEE division, as the JAX package's device scalars divide: a check
+        # at tau = 0 prints inf (or nan), it does not raise
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ratio = float(np.float64(chk.kappa) / np.float64(chk.tau))
         return printing.hsde_row(i, chk.p, chk.d, chk.g, chk.ctx, chk.bty,
-                                 chk.kappa / chk.tau, t_s,
-                                 cgiter=self._cgiter(st, cgiter))
+                                 ratio, t_s, cgiter=self._cgiter(st, cgiter))
 
     def record(self, hist, st, chk: HSDECheck, i: int, t_s: float, debug: int,
                extra=None, cgiter=None):

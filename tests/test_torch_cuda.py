@@ -815,3 +815,90 @@ def test_diff_solve_envelope_f32_through_k1(cuda):
     assert np.abs(gc - x0).max() <= 1e-3 * scale
     assert np.abs(gb + y0).max() <= 1e-3 * scale
     assert np.abs(gA - np.outer(y0, x0)).max() <= 1e-3 * scale
+
+
+# --------------------------------------------------------------- front end
+def test_modeled_lasso_through_k1(cuda):
+    """A lasso written in the DSL, solved on the card in f32 with
+    pallas=True: the dense lowering becomes PaddedDenseOp and K1 runs;
+    the objective within 1e-3 (1 + |f*|) of proximal gradient on the host
+    in f64 (examples/lasso.py's oracle)."""
+    from fos_tpu_torch import (DR, Problem, Variable, minimize, norm1,
+                               sum_squares)
+    from fos_tpu_torch.examples.lasso import ista
+
+    rng = np.random.default_rng(3)
+    m = n = 200
+    A = rng.standard_normal((m, n)) / np.sqrt(m)
+    b = A @ (rng.standard_normal(n) * (rng.random(n) < 0.1)) \
+        + 0.01 * rng.standard_normal(m)
+    lam = 0.1 * float(np.abs(A.T @ b).max())
+    x = Variable(n)
+    prob = Problem(minimize(0.5 * sum_squares(A @ x - b) + lam * norm1(x)))
+    _cuda.device_launch_counts(reset=True)
+    sol = prob.solve(alg=DR(), dtype=torch.float32, pallas=True, eps=1e-5,
+                     max_iters=20000, verbose=0)
+    counts = _cuda.device_launch_counts(reset=True)
+    assert sol.x.is_cuda and prob.status == "Optimal"
+    assert counts["fused_matvec"] > 0
+    assert counts["fused_matvec"] == counts["fused_matvec_sum"]
+    xs = x.value
+    obj = 0.5 * np.sum((A @ xs - b) ** 2) + lam * np.abs(xs).sum()
+    ref = ista(A, b, lam)
+    assert abs(obj - ref) <= 1e-3 * (1 + abs(ref))
+
+
+def test_solve_lp_bit_equal_to_solve(cuda):
+    """solve_lp stacks A on the host and builds the form solve builds:
+    the same status, iterations and final iterate bits through K1."""
+    from fos_tpu_torch import DR, nonneg, solve, solve_lp
+
+    rng = np.random.default_rng(7)
+    m, n = 200, 300
+    A = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
+    x0, y0, s0, r0 = _lp_vectors(rng, m, n)
+    b, c = A @ x0 + s0, r0 - A.T @ y0
+    opts = dict(alg=DR(), eps=1e-5, dtype=torch.float32, pallas=True,
+                verbose=0, device=cuda)
+    ref = solve(A, b, c, nonneg(m), nonneg(n), **opts)
+    got = solve_lp(c, A_ub=A, b_ub=b, **opts)
+    assert ref.status == "Optimal"
+    assert (got.status, got.iters) == (ref.status, ref.iters)
+    assert torch.equal(got.raw_z, ref.raw_z)
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """save_state / load_state of a CUDA state: every leaf back on the card
+    in its dtype and bits, and the resumed GAPA solve within 1e-5 (1 + |f|)
+    of a straight-through one."""
+    from fos_tpu_torch import GAPA, nonneg
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm, populate_solution
+    from fos_tpu_torch.solvers import engine
+    from fos_tpu_torch.solvers.base import init_solver_state
+    from fos_tpu_torch.utils.checkpoint import _leaves, load_state, save_state
+
+    rng = np.random.default_rng(11)
+    m, n = 200, 300
+    A = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
+    x0, y0, s0, r0 = _lp_vectors(rng, m, n)
+    form = HSDEForm.build(conic_problem(A, A @ x0 + s0, r0 - A.T @ y0,
+                                        nonneg(m), nonneg(n), device=cuda),
+                          pallas=True)
+    alg = GAPA(0.8, 0.9)
+    opts = dict(eps=1e-5, checki=100, verbose=0)
+    first = engine.run(form, alg, max_iters=300, **opts)
+    path = str(tmp_path / "state.npz")
+    save_state(path, first.state)
+    restored = load_state(path, init_solver_state(
+        alg, form.sets, form.initial_value(form.dtype)))
+    for got, want in zip(_leaves(restored), _leaves(first.state)):
+        assert got.is_cuda and got.dtype == want.dtype
+        assert torch.equal(got, want)
+    resumed = engine.run(form, alg, resume_state=restored, max_iters=20000,
+                         **opts)
+    straight = engine.run(form, alg, max_iters=20000, **opts)
+    f = [populate_solution(form, r.guess, r.status, r.iters).objval
+         for r in (resumed, straight)]
+    assert resumed.status == straight.status == 1
+    assert abs(f[0] - f[1]) <= 1e-5 * (1 + abs(f[1]))
