@@ -18,7 +18,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    two dense shapes and at the tile-counting shapes of the card tests,
    with a 100-call bit repeat in which the device counts each of its two
    kernels (the tile kernel and its ordered sum) once per call, each
-   kernel's device time, and a CUDA-graph replay; K2/K3 (the pairs);
+   kernel's device time, and a CUDA-graph replay, beside two cuBLAS calls
+   (``torch.mv(A, x1)``, ``torch.mv(A.T, x2)``); K1 over lanes at 1000^2
+   and two edge shapes for 1, 2 and 31 lanes (each lane bit-equal to a
+   single call, one launch of each lane kernel) and, at 31 lanes, its
+   time replayed from a graph against 31 single calls' (gated at 1/5)
+   beside the lane-batched cuBLAS pair; K2/K3 (the pairs);
    K4/K5 over the A tables (``mv``) and the A' tables (``rmv``), against a
    block-sparse ``torch.sparse_bsr_tensor`` matvec; the SOC/rotated-SOC
    projection run twice on the card (bit-equal) against the CPU;
@@ -72,8 +77,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    eps = 1e-5 in f32 through K1, then an f64 sweep from its iterate
    (gated: 100x closer to the certificate, no K1 launch).
    ``wrappers_dense_lp``: DR, LineSearch, Anderson and Longstep through
-   the three routes (gated equal), and K1's device count over one
-   line-search step against the count its CG passes imply (exact).
+   the three routes (gated equal), and K1's device counts over one
+   line-search step against the counts its CG passes imply (exact): single
+   calls for the real projection, lane calls for the 31 probe lanes.
    ``wrappers_feasibility``: LineSearch(AP) and Longstep(DR) through K4,
    LineSearch(DR) through K5, per probe lane (routes, Optimal, residual).
    ``batched_lp_128`` / ``_1024``: bench.py's batched LPs at a
@@ -127,9 +133,10 @@ of its solves, for that solve's count), and every kernel must have been
 launched by its path; these are the ``launches`` of the kernels line
 (phase 6's counts of K1-K3, the kernels of its path, are
 ``launches_cones_path``; phase 7's, of every kernel, ``launches_phase7``,
-gated > 0 for K1, K4, K5 and the lane condition ``cg_continue_lanes``,
-whose path it is; phase 8's, ``launches_phase8``, gated > 0 for K1;
-phase 9's, ``launches_phase9``, gated > 0 for K1, K2 and K3).  The line
+gated > 0 for K1, K4, K5, and for K1 over lanes and the lane condition
+``cg_continue_lanes``, whose path it is and whose ``launches`` it gives;
+phase 8's, ``launches_phase8``, gated > 0 for K1; phase 9's,
+``launches_phase9``, gated > 0 for K1, K2 and K3).  The line
 before the kernels line gives each phase's seconds.  The wrappers' host
 counts (``_cuda.LAUNCHES``) count the calls that launched or captured a
 kernel (``captured_calls``): a replay calls no wrapper.
@@ -179,6 +186,16 @@ NRB = 256           # block rows of the sparse LPs: 32768 x 32768
 K1_EDGE_SHAPES = ((1, 4000), (4000, 1), (5000, 300), (300, 5000))
 K1_KERNELS_PER_CALL = 2   # the tile kernel and its ordered sum
 K1_REPEATS = 100
+# K1 over lanes: the line search's candidate steps (fos_tpu/solvers/
+# wrappers.py: 31 alphas), the lane counts held bit-equal to single calls,
+# the shapes (phase 1's names) where they are, and the gate, at the dense
+# LP's 1000^2, on one lane call's time over that of LINESEARCH_LANES single
+# calls (both replayed from graphs)
+LINESEARCH_LANES = 31
+K1_LANE_COUNTS = (1, 2, LINESEARCH_LANES)
+K1_LANE_SHAPES = ("fused_matvec", "fused_matvec_5000x300",
+                  "fused_matvec_300x5000")
+K1_LANES_OVER_SINGLES = 0.2
 LAUNCH_ROUTE_TARGET = 1.3   # P1 per call in a chain / torch's tiny multiply
 # iterations of the same solves at commit 2d6fc2b (on an NVIDIA H100 80GB
 # HBM3, 700 W), printed beside this run's: a changed sum order in a pair
@@ -517,6 +534,80 @@ def library_mv(blocks, col_of_slot, counts, ncols, dev):
                                   (nrb * TILE, ncols * TILE))
     return lambda x: bsr @ x
 
+
+
+def k1_lanes(name, A, op, dev):
+    """K1 over lanes (``PaddedDenseOp.mv_pair`` on (B, k) vectors: one
+    launch of the lane tile kernel and one of its sum) at phase 1's shape
+    ``name``: for each of K1_LANE_COUNTS lanes, as rows of a larger state
+    (q_mul's slices), lane b bit-equal to the single-vector K1 on lane b's
+    vectors and within tolerance of the plain version, one launch of each
+    lane kernel counted on the device; then, at LINESEARCH_LANES lanes, its
+    time per call replayed from a CUDA graph (bit-equal) against that of
+    LINESEARCH_LANES single calls (gated at K1_LANES_OVER_SINGLES at the
+    dense LP's 1000^2, printed at the edge shapes), the
+    profiler's device times of both, its bound and the lane-batched cuBLAS
+    pair.  Returns the LINESEARCH_LANES row."""
+    import torch
+    from fos_tpu_torch.linalg import _cuda
+    from fos_tpu_torch.linalg.dense_pair import fused_matvec_lanes_plain
+
+    M, N = A.shape
+    g = np.random.default_rng(M * 7 + N)
+    out = {}
+    for B in K1_LANE_COUNTS:
+        state = torch.as_tensor(g.standard_normal(
+            (B, N + M + 1), dtype=np.float32), device=dev)
+        X1, X2 = state[:, :N], state[:, N:N + M]
+        res = compare(f"{name}_lanes_{B}", lambda: op.mv_pair(X1, X2),
+                      lambda: fused_matvec_lanes_plain(A, X1, X2))
+        _cuda.device_launch_counts(reset=True)
+        Y, Z = op.mv_pair(X1, X2)
+        counts = _cuda.device_launch_counts(reset=True)
+        singles = [op.mv_pair(X1[b], X2[b]) for b in range(B)]
+        res["bit_equal_to_single"] = all(
+            torch.equal(Y[b], y) and torch.equal(Z[b], z)
+            for b, (y, z) in enumerate(singles))
+        res["launches_per_call"] = {
+            k: counts[k] for k in ("fused_matvec_lanes",
+                                   "fused_matvec_lanes_sum", "fused_matvec",
+                                   "fused_matvec_sum")}
+        res.update(bound(4 * (M * N + 2 * B * (M + N)), 4 * B * M * N))
+        if B == LINESEARCH_LANES:
+            # the sum is a programmatic dependent launch: its blocks start
+            # while the tiles run and wait, so the profiler's durations
+            # overlap; a graph replay's time per call does not
+            (res["profiler_kernels_per_call"], res["device_ms_by_kernel"],
+             _) = kernel_breakdown(lambda: op.mv_pair(X1, X2))
+            res["graph_us"], replayed = graph_us(lambda: op.mv_pair(X1, X2))
+            res["graph_bit_equal"] = all(
+                torch.equal(a, b) for a, b in zip(replayed, (Y, Z)))
+            res["singles_device_ms"] = device_ms(lambda: [
+                op.mv_pair(X1[b], X2[b]) for b in range(B)])
+            res["singles_graph_us"], _ = graph_us(lambda: [
+                op.mv_pair(X1[b], X2[b]) for b in range(B)], calls=10)
+            res["lanes_over_singles"] = (res["graph_us"]
+                                         / res["singles_graph_us"])
+            Xc1, Xc2 = X1.contiguous(), X2.contiguous()
+            res["library"] = "torch.matmul(X1, A.T), torch.matmul(X2, A)"
+            res["library_ms"] = median_ms(
+                lambda: (torch.matmul(Xc1, A.T), torch.matmul(Xc2, A)))
+            res["library_device_ms"] = device_ms(
+                lambda: (torch.matmul(Xc1, A.T), torch.matmul(Xc2, A)))
+            res["share_of_bound"] = res["bound_ms"] * 1e3 / res["graph_us"]
+        emit({"phase": "kernel", "name": "fused_matvec_lanes",
+              "shape": [B, M, N], **res})
+        if (not res["bit_equal_to_single"] or not res["deterministic"]
+                or res["launches_per_call"] != {
+                    "fused_matvec_lanes": 1, "fused_matvec_lanes_sum": 1,
+                    "fused_matvec": 0, "fused_matvec_sum": 0}
+                or res.get("graph_bit_equal") is False
+                or (name == "fused_matvec"
+                    and res.get("lanes_over_singles", 0)
+                    > K1_LANES_OVER_SINGLES)):
+            raise AssertionError(f"{name} over {B} lanes: {res}")
+        out = res
+    return out
 
 
 # ------------------------------------------------------------ graph route
@@ -1497,12 +1588,14 @@ def refine_dense_lp(dev, totals):
 
 
 def linesearch_k1_count(form, interval, totals):
-    """K1's device count over one LineSearch(DR) boundary step of the dense
-    LP, eager and replayed from a CUDA graph, against the count the step's
-    CG passes imply: the real projection's pair for r0 plus 2 unroll pairs
-    per pass, and per probe lane the same, the 31 lanes' passes running to
-    the slowest lane (``it_j`` CG iterations take ceil(it_j / unroll)
-    passes).  Those counts come from the step's pieces run eagerly first."""
+    """K1's device counts over one LineSearch(DR) boundary step of the
+    dense LP, eager and replayed from a CUDA graph, against the counts the
+    step's CG passes imply: single-vector calls for the real projection
+    (its pair for r0 plus 2 unroll pairs per pass), and lane calls for the
+    31 probe lanes, one call for all of them per product (their r0 pair
+    plus 2 unroll pairs per pass, the passes running to the slowest lane:
+    ``it_j`` CG iterations take ceil(it_j / unroll) passes).  Those counts
+    come from the step's pieces run eagerly first."""
     import torch
     from fos_tpu_torch import DR, LineSearchWrapper
     from fos_tpu_torch.solvers import engine, graphs, wrappers
@@ -1522,8 +1615,8 @@ def linesearch_k1_count(form, interval, totals):
     real_passes = -(-int(s1.last_iters) // unroll)
     probe_iters = probes.last_iters.cpu().numpy()
     probe_passes = int(-(-probe_iters.max() // unroll))
-    implied = (1 + 2 * unroll * real_passes
-               + lanes * (1 + 2 * unroll * probe_passes))
+    implied = 1 + 2 * unroll * real_passes
+    implied_lanes = 1 + 2 * unroll * probe_passes
     counted(totals)
     eager = alg.step(sets, st, interval - 1)
     n_eager = counted(totals)
@@ -1541,11 +1634,19 @@ def linesearch_k1_count(form, interval, totals):
            "k1_eager": n_eager["fused_matvec"],
            "k1_graph": n_graph["fused_matvec"],
            "k1_sum_graph": n_graph["fused_matvec_sum"],
+           "k1_lanes_implied": implied_lanes,
+           "k1_lanes_eager": n_eager["fused_matvec_lanes"],
+           "k1_lanes_graph": n_graph["fused_matvec_lanes"],
+           "k1_lanes_sum_graph": n_graph["fused_matvec_lanes_sum"],
+           "k1_single_calls_replaced": lanes * implied_lanes,
            "cg_continue_lanes_graph": n_graph["cg_continue_lanes"],
            "bit_equal": bool(torch.equal(replayed.x, eager.x))}
     emit(out)
     if not (implied == out["k1_eager"] == out["k1_graph"]
-            == out["k1_sum_graph"]) or not out["bit_equal"]:
+            == out["k1_sum_graph"]) or not (
+                implied_lanes == out["k1_lanes_eager"]
+                == out["k1_lanes_graph"] == out["k1_lanes_sum_graph"]) \
+            or not out["bit_equal"]:
         raise AssertionError(f"LineSearch boundary step: K1 {out}")
     g.release()
 
@@ -2745,8 +2846,14 @@ def main() -> int:
         res = compare(name, lambda: op.mv_pair(x1, x2),
                       lambda: fused_matvec_plain(At, x1, x2))
         M, N = At.shape
+        # the yardstick: two cuBLAS calls, torch.mv(A, x1) and
+        # torch.mv(A.T, x2) (no one PyTorch call computes the pair)
         res.update(bound(4 * (M * N + 2 * M + 2 * N), 4 * M * N),
-                   library_ms=None)
+                   library="torch.mv(A, x1), torch.mv(A.T, x2)",
+                   library_ms=median_ms(lambda: (torch.mv(At, x1),
+                                                 torch.mv(At.T, x2))),
+                   library_device_ms=device_ms(lambda: (
+                       torch.mv(At, x1), torch.mv(At.T, x2))))
         first = op.mv_pair(x1, x2)
         # the device counts each kernel's launches over the repeat
         _cuda.device_launch_counts(reset=True)
@@ -2782,6 +2889,13 @@ def main() -> int:
             kernels[name] = {"source": "fos_tpu_torch/csrc/pair_kernels.cu",
                              "replaces": "fos_tpu/linalg/pallas_kernels.py:72",
                              "shape": [M, N], **res}
+        if name in K1_LANE_SHAPES:
+            lanes_res = k1_lanes(name, At, op, dev)
+            if name == "fused_matvec":
+                kernels["fused_matvec_lanes"] = {
+                    "source": "fos_tpu_torch/csrc/pair_kernels.cu",
+                    "replaces": "fos_tpu/linalg/pallas_kernels.py:72",
+                    "shape": [LINESEARCH_LANES, M, N], **lanes_res}
         del At, op
     # the SOC / rotated-SOC projection: no atomics, so it repeats bit for
     # bit on the card; against the CPU projection in f64 (sums taken in
@@ -2823,10 +2937,34 @@ def main() -> int:
          lambda: bell_mv_pair(ell.cols, ell.blocks, xe, zb, ell.counts,
                               (ell.inv_ptr, ell.inv_idx)),
          lambda: bell_mv_pair_plain(ell.cols, ell.blocks, xe, zb), (xe, zb)))
+    # the pairs' yardstick: two block-sparse cuSPARSE calls, A x over the A
+    # table and A' z over the A' table (z padded as rmv pads it)
+    zpad = vec((nrb + band.blocks_t.shape[1]) * TILE)
+    zpad[nrb * TILE:] = 0
+    yardsticks = {
+        "band_mv_pair": (
+            library_mv(band.blocks, band.cs.cpu().numpy()[:, None]
+                       + np.arange(S), np.full(nrb, S), xb.shape[0], dev),
+            library_mv(band.blocks_t, band.cs_t.cpu().numpy()[:, None]
+                       + np.arange(band.blocks_t.shape[1]),
+                       np.full(band.blocks_t.shape[0],
+                               band.blocks_t.shape[1]),
+                       zpad.numel() // TILE, dev), xb.reshape(-1), zpad),
+        "bell_mv_pair": (
+            library_mv(ell.blocks, ell.cols.cpu().numpy(),
+                       ell.counts.cpu().numpy(), xe.shape[0], dev),
+            library_mv(ell.blocks_t, ell.cols_t.cpu().numpy(),
+                       ell.counts_t.cpu().numpy(), nrb, dev),
+            xe.reshape(-1), zb.reshape(-1))}
     for name, op, tiles, replaces, kern, free, plain, ins in pairs:
         res = compare(name, kern, plain)
         res["free_function_ms"] = median_ms(free)
-        res.update(tile_bound(tiles, True, ins, kern()), library_ms=None)
+        lib_a, lib_t, xl, zl = yardsticks[name]
+        res.update(tile_bound(tiles, True, ins, kern()),
+                   library="torch.sparse_bsr_tensor @ x, A' table @ z",
+                   library_ms=median_ms(lambda: (lib_a(xl), lib_t(zl))),
+                   library_device_ms=device_ms(lambda: (lib_a(xl),
+                                                        lib_t(zl))))
         emit({"phase": "kernel", "name": name, "table": list(op.blocks.shape),
               "table_mib": op.blocks.numel() * 4 / 2**20, **res})
         kernels[name] = {"source": "fos_tpu_torch/csrc/pair_kernels.cu",
@@ -3082,8 +3220,10 @@ def main() -> int:
           "p1_within_target": route["p1_over_torch"] <= LAUNCH_ROUTE_TARGET})
     for name in ("probe_tiny", "probe_prefetch"):
         kernels[name]["launches"] = _cuda.LAUNCHES[name]
-    # the lane condition's path is phase 7's (counted there)
-    missing = [k for k, e in kernels.items() if k != "cg_continue_lanes"
+    # the lane condition's and K1's lane kernel's path is phase 7's
+    # (counted there)
+    missing = [k for k, e in kernels.items()
+               if k not in ("cg_continue_lanes", "fused_matvec_lanes")
                and (e["launches"] == 0 or e.get("captured_calls") == 0)]
     if missing:
         raise AssertionError(f"kernels never launched by their path: {missing}")
@@ -3173,11 +3313,20 @@ def main() -> int:
     slice_counts = slice_phase(dev, A1, b1, c1, feas, m, n)
     for name in kernels:
         kernels[name]["launches_phase7"] = slice_counts[name]
-    kernels["cg_continue_lanes"]["launches"] = slice_counts["cg_continue_lanes"]
-    if not all(slice_counts[k] for k in ("fused_matvec", "band_mv",
-                                         "bell_mv", "cg_continue_lanes")):
-        raise AssertionError(f"phase 7 did not launch K1, K4, K5 and the "
-                             f"lane condition: {dict(slice_counts)}")
+    for name in ("cg_continue_lanes", "fused_matvec_lanes"):
+        kernels[name]["launches"] = slice_counts[name]
+    kernels["fused_matvec_lanes"]["sum_launches"] = slice_counts[
+        "fused_matvec_lanes_sum"]
+    if not all(slice_counts[k] for k in ("fused_matvec", "fused_matvec_lanes",
+                                         "band_mv", "bell_mv",
+                                         "cg_continue_lanes")):
+        raise AssertionError(f"phase 7 did not launch K1, K1 over lanes, K4, "
+                             f"K5 and the lane condition: "
+                             f"{dict(slice_counts)}")
+    if slice_counts["fused_matvec_lanes"] != slice_counts[
+            "fused_matvec_lanes_sum"]:
+        raise AssertionError(f"K1 over lanes on phase 7's path: "
+                             f"{dict(slice_counts)}")
 
     clock.append(("phase8", time.perf_counter()))
     # --- phase 8: implicit differentiation (this slice's path), with the
@@ -3215,7 +3364,8 @@ def main() -> int:
             "device_ms", "plain_device_ms", "captured_calls", "sum_launches",
             "shape", "max_rel_err", "deterministic", "launches_cones_path",
             "launches_phase7", "launches_phase8", "launches_phase9",
-            "backward_ms")
+            "backward_ms", "library_device_ms", "graph_us",
+            "lanes_over_singles")
     emit({"kernels": [{k: e.get(k) for k in keys}
                       for e in ({"name": name, "route": "cuda", **entry}
                                 for name, entry in kernels.items())]})

@@ -37,7 +37,7 @@ struct Record {
 // say only that a kernel was captured; each counted kernel also adds one
 // here (thread 0 of block 0), once per launch, replayed or not.  Each
 // source file has its own counters and an entry point that reads them.
-constexpr int kCounters = 4;
+constexpr int kCounters = 6;
 __device__ unsigned long long launch_count[kCounters];
 
 __device__ __forceinline__ void count_launch(int id) {

@@ -21,19 +21,40 @@
 // tile of A (8 warps x 4 rows; ragged edges masked), so a 1000^2 A gives
 // 256 blocks on the 132 SMs and a 4000^2 A 4000; each thread issues its
 // 16 loads at once.  Each tile writes its two vectors to partial buffers
-// (A_ij x_j for row tile i, A_ij' z_i for column tile j).  The sum kernel
-// adds each output's partials in an order fixed by the shapes: a block
-// takes 32 consecutive outputs, each warp sums one contiguous range of
-// their partials (a warp's loads read 32 consecutive floats), and the
-// range sums are added in warp order.  Taller tiles (64, 128 rows) give
-// fewer partials but fewer blocks and more loads per thread; 16-row tiles
-// double the partials; 32 rows measured fastest at 1000^2 and 4000^2
-// (PERF.md, Findings).  The partial buffers are the operator's,
-// allocated once; nothing else persists between calls, so a call can be
-// captured in a CUDA graph.  A one-launch variant (the last block to
-// arrive sums each strip; arrival counters and a release fence) measured
-// slower on the H100: the fence and the counters' round trips cost more
-// than the kernel boundary they replace.
+// (A_ij x_j for row tile i, A_ij' z_i for column tile j).  A warp's four
+// row dots are summed together (rows_sum): 6 shuffles where four
+// butterflies take 20, adding the same pairs, so with the same bits.  The
+// sum kernel adds each output's partials in an order fixed by the shapes:
+// a block takes 32 consecutive outputs, each warp sums one contiguous
+// range of their partials (a warp's loads read 32 consecutive floats),
+// and the range sums are added in warp order.  It is launched as a
+// programmatic dependent of the tile kernel (Hopper's programmatic
+// dependent launch): the tile blocks release it as soon as their loads
+// are issued and its blocks wait on the device for the tiles' writes, so
+// its launch and ramp, which at 1000^2 took as long as its work, overlap
+// the tiles.  Taller tiles (64, 128 rows) give fewer partials but fewer
+// blocks and more loads per thread; 16-row tiles double the partials; 32
+// rows measured fastest at 1000^2 and 4000^2 (PERF.md, Findings).  The
+// partial buffers are the caller's; nothing else persists between calls,
+// so a call can be captured in a CUDA graph.  A one-launch variant (the
+// last block to arrive sums each strip; arrival counters and a release
+// fence) measured slower on the H100: the fence and the counters' round
+// trips cost more than the kernel boundary they replace.
+//
+// K1 over lanes (the line search's 31 candidate steps, which the JAX
+// package runs as a vmap over the pallas_call): the same tiles, partials
+// and sums with a lane axis.  A tile block reads its A tile from memory
+// once into registers, as dense_pair_tiles does, and runs every lane's
+// vectors through it: it stages the vectors of 32 lanes in shared memory
+// with one round of loads (a load per lane per round kept each round
+// waiting on memory), and takes 4 lanes per shared-memory round of column
+// totals.  The sum is one thread per output of each lane, with no shared
+// memory.  Each lane's partials and sums are the single-vector kernels',
+// in the same order, so lane b is bit-equal to a single call on lane b's
+// vectors.  At B lanes the work is 4 B M N flops over 4 M N bytes of A:
+// past ~20 lanes the f32 rate, not A's bytes, bounds it.  A design where
+// one warp holds a whole 32x128 tile (no shared-memory exchange per lane)
+// took 234 registers and a stack frame and ran slower (PERF.md).
 //
 // K2, K3 (unchanged design): one CUDA block per stored 128x128 tile;
 // each tile writes its two 128-vectors to partial buffers, and a second,
@@ -56,24 +77,368 @@ constexpr int kRowsPerWarp = kTile / kWarps;  // 16: K2/K3 tile rows per warp
 constexpr int kDenseRows = 4;                 // K1 tile rows per warp
 constexpr int kDenseTileRows = kWarps * kDenseRows;
 
-// -------------------------------------------------------- K1, K2, K3 -----
-// Load a warp's kRows rows of a 128-column tile into registers (lane l
-// holds columns l + 32k; with kEdge, rows >= nrows and columns >= ncols
-// read as 0), then reduce them both ways: ydot[i] = row i . x on lane i
-// (< kRows), and zacc[k] = column (l + 32k) . z over the warp's rows.
-// K2/K3 tiles are whole (kEdge false: no masks, fewer registers); K1
-// masks A's edges.
-template <bool kEdge, int kRows>
+// ---------------------------------------------------------------- K1 -----
+// Programmatic dependent launch: a kernel launched by launch_dependent may
+// start once every block of the kernel before it on the stream has called
+// let_dependents_launch (or exited); wait_for_primary then blocks until
+// that kernel has finished and its writes are visible.  Without the launch
+// attribute wait_for_primary returns at once.
+__device__ __forceinline__ void let_dependents_launch() {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait_for_primary() {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+}
+
+// The warp sums of a warp's four row dots (d[i] on each lane: its columns'
+// part of row i); row lane >> 3 ends on the lane.  The first two steps of
+// the butterfly trade halves of the rows (at step 16 lanes below 16 keep
+// rows 0 and 1 and add their partner's copies; at step 8 one row of the
+// two), then a plain butterfly over 8 lanes: 6 shuffles where four
+// butterflies take 20.  Each add takes the two operands that the same step
+// of warp_sum takes for that row (and a + b == b + a in IEEE arithmetic),
+// so every row has warp_sum's bits.
+__device__ __forceinline__ float rows_sum(float (&d)[kDenseRows], int lane) {
+  static_assert(kDenseRows == 4, "rows_sum trades halves twice");
+#pragma unroll
+  for (int step = 0; step < 2; ++step) {
+    const int h = 16 >> step, half = kDenseRows >> (step + 1);
+    const bool up = lane & h;
+#pragma unroll
+    for (int i = 0; i < half; ++i) {
+      const float send = up ? d[i] : d[i + half];
+      const float keep = up ? d[i + half] : d[i];
+      d[i] = keep + __shfl_xor_sync(0xffffffffu, send, h);
+    }
+  }
+#pragma unroll
+  for (int h = 4; h > 0; h >>= 1)
+    d[0] += __shfl_xor_sync(0xffffffffu, d[0], h);
+  return d[0];
+}
+
+// A warp's kDenseRows rows of a K1 tile into registers: lane l holds
+// columns l + 32k; rows >= nrows and columns >= ncols read as 0.
+__device__ __forceinline__ void load_rows(const float* __restrict__ T,
+                                          int N, int nrows, int ncols,
+                                          int lane,
+                                          float (&a)[kDenseRows][4]) {
+#pragma unroll
+  for (int i = 0; i < kDenseRows; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      a[i][k] = i < nrows && lane + 32 * k < ncols
+                    ? __ldg(T + (size_t)i * N + lane + 32 * k) : 0.f;
+}
+
+// One pair of vectors through a warp's rows: zacc[k] = column (l + 32k)
+// times zr over the rows, in row order; returns row lane >> 3 times xr:
+// the lane's four columns in column order, summed over the warp.  Both K1
+// kernels take their arithmetic from here, so a lane has a single call's
+// bits.
+__device__ __forceinline__ float rows_pair(const float (&a)[kDenseRows][4],
+                                           const float* xr, const float* zr,
+                                           int lane, float* zacc) {
+  float d[kDenseRows];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) zacc[k] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kDenseRows; ++i) {
+    d[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      d[i] = fmaf(a[i][k], xr[k], d[i]);
+      zacc[k] = fmaf(a[i][k], zr[i], zacc[k]);
+    }
+  }
+  return rows_sum(d, lane);
+}
+
+// grid (ceil(M / kDenseTileRows), ceil(N / 128)); block (ti, tj) writes
+// ypart[tj, rows of ti] = A_ij x1_j and zpart[ti, cols of tj] = A_ij' x2_i
+// (part: ypart (ntj, M), then zpart (nti, N)).  Warp w holds rows 4w to
+// 4w + 3 of the tile, lane l columns l + 32k; a row's dot is the lane's
+// four columns in column order, then summed over the warp; a column's is
+// each warp's four rows in row order, then the 8 warps' sums in warp order.
+__global__ void __launch_bounds__(kThreads)
+dense_pair_tiles(const float* __restrict__ A, int M, int N,
+                 const float* __restrict__ x1, const float* __restrict__ x2,
+                 float* __restrict__ part) {
+  __shared__ float zsh[kWarps][kTile];
+  count_launch(0);  // launch counter (K1's tiles; its sum: 3)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ti = blockIdx.x, tj = blockIdx.y;
+  const int c0 = tj * kTile;
+  const int r0 = ti * kDenseTileRows + warp * kDenseRows;
+  const int ncols = min(kTile, N - c0), nrows = min(kDenseRows, M - r0);
+  float a[kDenseRows][4], xr[4], zr[kDenseRows], zacc[4];
+  load_rows(A + (size_t)r0 * N + c0, N, nrows, ncols, lane, a);
+  let_dependents_launch();
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    xr[k] = lane + 32 * k < ncols ? x1[c0 + lane + 32 * k] : 0.f;
+#pragma unroll
+  for (int i = 0; i < kDenseRows; ++i) zr[i] = i < nrows ? x2[r0 + i] : 0.f;
+  const float y = rows_pair(a, xr, zr, lane, zacc);
+  if ((lane & 7) == 0 && (lane >> 3) < nrows)
+    part[(size_t)tj * M + r0 + (lane >> 3)] = y;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) zsh[warp][lane + 32 * k] = zacc[k];
+  __syncthreads();
+  if (threadIdx.x < ncols) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += zsh[w][threadIdx.x];
+    part[(size_t)gridDim.y * M + (size_t)ti * N + c0 + threadIdx.x] = s;
+  }
+}
+
+// K1 over lanes: the same tiles, grid, partials (each lane's at lane_part
+// further on) and order as dense_pair_tiles, the A tile loaded into
+// registers once for every lane.  The block stages the vectors of
+// kLaneStage lanes in shared memory with one round of loads, then runs
+// them through the tile kLaneRound lanes at a time: each warp's rows for
+// each lane as in dense_pair_tiles, then the column totals of the round's
+// lanes in warp order (two per thread).
+constexpr int kLaneStage = 32;
+constexpr int kLaneRound = 4;
+
+__global__ void __launch_bounds__(kThreads)
+dense_pair_lane_tiles(const float* __restrict__ A, int M, int N, int lanes,
+                      const float* __restrict__ x1, long long ld1,
+                      const float* __restrict__ x2, long long ld2,
+                      float* __restrict__ part, long long lane_part) {
+  __shared__ float xs[kLaneStage][kTile];
+  __shared__ __align__(16) float zs[kLaneStage][kDenseTileRows];
+  __shared__ float zsh[kLaneRound][kWarps][kTile];
+  count_launch(4);  // launch counter (K1 over lanes; its sum: 5)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ti = blockIdx.x, tj = blockIdx.y;
+  const int c0 = tj * kTile, rt = ti * kDenseTileRows;
+  const int r0 = rt + warp * kDenseRows;
+  const int ncols = min(kTile, N - c0), nrows = min(kDenseRows, M - r0);
+  const int trows = min(kDenseTileRows, M - rt);
+  float a[kDenseRows][4];
+  load_rows(A + (size_t)r0 * N + c0, N, nrows, ncols, lane, a);
+  let_dependents_launch();
+  float* ypart = part + (size_t)tj * M + r0;
+  float* zpart = part + (size_t)gridDim.y * M + (size_t)ti * N + c0;
+  for (int s0 = 0; s0 < lanes; s0 += kLaneStage) {
+    const int ns = min(kLaneStage, lanes - s0);
+    if (s0 > 0) __syncthreads();  // every warp is done with the last stage
+    constexpr int kXLoads = kLaneStage * kTile / kThreads;           // 16
+    constexpr int kZLoads = kLaneStage * kDenseTileRows / kThreads;  // 4
+    float v[kXLoads], w[kZLoads];
+#pragma unroll
+    for (int u = 0; u < kXLoads; ++u) {
+      const int e = threadIdx.x + u * kThreads, q = e / kTile, c = e % kTile;
+      v[u] = q < ns && c < ncols ? x1[(s0 + q) * ld1 + c0 + c] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kZLoads; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      const int q = e / kDenseTileRows, r = e % kDenseTileRows;
+      w[u] = q < ns && r < trows ? x2[(s0 + q) * ld2 + rt + r] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kXLoads; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      xs[e / kTile][e % kTile] = v[u];
+    }
+#pragma unroll
+    for (int u = 0; u < kZLoads; ++u) {
+      const int e = threadIdx.x + u * kThreads;
+      zs[e / kDenseTileRows][e % kDenseTileRows] = w[u];
+    }
+    __syncthreads();
+    // a round's lanes run unconditionally (a staged lane past the last
+    // holds zeros), so their loads and sums can interleave
+    for (int q0 = 0; q0 < ns; q0 += kLaneRound) {
+#pragma unroll
+      for (int p = 0; p < kLaneRound; ++p) {
+        const int q = q0 + p;
+        const float4 z4 =
+            *reinterpret_cast<const float4*>(&zs[q][warp * kDenseRows]);
+        const float zr[kDenseRows] = {z4.x, z4.y, z4.z, z4.w};
+        float xr[4], zacc[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) xr[k] = xs[q][lane + 32 * k];
+        const float y = rows_pair(a, xr, zr, lane, zacc);
+        if (q < ns && (lane & 7) == 0 && (lane >> 3) < nrows)
+          ypart[(s0 + q) * lane_part + (lane >> 3)] = y;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) zsh[p][warp][lane + 32 * k] = zacc[k];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kLaneRound * kTile / kThreads; ++u) {
+        const int e = threadIdx.x + u * kThreads, p = e / kTile,
+                  c = e % kTile;
+        if (q0 + p < ns && c < ncols) {
+          float s = 0.f;
+#pragma unroll
+          for (int w8 = 0; w8 < kWarps; ++w8) s += zsh[p][w8][c];
+          zpart[(s0 + q0 + p) * lane_part + c] = s;
+        }
+      }
+      __syncthreads();  // before zsh is rewritten
+    }
+  }
+}
+
+// K1's ordered sum: a block sums kSumOutputs consecutive outputs of y
+// (blocks [0, yblocks)) or of z (the rest).  Warp w sums the w-th of
+// kWarps contiguous ranges of an output's n partials, in index order, up
+// to kSumLoads loads in flight (lane l takes output l, so a warp's loads
+// read 32 consecutive floats); then the first warp adds the kWarps range
+// sums in warp order.  The order depends on n alone, so the bits do.
+constexpr int kSumOutputs = 32;
+constexpr int kSumLoads = 16;
+
+__global__ void __launch_bounds__(kThreads)
+dense_pair_sum(const float* __restrict__ part, int M, int N, int nti,
+               int ntj, float* __restrict__ y, float* __restrict__ z,
+               int yblocks) {
+  __shared__ float ranges[kWarps][kSumOutputs];
+  count_launch(3);
+  wait_for_primary();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool is_y = blockIdx.x < (unsigned)yblocks;
+  const float* __restrict__ p = part + (is_y ? 0 : (size_t)ntj * M);
+  const int n = is_y ? ntj : nti, len = is_y ? M : N;
+  const int o = (is_y ? blockIdx.x : blockIdx.x - yblocks) * kSumOutputs +
+                lane;
+  const int per = (n + kWarps - 1) / kWarps;
+  const int j0 = min(n, warp * per), j1 = min(n, j0 + per);
+  float s = 0.f;
+  for (int j = j0; j < j1; j += kSumLoads) {  // once while n <= 128
+    float v[kSumLoads];
+#pragma unroll
+    for (int u = 0; u < kSumLoads; ++u)
+      v[u] = o < len && j + u < j1 ? p[(size_t)(j + u) * len + o] : 0.f;
+#pragma unroll
+    for (int u = 0; u < kSumLoads; ++u)
+      if (j + u < j1) s += v[u];
+  }
+  ranges[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && o < len) {
+    float total = ranges[0][lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) total += ranges[w][lane];
+    (is_y ? y : z)[o] = total;
+  }
+}
+
+// K1's ordered sum over lanes: one thread per output of each lane (lane b's
+// y, then its z), the same adds as dense_pair_sum's: the kWarps ranges of
+// ceil(n / kWarps) partials, each summed from 0 in index order, added in
+// range order (an empty range adds 0).  Up to kSumLoads loads in flight.
+__global__ void __launch_bounds__(kThreads)
+dense_pair_lane_sum(const float* __restrict__ part, long long lane_part,
+                    int lanes, int M, int N, int nti, int ntj,
+                    float* __restrict__ y, float* __restrict__ z) {
+  count_launch(5);
+  wait_for_primary();
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= (long long)lanes * (M + N)) return;
+  const int b = (int)(t / (M + N)), oy = (int)(t % (M + N));
+  const bool is_y = oy < M;
+  const int o = is_y ? oy : oy - M, n = is_y ? ntj : nti, len = is_y ? M : N;
+  const float* __restrict__ p =
+      part + b * lane_part + (is_y ? 0 : (size_t)ntj * M) + o;
+  const int per = (n + kWarps - 1) / kWarps;
+  float s = 0.f, total = 0.f;
+  int end = per;  // where the current range ends
+  for (int c = 0; c < n; c += kSumLoads) {
+    float v[kSumLoads];
+#pragma unroll
+    for (int u = 0; u < kSumLoads; ++u)
+      v[u] = c + u < n ? p[(size_t)(c + u) * len] : 0.f;
+#pragma unroll
+    for (int u = 0; u < kSumLoads; ++u) {
+      const int j = c + u;
+      if (j < n) {
+        s += v[u];
+        if (j + 1 == end || j + 1 == n) {
+          total = end == per ? s : total + s;
+          s = 0.f;
+          end += per;
+        }
+      }
+    }
+  }
+  for (int w = (n + per - 1) / per; w < kWarps; ++w) total += 0.f;
+  (is_y ? y + (size_t)b * M : z + (size_t)b * N)[o] = total;
+}
+
+// Launch kernel k, grid x kThreads, as a programmatic dependent of the
+// kernel before it on st.
+template <class... Params, class... Args>
+cudaError_t launch_dependent(void (*k)(Params...), dim3 grid,
+                             cudaStream_t st, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, k, args...);
+}
+
+// K1 on `lanes` lanes (lanes == 0: the single-vector kernels, one lane).
+int dense_pair_launch(const float* A, int M, int N, int lanes,
+                      const float* x1, long long ld1, const float* x2,
+                      long long ld2, float* part, float* y, float* z,
+                      cudaStream_t st) {
+  const int nti = (M + kDenseTileRows - 1) / kDenseTileRows;
+  const int ntj = (N + kTile - 1) / kTile;
+  const long long lane_part = (long long)ntj * M + (long long)nti * N;
+  const int yblocks = (M + kSumOutputs - 1) / kSumOutputs;
+  const int zblocks = (N + kSumOutputs - 1) / kSumOutputs;
+  cudaError_t e;
+  if (lanes == 0) {
+    dense_pair_tiles<<<dim3(nti, ntj), kThreads, 0, st>>>(A, M, N, x1, x2,
+                                                          part);
+    e = cudaGetLastError();
+    if (e == cudaSuccess)
+      e = launch_dependent(dense_pair_sum, dim3(yblocks + zblocks), st,
+                           (const float*)part, M, N, nti, ntj, y, z,
+                           yblocks);
+  } else {
+    dense_pair_lane_tiles<<<dim3(nti, ntj), kThreads, 0, st>>>(
+        A, M, N, lanes, x1, ld1, x2, ld2, part, lane_part);
+    e = cudaGetLastError();
+    const long long outputs = (long long)lanes * (M + N);
+    if (e == cudaSuccess)
+      e = launch_dependent(dense_pair_lane_sum,
+                           dim3((unsigned)((outputs + kThreads - 1) /
+                                           kThreads)),
+                           st, (const float*)part, lane_part, lanes, M, N,
+                           nti, ntj, y, z);
+  }
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// ------------------------------------------------------------ K2, K3 -----
+// Load a warp's kRows rows of a whole 128-column tile into registers (lane
+// l holds columns l + 32k), then reduce them both ways: ydot[i] = row i . x
+// on lane i (< kRows), and zacc[k] = column (l + 32k) . z over the warp's
+// rows.
+template <int kRows>
 __device__ __forceinline__ void tile_products(
-    const float* __restrict__ T, size_t ld, int nrows, int ncols,
-    const float* xr, const float* zr, int lane, float& ydot, float* zacc) {
+    const float* __restrict__ T, size_t ld, const float* xr, const float* zr,
+    int lane, float& ydot, float* zacc) {
   float a[kRows][4];
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      a[i][k] = (!kEdge || (i < nrows && lane + 32 * k < ncols))
-                    ? __ldg(T + i * ld + lane + 32 * k) : 0.f;
+    for (int k = 0; k < 4; ++k) a[i][k] = __ldg(T + i * ld + lane + 32 * k);
 #pragma unroll
   for (int k = 0; k < 4; ++k) zacc[k] = 0.f;
   ydot = 0.f;
@@ -106,80 +471,6 @@ __device__ __forceinline__ float column_total(float (*zsh)[kTile],
   return s;
 }
 
-// ---------------------------------------------------------------- K1 -----
-// grid (ceil(M / kDenseTileRows), ceil(N / 128)); block (row tile i,
-// column tile j) writes ypart[j, rows of i] = A_ij x1_j and zpart[i, cols
-// of j] = A_ij' x2_i.
-__global__ void __launch_bounds__(kThreads)
-dense_pair_tiles(const float* __restrict__ A, int M, int N,
-                 const float* __restrict__ x1, const float* __restrict__ x2,
-                 float* __restrict__ ypart, float* __restrict__ zpart) {
-  __shared__ float zsh[kWarps][kTile];
-  count_launch(0);  // launch counter (K1's tiles; its sum: 3)
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ti = blockIdx.x, tj = blockIdx.y;
-  const int c0 = tj * kTile;
-  const int r0 = ti * kDenseTileRows + warp * kDenseRows;
-  const int ncols = min(kTile, N - c0), nrows = min(kDenseRows, M - r0);
-
-  float xr[4], zr[kDenseRows], zacc[4], ydot;
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    xr[k] = lane + 32 * k < ncols ? x1[c0 + lane + 32 * k] : 0.f;
-#pragma unroll
-  for (int i = 0; i < kDenseRows; ++i) zr[i] = i < nrows ? x2[r0 + i] : 0.f;
-  tile_products<true, kDenseRows>(A + (size_t)r0 * N + c0, (size_t)N, nrows,
-                                  ncols, xr, zr, lane, ydot, zacc);
-  if (lane < nrows) ypart[(size_t)tj * M + r0 + lane] = ydot;
-  const float zc = column_total(zsh, zacc, warp, lane);
-  if (threadIdx.x < ncols) zpart[(size_t)ti * N + c0 + threadIdx.x] = zc;
-}
-
-// K1's ordered sum: a block sums kSumOutputs consecutive outputs of y
-// (blocks [0, yblocks)) or of z (the rest).  Warp w sums the w-th of
-// kWarps contiguous ranges of an output's n partials, in index order, up
-// to kSumLoads loads in flight (lane l takes output l, so a warp's loads
-// read 32 consecutive floats); then the first warp adds the kWarps range
-// sums in warp order.  The order depends on n alone, so the bits do.
-constexpr int kSumOutputs = 32;
-constexpr int kSumLoads = 16;
-
-__global__ void __launch_bounds__(kThreads)
-dense_pair_sum(const float* __restrict__ ypart, int ny, int M,
-               float* __restrict__ y, int yblocks,
-               const float* __restrict__ zpart, int nz, int N,
-               float* __restrict__ z) {
-  __shared__ float ranges[kWarps][kSumOutputs];
-  count_launch(3);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool is_y = blockIdx.x < (unsigned)yblocks;
-  const float* __restrict__ part = is_y ? ypart : zpart;
-  const int n = is_y ? ny : nz, len = is_y ? M : N;
-  const int o = (is_y ? blockIdx.x : blockIdx.x - yblocks) * kSumOutputs +
-                lane;
-  const int per = (n + kWarps - 1) / kWarps;
-  const int j0 = min(n, warp * per), j1 = min(n, j0 + per);
-  float s = 0.f;
-  for (int j = j0; j < j1; j += kSumLoads) {  // once while n <= 128
-    float v[kSumLoads];
-#pragma unroll
-    for (int u = 0; u < kSumLoads; ++u)
-      v[u] = o < len && j + u < j1 ? part[(size_t)(j + u) * len + o] : 0.f;
-#pragma unroll
-    for (int u = 0; u < kSumLoads; ++u)
-      if (j + u < j1) s += v[u];
-  }
-  ranges[warp][lane] = s;
-  __syncthreads();
-  if (warp == 0 && o < len) {
-    float total = ranges[0][lane];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) total += ranges[w][lane];
-    (is_y ? y : z)[o] = total;
-  }
-}
-
-// ------------------------------------------------------------ K2, K3 -----
 // One block per stored tile (flat index r * slots + s); slots at or past
 // count(r) are padding and exit at once.  Tile (r, s) writes y1part[r, s] =
 // T x_{col(r,s)} and y2part[r, s] = T' z_r.
@@ -223,9 +514,9 @@ tile_pair(const float* __restrict__ blocks, Cols cols,
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i)
     zr[i] = zb[(size_t)r * kTile + row0 + i];
-  tile_products<false, kRowsPerWarp>(
-      blocks + t * (kTile * kTile) + (size_t)row0 * kTile, kTile,
-      kRowsPerWarp, kTile, xr, zr, lane, ydot, zacc);
+  tile_products<kRowsPerWarp>(
+      blocks + t * (kTile * kTile) + (size_t)row0 * kTile, kTile, xr, zr,
+      lane, ydot, zacc);
   if (lane < kRowsPerWarp) y1part[t * kTile + row0 + lane] = ydot;
   const float zc = column_total(zsh, zacc, warp, lane);
   if (threadIdx.x < kTile) y2part[t * kTile + threadIdx.x] = zc;
@@ -283,8 +574,9 @@ const char* fos_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Device launch counts of K1's tile kernel, K2, K3 and K1's sum, in that
-// order (read_launch_counts in common.cuh).
+// Device launch counts of K1's tile kernel, K2, K3, K1's sum, K1's lane
+// tile kernel and its sum, in that order (read_launch_counts in
+// common.cuh).
 int fos_pair_launch_counts(const long long* slots) {
   return read_launch_counts(slots);
 }
@@ -295,21 +587,22 @@ int fos_pair_launch_counts(const long long* slots) {
 // (fos_dense_tile_rows), ntj = ceil(N / 128).
 int fos_dense_pair(const long long* slots) {
   const Record a{slots};
-  const int M = a.num(1), N = a.num(2);
-  const int nti = (M + kDenseTileRows - 1) / kDenseTileRows;
-  const int ntj = (N + kTile - 1) / kTile;
-  float* ypart = a.ptr<float>(3);
-  float* zpart = ypart + (size_t)ntj * M;
-  cudaStream_t st = a.stream(8);
-  dense_pair_tiles<<<dim3(nti, ntj), kThreads, 0, st>>>(
-      a.ptr<const float>(0), M, N, a.ptr<const float>(4),
-      a.ptr<const float>(5), ypart, zpart);
-  const int yblocks = (M + kSumOutputs - 1) / kSumOutputs;
-  const int zblocks = (N + kSumOutputs - 1) / kSumOutputs;
-  dense_pair_sum<<<yblocks + zblocks, kThreads, 0, st>>>(
-      ypart, ntj, M, a.ptr<float>(6), yblocks, zpart, nti, N,
-      a.ptr<float>(7));
-  return (int)cudaGetLastError();
+  return dense_pair_launch(a.ptr<const float>(0), a.num(1), a.num(2), 0,
+                           a.ptr<const float>(4), 0, a.ptr<const float>(5),
+                           0, a.ptr<float>(3), a.ptr<float>(6),
+                           a.ptr<float>(7), a.stream(8));
+}
+
+// K1 over B lanes.  Record: 0 A (M, N) f32 contiguous, 1 M, 2 N, 3 B
+// (1..65535), 4 part (B (ntj * M + nti * N) f32: each lane's as K1's),
+// 5 X1 (lane b's x1 at X1 + b ld1, N f32), 6 ld1, 7 X2 (lane b's x2 at
+// X2 + b ld2, M f32), 8 ld2, 9 Y (B, M), 10 Z (B, N), 11 stream.
+int fos_dense_pair_lanes(const long long* slots) {
+  const Record a{slots};
+  return dense_pair_launch(a.ptr<const float>(0), a.num(1), a.num(2),
+                           a.num(3), a.ptr<const float>(5), slots[6],
+                           a.ptr<const float>(7), slots[8], a.ptr<float>(4),
+                           a.ptr<float>(9), a.ptr<float>(10), a.stream(11));
 }
 
 // K2.  Record: 0 blocks (nrb, S, 128, 128), 1 cs (nrb,), 2 nrb, 3 S,

@@ -62,13 +62,16 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fos_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
-LAUNCHES = {"fused_matvec": 0, "band_mv_pair": 0, "bell_mv_pair": 0,
-            "band_mv": 0, "bell_mv": 0, "probe_tiny": 0, "probe_prefetch": 0}
+LAUNCHES = {"fused_matvec": 0, "fused_matvec_lanes": 0, "band_mv_pair": 0,
+            "bell_mv_pair": 0, "band_mv": 0, "bell_mv": 0, "probe_tiny": 0,
+            "probe_prefetch": 0}
 
 #: tile side the kernels are compiled for (checked when the library loads)
 TILE = 128
 #: kernels the free wrapper functions keep bound (:func:`bound_kernel`)
 BOUND_KEPT = 8
+#: device launch counters of each source file (``kCounters``, common.cuh)
+COUNTERS = 6
 
 _lib = None
 
@@ -85,7 +88,7 @@ def device_launch_counts(reset: bool = False) -> dict:
     torch.cuda.synchronize()
     out = {}
     for entry, names in DEVICE_COUNTERS.items():
-        counts = (ctypes.c_ulonglong * 4)()
+        counts = (ctypes.c_ulonglong * COUNTERS)()
         _record_call(entry, ctypes.addressof(counts), int(reset))
         out.update(zip(names, counts))
     return out
@@ -119,13 +122,20 @@ def build() -> str:
     out = library_path()
     if out.exists():
         return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return build_library(out, [p for p in _sources() if p.suffix == ".cu"])
+
+
+def build_library(out: Path, sources) -> str:
+    """Compile ``sources`` (one nvcc process each, all at once) with
+    ``NVCC_FLAGS`` and link them into the shared library ``out``; return
+    nvcc's report."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         jobs = []
-        for src in (p for p in _sources() if p.suffix == ".cu"):
+        for src in sources:
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
-                   str(Path(tmp) / f"{src.stem}.o"), str(src)]
+                   str(Path(tmp) / f"{Path(src).stem}.o"), str(src)]
             jobs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
@@ -151,8 +161,8 @@ def build() -> str:
 
 
 #: the kernels' C entry points, each taking one launch record
-ENTRY_POINTS = ("fos_dense_pair", "fos_band_pair", "fos_bell_pair",
-                "fos_band_mv", "fos_bell_mv", "fos_probe_tiny",
+ENTRY_POINTS = ("fos_dense_pair", "fos_dense_pair_lanes", "fos_band_pair",
+                "fos_bell_pair", "fos_band_mv", "fos_bell_mv", "fos_probe_tiny",
                 "fos_probe_prefetch", "fos_graph_handle", "fos_graph_cond_open",
                 "fos_graph_cond_close", "fos_stream_create", "fos_cg_continue",
                 "fos_cg_continue_lanes", "fos_count_continue", "fos_flag_continue",
@@ -162,7 +172,8 @@ ENTRY_POINTS = ("fos_dense_pair", "fos_band_pair", "fos_bell_pair",
 #: the kernels counted on the device, by the entry point that reads them
 DEVICE_COUNTERS = {
     "fos_pair_launch_counts": ("fused_matvec", "band_mv_pair", "bell_mv_pair",
-                               "fused_matvec_sum"),
+                               "fused_matvec_sum", "fused_matvec_lanes",
+                               "fused_matvec_lanes_sum"),
     "fos_tile_mv_launch_counts": ("band_mv", "bell_mv"),
     "fos_graph_launch_counts": ("cg_continue", "count_continue",
                                 "flag_continue", "cg_continue_lanes"),

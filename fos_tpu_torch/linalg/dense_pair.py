@@ -4,7 +4,10 @@
 the port of ``fos_tpu.linalg.pallas_kernels.fused_matvec``) to one CUDA
 matrix: A is checked once, and the kernel's partial sums are allocated
 once.  A call checks its two vectors, allocates the two outputs and
-launches the tile kernel and its ordered sum.  :func:`fused_matvec` takes A
+launches the tile kernel and its ordered sum.  ``DensePair.lanes`` is K1
+over a lane axis (the line search's candidate steps): one launch of a tile
+kernel that reads A once for all B lanes and one of its sum, each lane
+bit-equal to a single call on its vectors.  :func:`fused_matvec` takes A
 per call and keeps the last few bindings (``_cuda.bound_kernel``); on a
 CPU tensor it runs :func:`fused_matvec_plain`, the same function in plain
 PyTorch.  A CUDA input the kernel does not take (not f32, not contiguous,
@@ -27,10 +30,13 @@ edges.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 import fos_tpu_torch.config  # noqa: F401  (pins full-f32 matmuls)
 from fos_tpu_torch.linalg import _cuda
+from fos_tpu_torch.linalg.lanes import lane_by_lane
 from fos_tpu_torch.utils.autograd import differentiated
 
 
@@ -39,11 +45,21 @@ def fused_matvec_plain(A, x1, x2):
     return torch.matmul(A, x1), torch.matmul(A.T, x2)
 
 
+def fused_matvec_lanes_plain(A, X1, X2):
+    """(X1 @ A', X2 @ A) for lanes X1 (B, N), X2 (B, M): the plain pair
+    lane by lane, so that lane b has the bits of a single call on lane b's
+    vectors whatever the number of lanes, as the lane kernel's lanes do (a
+    lane-batched ``torch.matmul`` on the CPU gives bits that depend on the
+    number of lanes)."""
+    return lane_by_lane(lambda u, v: fused_matvec_plain(A, u, v), X1, X2)
+
+
 class DensePair:
     """K1 bound to one contiguous f32 CUDA matrix A (M, N):
-    ``pair(x1, x2) -> (A @ x1, A' @ x2)``.  It holds the kernel's partial
-    sums (one per column tile for each row of y, one per row tile for each
-    column of z); ``tiles`` is the tile grid (row tiles, column tiles)."""
+    ``pair(x1, x2) -> (A @ x1, A' @ x2)``, and ``pair.lanes(X1, X2)`` over
+    B lanes.  It holds the kernel's partial sums (one per column tile for
+    each row of y, one per row tile for each column of z); ``tiles`` is the
+    tile grid (row tiles, column tiles)."""
 
     def __init__(self, A):
         name = "fused_matvec"
@@ -60,8 +76,13 @@ class DensePair:
         if ntj > 65535:
             raise ValueError(f"{name}: N={N} exceeds the kernel's grid")
         self.tiles = (nti, ntj)
+        self.shape = (M, N)
         self.part = torch.empty(ntj * M + nti * N, dtype=torch.float32,
                                 device=A.device)
+        # the lane kernel's record: A, M, N fixed; B, the partial sums, the
+        # lanes, their row strides, the outputs and the stream per call
+        self._lane_slots = (ctypes.c_longlong * 12)(A.data_ptr(), M, N)
+        self._lane_fn = _cuda.library().fos_dense_pair_lanes
         f32 = torch.float32
         self.kernel = _cuda.Kernel(
             name, "fos_dense_pair", A.device,
@@ -72,6 +93,43 @@ class DensePair:
     def __call__(self, x1, x2):
         y, z = self.kernel(x1, x2)
         return y, z
+
+    def lanes(self, X1, X2):
+        """(X1 @ A', X2 @ A) for X1 (B, N) and X2 (B, M): one launch of the
+        lane tile kernel and one of its sum.  Each lane's row has unit
+        stride (the lanes may sit at any row stride, as the columns of a
+        larger state do); f32 on A's device."""
+        name = "fused_matvec_lanes"
+        M, N = self.shape
+        for key, X, k in (("X1", X1, N), ("X2", X2, M)):
+            if X.device != self.part.device:
+                raise ValueError(f"{name}: {key} is on device {X.device}, "
+                                 f"expected {self.part.device}")
+            if X.dtype != torch.float32:
+                raise TypeError(f"{name}: {key} is {X.dtype}, expected "
+                                f"torch.float32")
+            if X.dim() != 2 or X.shape[1] != k:
+                raise ValueError(f"{name}: {key} has shape "
+                                 f"{tuple(X.shape)}, expected (B, {k})")
+            if X.stride(1) != 1 and k > 1:
+                raise ValueError(f"{name}: {key}'s rows are not contiguous")
+        B = X1.shape[0]
+        if X2.shape[0] != B or not 0 < B <= 65535:
+            raise ValueError(f"{name}: {X1.shape[0]} and {X2.shape[0]} "
+                             f"lanes (1 to 65535, the same for both)")
+        part = torch.empty(B * self.part.numel(), dtype=torch.float32,
+                           device=self.part.device)
+        Y = torch.empty(B, M, dtype=torch.float32, device=self.part.device)
+        Z = torch.empty(B, N, dtype=torch.float32, device=self.part.device)
+        slots = self._lane_slots
+        slots[3:] = [B, part.data_ptr(), X1.data_ptr(), X1.stride(0),
+                     X2.data_ptr(), X2.stride(0), Y.data_ptr(), Z.data_ptr(),
+                     self.kernel.stream(self.kernel.index)]
+        rc = self._lane_fn(ctypes.addressof(slots))
+        if rc:
+            _cuda.check(rc, name)
+        _cuda.LAUNCHES[name] += 1
+        return Y, Z
 
 
 def _launch(A, pair, x1, x2):
@@ -159,9 +217,13 @@ class PaddedDenseOp:
     """Dense A serving the fused pair through K1 and the single products
     through ``torch.matmul``; a duck-typed drop-in for the raw tensor in
     :mod:`fos_tpu_torch.linalg.hsde_ops`.  On a CUDA A the kernel is bound
-    when the op is made (:class:`DensePair`).  ``mv_pair`` is
-    differentiable in A, x1 and x2 (:class:`DensePairFn`); ``mv`` and
-    ``rmv`` are ``torch.matmul``."""
+    when the op is made (:class:`DensePair`).  ``mv_pair`` takes a lane
+    axis (vectors (B, k): ``pair_lanes``), which goes to the lane kernel in
+    one call.  It is differentiable in A, x1 and x2 (:class:`DensePairFn`,
+    lane by lane); ``mv`` and ``rmv`` are ``torch.matmul``."""
+
+    #: ``mv_pair`` takes (B, k) vectors in one call (:mod:`hsde_ops`)
+    pair_lanes = True
 
     def __init__(self, A):
         self.A = A
@@ -199,7 +261,14 @@ class PaddedDenseOp:
 
     def mv_pair(self, x1, x2):
         if differentiated(self.A, x1, x2):
+            if x1.dim() > 1:
+                return lane_by_lane(lambda u, v: DensePairFn.apply(
+                    self.A, u, v, self._pair), x1, x2)
             return DensePairFn.apply(self.A, x1, x2, self._pair)
+        if x1.dim() > 1:
+            if self._pair is None:
+                return fused_matvec_lanes_plain(self.A, x1, x2)
+            return self._pair.lanes(x1, x2)
         if self._pair is None:
             return fused_matvec_plain(self.A, x1, x2)
         return self._pair(x1, x2)

@@ -22,9 +22,11 @@ COO tensor, or a dense tensor, whose products go to ``torch.matmul`` at
 full f32 (``fos_tpu_torch.config`` turns TF32 off).
 
 Every product takes a lane axis (:mod:`fos_tpu_torch.linalg.lanes`):
-vectors ``(B, k)`` against one A are B products, through an operator's
-hand kernel once per lane (the JAX package's ``vmap`` over a
-``pallas_call`` runs its kernel per lane too) or one ``torch.matmul`` for
+vectors ``(B, k)`` against one A are B products: one call of an
+operator whose pair takes lanes (``pair_lanes``: K1's lane kernel, one
+pass over A for every lane, as the JAX package's ``vmap`` over a
+``pallas_call`` is one call with a lane axis in its grid), an operator's
+hand kernel once per lane otherwise (K2-K5), or one ``torch.matmul`` for
 a tensor; a batched A ``(B, m, n)`` (a batched solve's instances) takes
 ``torch.bmm``, or one ``torch.matmul`` when its instances share one
 matrix through a stride-0 batch axis (``expand``).
@@ -87,12 +89,10 @@ def rmv(A, y):
 
 def mv_pair(A, x1, x2):
     """(A @ x1, A' @ x2); one pass over A where the operator has a fused
-    pair kernel (once per lane)."""
+    pair kernel (once per lane, unless its pair takes the lanes)."""
     if hasattr(A, "mv_pair"):
-        if x1.dim() > 1:
-            pairs = [A.mv_pair(u, v) for u, v in zip(x1, x2)]
-            return (torch.stack([p[0] for p in pairs]),
-                    torch.stack([p[1] for p in pairs]))
+        if x1.dim() > 1 and not getattr(A, "pair_lanes", False):
+            return lanes.lane_by_lane(A.mv_pair, x1, x2)
         return A.mv_pair(x1, x2)
     return mv(A, x1), rmv(A, x2)
 

@@ -43,6 +43,13 @@ def select(mask, new, old):
     return torch.where(per_lane(mask, new), new, old)
 
 
+def lane_by_lane(pair, X1, X2):
+    """``pair(u, v)`` on each lane of X1 and X2, the two outputs stacked:
+    a pair product over lanes where the product takes one vector each."""
+    ys, zs = zip(*(pair(u, v) for u, v in zip(X1, X2)))
+    return torch.stack(ys), torch.stack(zs)
+
+
 def lane_shape(x) -> tuple:
     """The lane axes of a vector: ``()`` for one vector, ``(B,)`` for B."""
     return tuple(x.shape[:-1])

@@ -98,6 +98,62 @@ def test_dense_op_takes_slices_of_the_state(cuda):
     _close(op.mv_pair(x1, x2), fused_matvec_plain(A, x1, x2))
 
 
+# (M, N, lanes): the dense LP's 1000^2 at the line search's 31 lanes and
+# fewer, and two of chip_smoke.py's K1 edge shapes (tall, wide)
+LANE_CASES = [(1000, 1000, 1), (1000, 1000, 2), (1000, 1000, 31),
+              (5000, 300, 3), (300, 5000, 31)]
+
+
+@pytest.mark.parametrize("M,N,B", LANE_CASES)
+def test_dense_pair_lanes_bit_equal_to_single(cuda, M, N, B):
+    """K1 over B lanes: one launch of the lane tile kernel and one of its
+    sum, counted on the device; lane b bit-equal to the single-vector K1
+    on lane b's vectors, also when the lanes are rows of a larger state
+    (q_mul's slices); within tolerance of the plain version."""
+    A, _, _ = _dense(M, N, cuda)
+    g = torch.Generator(device="cpu").manual_seed(B)
+    state = torch.randn(B, N + M + 1, generator=g).to(cuda)
+    op = PaddedDenseOp.create(A)
+    for X1, X2 in ((state[:, :N], state[:, N:N + M]),
+                   (state[:, :N].contiguous(), state[:, N:N + M].contiguous())):
+        before = dict(_cuda.LAUNCHES)
+        _cuda.device_launch_counts(reset=True)
+        Y, Z = op.mv_pair(X1, X2)
+        counts = _cuda.device_launch_counts(reset=True)
+        assert _cuda.LAUNCHES["fused_matvec_lanes"] == \
+            before["fused_matvec_lanes"] + 1
+        assert _cuda.LAUNCHES["fused_matvec"] == before["fused_matvec"]
+        assert counts["fused_matvec_lanes"] == 1
+        assert counts["fused_matvec_lanes_sum"] == 1
+        assert counts["fused_matvec"] == counts["fused_matvec_sum"] == 0
+        for b in range(B):
+            y, z = op.mv_pair(X1[b], X2[b])
+            assert torch.equal(Y[b], y) and torch.equal(Z[b], z), b
+        _close((Y, Z), (X1 @ A.T, X2 @ A))
+        again = op.mv_pair(X1, X2)
+        assert torch.equal(again[0], Y) and torch.equal(again[1], Z)
+
+
+def test_dense_pair_lanes_raise_on_inputs_they_do_not_take(cuda):
+    op = PaddedDenseOp.create(torch.zeros(8, 16, device=cuda))
+    lanes = op._pair.lanes
+    X1, X2 = torch.zeros(3, 16, device=cuda), torch.zeros(3, 8, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        lanes(torch.zeros(3, 8, device=cuda), X2)
+    with pytest.raises(ValueError, match="shape"):
+        lanes(X1, torch.zeros(3, 8, 1, device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        lanes(X1.double(), X2)
+    with pytest.raises(ValueError, match="device"):
+        lanes(X1.cpu(), X2)
+    with pytest.raises(ValueError, match="contiguous"):
+        lanes(torch.zeros(3, 32, device=cuda)[:, ::2], X2)
+    with pytest.raises(ValueError, match="lanes"):
+        lanes(X1, torch.zeros(2, 8, device=cuda))
+    with pytest.raises(ValueError, match="lanes"):
+        lanes(X1[:0], X2[:0])
+
+
 def _banded(m, n, bw, seed):
     rng = np.random.default_rng(seed)
     rows, cols, vals = [], [], []
@@ -622,9 +678,11 @@ def _dense_lp_form(cuda, m=120, n=200):
 def test_linesearch_step_k1_count(cuda):
     """One LineSearch(DR) boundary step on a dense LP with pallas=True,
     eagerly and replayed from a CUDA graph: K1's device counts equal each
-    other and the count the CG passes imply (the real projection's r0 pair
-    and 2 unroll pairs per pass, and per probe lane the same, the 31 lanes'
-    passes running to the slowest), with the same bits."""
+    other and the counts the CG passes imply, with the same bits.  The real
+    projection makes single-vector calls (its r0 pair and 2 unroll pairs
+    per pass); the 31 probe lanes make lane calls, one for all lanes per
+    product (their r0 pair and 2 unroll pairs per pass, the passes running
+    to the slowest lane)."""
     from fos_tpu_torch import DR, LineSearchWrapper
     from fos_tpu_torch.solvers import engine, graphs, wrappers
     from fos_tpu_torch.solvers.base import init_solver_state
@@ -640,18 +698,20 @@ def test_linesearch_step_k1_count(cuda):
         x_new - st.x)[None]
     _, probes = sets.s1.project(cands, s1)
     passes = -(-probes.last_iters.cpu().numpy().max() // u)
-    implied = (1 + 2 * u * (-(-int(s1.last_iters) // u))
-               + 31 * (1 + 2 * u * int(passes)))
+    single = 1 + 2 * u * (-(-int(s1.last_iters) // u))
+    lane = 1 + 2 * u * int(passes)
     _cuda.device_launch_counts(reset=True)
     eager = alg.step(sets, st, 19)
-    n_eager = _cuda.device_launch_counts(reset=True)["fused_matvec"]
+    n_eager = _cuda.device_launch_counts(reset=True)
     form.prepare(st.x)
     g = graphs.Captured(lambda s: (alg.step(sets, s, None),), (st,))
     _cuda.device_launch_counts(reset=True)
     out = g(st)[0]
     counts = _cuda.device_launch_counts(reset=True)
-    assert implied == n_eager == counts["fused_matvec"] \
+    assert single == n_eager["fused_matvec"] == counts["fused_matvec"] \
         == counts["fused_matvec_sum"]
+    assert lane == n_eager["fused_matvec_lanes"] \
+        == counts["fused_matvec_lanes"] == counts["fused_matvec_lanes_sum"]
     assert counts["cg_continue_lanes"] > 0
     assert torch.equal(out.x, eager.x)
 

@@ -19,6 +19,7 @@ from fos_tpu_torch import interop
 from fos_tpu_torch.linalg import _cuda
 from fos_tpu_torch.linalg import sparse_ell as tse
 from fos_tpu_torch.linalg.dense_pair import (PaddedDenseOp, fused_matvec,
+                                             fused_matvec_lanes_plain,
                                              fused_matvec_plain)
 
 RTOL, ATOL = 2e-5, 2e-4
@@ -108,6 +109,82 @@ def test_padded_dense_op_matches_jax(M, N, rng):
             np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,
                                        atol=ATOL)
         np.testing.assert_array_equal(o.todense().numpy(), A)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("M,N", [(33, 129), (70, 90)])
+def test_dense_pair_lanes_match_vmapped_pallas(B, M, N, rng):
+    """K1 over a lane axis (the plain version, the single pair lane by
+    lane) against ``jax.vmap`` of the JAX PaddedDenseOp's mv_pair (Pallas,
+    interpret mode): one pallas_call with a lane axis in its grid, as the
+    JAX package's line search runs it."""
+    import jax
+
+    A = rng.standard_normal((M, N)).astype(np.float32)
+    X1 = rng.standard_normal((B, N)).astype(np.float32)
+    X2 = rng.standard_normal((B, M)).astype(np.float32)
+    jop = jpk.PaddedDenseOp.create(A, bm=256, bn=256, interpret=True)
+    jy, jz = jax.vmap(jop.mv_pair)(jnp.asarray(X1), jnp.asarray(X2))
+    op = PaddedDenseOp.create(torch.from_numpy(A))
+    before = dict(_cuda.LAUNCHES)
+    ty, tz = op.mv_pair(torch.from_numpy(X1), torch.from_numpy(X2))
+    assert _cuda.LAUNCHES == before
+    assert ty.shape == (B, M) and tz.shape == (B, N)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(tz.numpy(), np.asarray(jz), rtol=RTOL,
+                               atol=ATOL)
+    py, pz = fused_matvec_lanes_plain(torch.from_numpy(A),
+                                      torch.from_numpy(X1),
+                                      torch.from_numpy(X2))
+    assert torch.equal(py, ty) and torch.equal(pz, tz)
+
+
+def test_hsde_mv_pair_sends_lanes_to_the_lane_entry_once(monkeypatch):
+    """``hsde_ops.mv_pair`` with a lane axis on a PaddedDenseOp makes one
+    call of the lane entry (not one per lane) and, on the CPU, binds and
+    launches nothing; an operator whose pair takes no lanes still runs
+    lane by lane.  ``q_mul``'s slices of the state (rows at a stride) go
+    through the same entry."""
+    from fos_tpu_torch.linalg import dense_pair, hsde_ops
+
+    calls = []
+    plain = dense_pair.fused_matvec_lanes_plain
+
+    def spy(*args):
+        calls.append(args[1].shape)
+        return plain(*args)
+
+    monkeypatch.setattr(dense_pair, "fused_matvec_lanes_plain", spy)
+    g = torch.Generator().manual_seed(5)
+    A = torch.randn(6, 9, generator=g)
+    op = PaddedDenseOp.create(A)
+    X = torch.randn(4, 9 + 6 + 1, generator=g)
+    _cuda._bound.clear()
+    before = dict(_cuda.LAUNCHES)
+    y, z = hsde_ops.mv_pair(op, X[:, :9], X[:, 9:15])
+    assert calls == [(4, 9)]
+    assert _cuda.LAUNCHES == before and not _cuda._bound
+    for b in range(4):   # each lane a single call's bits
+        wy, wz = fused_matvec_plain(A, X[b, :9], X[b, 9:15])
+        assert torch.equal(y[b], wy) and torch.equal(z[b], wz)
+    q = hsde_ops.q_mul(op, X[0, 9:15], X[0, :9], X)
+    assert len(calls) == 2 and q.shape == X.shape
+    want = torch.stack([hsde_ops.q_mul(A, X[0, 9:15], X[0, :9], v)
+                        for v in X])
+    torch.testing.assert_close(q, want, rtol=1e-6, atol=1e-6)
+
+    class PerLane:
+        def __init__(self):
+            self.n = 0
+
+        def mv_pair(self, x1, x2):
+            self.n += 1
+            return fused_matvec_plain(A, x1, x2)
+
+    per_lane = PerLane()
+    hsde_ops.mv_pair(per_lane, X[:, :9], X[:, 9:15])
+    assert per_lane.n == 4
 
 
 def test_bound_kernel_cache_keeps_the_last_few():
