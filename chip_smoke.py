@@ -37,9 +37,11 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    K4 (banded) / K5 (scattered), to Optimal with a residual gate computed
    in f64 on the host; then the reference's testfeasibility problem (50x100
    dense) with all seven algorithms;
-4. the launch probe: P1/P2 bit-equal to their plain versions, then every
-   line of ``fos_tpu_torch.tools.launch_probe.main()``, and P1/P2's cost
-   in a dependent chain over torch's tiny multiply's (target <= 1.3);
+4. the launch probe: P1/P2 bit-equal to their plain versions, each one's
+   device time over ``torch.mul``'s on the same tile (calls in turns
+   under one profiler, gated at 1.15), then every line of
+   ``fos_tpu_torch.tools.launch_probe.main()``, and P1/P2's cost in a
+   dependent chain over torch's tiny multiply's (target <= 1.3);
 5. ``graphs``: the solve's device loops as CUDA graphs.  The condition
    kernels of ``csrc/graph.cu`` (cg_continue, count_continue,
    flag_continue) against their plain versions, and the cost of one pass
@@ -149,6 +151,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import json
 import math
 import re
@@ -197,6 +200,10 @@ K1_LANE_SHAPES = ("fused_matvec", "fused_matvec_5000x300",
                   "fused_matvec_300x5000")
 K1_LANES_OVER_SINGLES = 0.2
 LAUNCH_ROUTE_TARGET = 1.3   # P1 per call in a chain / torch's tiny multiply
+# P1's and P2's device time over torch.mul's on the same tile, calls in
+# turns under one profiler (the design with a loop read 1.37-1.65)
+PROBE_OVER_MUL_GATE = 1.15
+PROBE_TURNS = 200
 # iterations of the same solves at commit 2d6fc2b (on an NVIDIA H100 80GB
 # HBM3, 700 W), printed beside this run's: a changed sum order in a pair
 # kernel may move CG counts and so these (ROADMAP queue 3)
@@ -356,26 +363,31 @@ def median_ms(fn, reps=30, warmup=3):
     return statistics.median(times)
 
 
-def _profiled(fn, reps):
-    """The profiler's device rows over ``reps`` calls of fn (after one)."""
+def _profiled(fns, reps):
+    """The profiler over ``reps`` rounds (after one) in which each fn of
+    ``fns``, a callable or a sequence of them, is called in turn."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    fns = (fns,) if callable(fns) else tuple(fns)
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            fn()
+            for fn in fns:
+                fn()
         torch.cuda.synchronize()
-    return _device_events(prof)
+    return prof
 
 
 def device_ms(fn, reps=20):
     """Device time of one call (ms): the kernels' own time from the
     profiler's CUDA trace, without the host's launch cost; None when the
     trace holds no device time."""
-    total_us = sum(e.self_device_time_total for e in _profiled(fn, reps))
+    total_us = sum(e.self_device_time_total
+                   for e in _device_events(_profiled(fn, reps)))
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
@@ -406,22 +418,24 @@ def graph_us(fn, calls=50, reps=10):
     return start.elapsed_time(end) * 1e3 / (reps * calls), out
 
 
+def _kernel_name(key):
+    """A profiler row's function name, without namespace or arguments."""
+    m = re.search(r"\w+(?=[<(])", key)
+    return m.group(0) if m else key[:40]
+
+
 def kernel_breakdown(fn, reps=20):
     """(kernel records per call, device ms per call of each kernel by name,
     the record count of each) from the profiler; memcpy and memset rows are
     not kernels.  Printed only: the profiler has been seen to lose a record
     (39 over 20 calls of K1), so launches are counted on the device."""
-    kernels = [e for e in _profiled(fn, reps)
+    kernels = [e for e in _device_events(_profiled(fn, reps))
                if not e.key.lower().startswith(("memcpy", "memset"))]
 
-    def name(key):  # the function's name, without namespace or arguments
-        m = re.search(r"\w+(?=[<(])", key)
-        return m.group(0) if m else key[:40]
-
     return (sum(e.count for e in kernels) / reps,
-            {name(e.key): e.self_device_time_total / reps / 1e3
+            {_kernel_name(e.key): e.self_device_time_total / reps / 1e3
              for e in kernels},
-            {name(e.key): e.count for e in kernels})
+            {_kernel_name(e.key): e.count for e in kernels})
 
 
 def _device_events(prof):
@@ -3186,20 +3200,50 @@ def main() -> int:
 
     clock.append(("phase4", time.perf_counter()))
     # --- phase 4: the launch probe, through P1 and P2
-    xp = torch.ones((8, 128), device=dev) * 1.5
+    from torch.autograd import DeviceType
+    prng = np.random.default_rng(37)
+
+    def tile(offset=0):
+        """A random (8, 128) f32 tile ``offset`` floats into its buffer."""
+        buf = prng.standard_normal(1024 + offset).astype(np.float32)
+        return torch.as_tensor(buf, device=dev)[offset:].view(8, 128)
+
+    xp = tile()
     idx = torch.arange(8, dtype=torch.int32, device=dev)
-    for name, kern, plain, extra in (
-            ("probe_tiny", lambda: (launch_probe.probe_tiny(xp),),
-             lambda: (launch_probe.probe_tiny_plain(xp),), 0),
-            ("probe_prefetch", lambda: (launch_probe.probe_prefetch(idx, xp),),
-             lambda: (launch_probe.probe_prefetch_plain(idx, xp),), 32)):
-        res = compare(name, kern, plain)
-        res["bit_equal"] = bool(torch.equal(kern()[0], plain()[0]))
+    for name, run, run_plain, extra in (
+            ("probe_tiny", launch_probe.probe_tiny,
+             launch_probe.probe_tiny_plain, 0),
+            ("probe_prefetch", functools.partial(launch_probe.probe_prefetch,
+                                                 idx),
+             functools.partial(launch_probe.probe_prefetch_plain, idx), 32)):
+        res = compare(name, lambda: (run(xp),), lambda: (run_plain(xp),))
+        # bits on tiles that no earlier call has seen, one aligned and one
+        # 4 bytes into its buffer, the kernel first: no output block that
+        # the allocator hands back can already hold them
+        res["bit_equal"] = all(torch.equal(run(x), run_plain(x))
+                               for x in (tile(), tile(1)))
         if not res["bit_equal"]:
             raise AssertionError(f"{name} is not bit-equal to its plain version")
         res.update(bound(2 * xp.numel() * 4 + extra, xp.numel()))
         res["library_ms"] = median_ms(lambda: torch.mul(xp, launch_probe.SCALE))
+        # device time against torch.mul's on the same tile, in turns
+        prof = _profiled((lambda: run(xp),
+                          lambda: torch.mul(xp, launch_probe.SCALE)),
+                         PROBE_TURNS)
+        durations = collections.defaultdict(list)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0:
+                durations[_kernel_name(e.name)].append(e.device_time_total)
+        mine = statistics.median(durations.pop(name))
+        mul = statistics.median([d for v in durations.values() for d in v])
+        res.update(device_us=mine, mul_device_us=mul,
+                   device_over_mul=mine / mul)
         emit({"phase": "kernel", "name": name, "shape": list(xp.shape), **res})
+        if res["device_over_mul"] > PROBE_OVER_MUL_GATE:
+            raise AssertionError(
+                f"{name}: device time {mine:.3f} us is "
+                f"{res['device_over_mul']:.3f}x torch.mul's {mul:.3f} us "
+                f"(gate {PROBE_OVER_MUL_GATE})")
         kernels[name] = {"source": "fos_tpu_torch/csrc/probe.cu",
                          "replaces": ("tools/launch_probe.py:55"
                                       if name == "probe_tiny"
@@ -3365,7 +3409,7 @@ def main() -> int:
             "shape", "max_rel_err", "deterministic", "launches_cones_path",
             "launches_phase7", "launches_phase8", "launches_phase9",
             "backward_ms", "library_device_ms", "graph_us",
-            "lanes_over_singles")
+            "lanes_over_singles", "device_over_mul")
     emit({"kernels": [{k: e.get(k) for k in keys}
                       for e in ({"name": name, "route": "cuda", **entry}
                                 for name, entry in kernels.items())]})

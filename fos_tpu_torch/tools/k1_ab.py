@@ -1,17 +1,19 @@
-"""K1, the dense pair, timed on the card against another build of itself.
+"""K1, the dense pair, and the launch probes P1/P2, timed on the card
+against another build of themselves.
 
     python3 -m fos_tpu_torch.tools.k1_ab [--parent DIR] [--rounds R]
-                                         [--out FILE]
+                                         [--out FILE] [--probe-only]
 
 One process on one card; every comparison is made in turns (A, B, B, A
 per round).  The libraries are built from sources when the script runs:
 
 * ``head``: this checkout's kernel library (``linalg/_cuda.build``);
 * ``parent`` (with ``--parent``): DIR's ``fos_tpu_torch/csrc/
-  pair_kernels.cu`` as it is, timed through its own ``fos_dense_pair``
-  (whose launch record, A, M, N, partials, x1, x2, y, z, stream, has
-  not changed since K1 was ported).  Unpack DIR with ``git archive``
-  into a directory that ``.gitignore`` lists (``build/``);
+  pair_kernels.cu`` and ``probe.cu`` as they are, timed through their own
+  ``fos_dense_pair`` (whose launch record, A, M, N, partials, x1, x2, y,
+  z, stream, has not changed since K1 was ported) and probe entries.
+  Unpack DIR with ``git archive`` into a directory that ``.gitignore``
+  lists (``build/``);
 * ablations of ``head``, each built from a copy of the sources with one
   line edited (``ABLATIONS``; the library itself has no such switch):
   ``nocount`` without the device launch counters, which prices them, and
@@ -35,9 +37,18 @@ Lines printed (also appended to ``--out``), times in us per call:
 * ``yardstick``: ``torch.mv(A, x)`` and ``torch.mv(A.T, z)`` (two cuBLAS
   calls), and over 31 lanes ``torch.matmul(X, A.T)`` and
   ``torch.matmul(Z, A)``;
-* ``probe``: P1 (``csrc/probe.cu``) over its (8, 128) tile (n = 1024, four
-  elements a thread) and over n = 256 (one a thread), P2, and
-  ``torch.mul`` on the tile, from ``head`` and ``nocount``.
+* ``probe``: the launch probes of ``csrc/probe.cu`` on one (8, 128) f32
+  tile, in turns: P1 (``fos_probe_tiny``) and P2 (``fos_probe_prefetch``,
+  an (8,) index) of the parent (its ``probe.cu`` built beside its
+  ``pair_kernels.cu``, through its own entry points, whose records have
+  not changed since the probes were ported) and of the head; the head's
+  P1 on the same tile starting 4 bytes into a buffer (its unaligned
+  path); ``torch.mul`` on the tile and on a (1,) tensor (the card's
+  launch floor), timed only.  ``device`` and ``graph`` as for ``k1``,
+  their medians, each output's bits against ``torch.mul``'s and, with a
+  parent, ``p1_head_won`` and ``p2_head_won`` (device and graph samples).
+
+``--probe-only`` prints the probe line alone.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ import numpy as np
 import torch
 
 from fos_tpu_torch.linalg import _cuda
+from fos_tpu_torch.tools.launch_probe import SCALE
 
 SHAPES = ((1000, 1000), (4000, 4000), (1, 4000), (4000, 1), (5000, 300),
           (300, 5000))
@@ -103,11 +115,11 @@ def libraries(parent):
     if parent:
         src = Path(parent).resolve() / "fos_tpu_torch" / "csrc"
         out = _cuda.BUILD_DIR / "k1_ab" / "parent" / "libparent.so"
-        _cuda.build_library(out, [src / "pair_kernels.cu"])
+        _cuda.build_library(out, [src / "pair_kernels.cu", src / "probe.cu"])
         libs["parent"] = _load(out)
     return libs, {name: [ln.strip() for ln in r.splitlines()
-                         if "dense_pair" in ln or "registers" in ln
-                         or "spill" in ln]
+                         if "dense_pair" in ln or "probe" in ln
+                         or "registers" in ln or "spill" in ln]
                   for name, r in reports.items()}
 
 
@@ -228,6 +240,49 @@ def summary(runs):
             "by_kernel": runs[0]["by_kernel"]}
 
 
+def probe_row(libs, dev, rounds):
+    """The ``probe`` line: P1 and P2 of each library and ``torch.mul`` on
+    the same (8, 128) tile and on a (1,) tensor, in turns."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.randn(8, 128, generator=g).to(dev)
+    one = x.reshape(-1)[:1].clone()
+    # the same tile starting 4 bytes into a buffer (P1's unaligned path)
+    shifted = torch.empty(x.numel() + 4, device=dev)[1:1 + x.numel()]
+    shifted.copy_(x.reshape(-1))
+    idx = torch.arange(8, dtype=torch.int32, device=dev)
+    want = torch.mul(x, SCALE)
+
+    def tiny(lib, src):
+        y = torch.empty_like(x)
+        return Call(lib, "fos_probe_tiny",
+                    [x.numel(), src.data_ptr(), y.data_ptr(), 0], 3, (y,))
+
+    def pref(lib):
+        y = torch.empty_like(x)
+        return Call(lib, "fos_probe_prefetch",
+                    [x.numel(), idx.numel(), idx.data_ptr(), x.data_ptr(),
+                     y.data_ptr(), 0], 5, (y,))
+
+    calls = {}
+    for name in (n for n in ("parent", "head") if n in libs):
+        calls[f"p1_{name}"] = tiny(libs[name], x)
+        calls[f"p2_{name}"] = pref(libs[name])
+    calls["p1_head_unaligned"] = tiny(libs["head"], shifted)
+    bits = {n: bool(torch.equal(c()[0], want)) for n, c in calls.items()}
+    calls["mul_tile"] = lambda: torch.mul(x, SCALE)
+    calls["mul_floor"] = lambda: torch.mul(one, SCALE)
+    row = {"what": "probe", "shape": [8, 128], "bit_equal_to_mul": bits,
+           **{n: summary(r) for n, r in turns(calls, rounds).items()}}
+    row["medians"] = {n: {k: float(np.median(row[n][k]))
+                          for k in ("device", "graph")} for n in calls}
+    if "parent" in libs:
+        for p in ("p1", "p2"):
+            row[f"{p}_head_won"] = {k: [sum(h < q for q, h in zip(
+                row[f"{p}_parent"][k], row[f"{p}_head"][k])),
+                len(row[f"{p}_head"][k])] for k in ("device", "graph")}
+    return row
+
+
 def emit(obj, out):
     line = json.dumps(obj)
     print(line, flush=True)
@@ -238,9 +293,12 @@ def emit(obj, out):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="checkout holding the other K1")
+    ap.add_argument("--parent",
+                    help="checkout holding the other K1 and probes")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--out", default="build/k1_ab.jsonl")
+    ap.add_argument("--probe-only", action="store_true",
+                    help="print only the probe line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("k1_ab: no CUDA device")
@@ -261,7 +319,7 @@ def main(argv=None) -> int:
 
     pair_libs = [n for n in ("parent", "head", "nopdl") if n in libs]
     lane_libs = [n for n in ("head", "nopdl") if n in libs]
-    for M, N in SHAPES:
+    for M, N in () if args.probe_only else SHAPES:
         A, x1, x2 = vec(M, N), vec(N), vec(M)
         calls = {n: k1_call(libs[n], A, x1, x2) for n in pair_libs}
         first = calls[pair_libs[0]]()
@@ -307,21 +365,7 @@ def main(argv=None) -> int:
                   "two_matmul_lanes": timed(lambda: (
                       torch.matmul(X1, A.T), torch.matmul(X2, A)))},
                  args.out)
-    xp = torch.full((8, 128), 1.5, device=dev)
-    idx = torch.arange(8, dtype=torch.int32, device=dev)
-    yp = torch.empty_like(xp)
-    row = {"what": "probe", "shape": [8, 128],
-           "torch_mul": timed(lambda: torch.mul(xp, 1.0000001))}
-    for name in (n for n in ("head", "nocount") if n in libs):
-        for n in (1024, 256):
-            tiny = Call(libs[name], "fos_probe_tiny",
-                        [n, xp.data_ptr(), yp.data_ptr(), 0], 3, (yp,))
-            row[f"p1_{name}_n{n}"] = timed(tiny)
-        pref = Call(libs[name], "fos_probe_prefetch",
-                    [1024, 8, idx.data_ptr(), xp.data_ptr(), yp.data_ptr(),
-                     0], 5, (yp,))
-        row[f"p2_{name}"] = timed(pref)
-    emit(row, args.out)
+    emit(probe_row(libs, dev, args.rounds), args.out)
     return 0
 
 

@@ -69,7 +69,9 @@ def _probe_kernel(name, x, idx=None):
 
 
 def probe_tiny(x):
-    """P1: ``x * 1.0000001`` in one block; x is an (8, 128) f32 tile."""
+    """P1: ``x * 1.0000001``; x is an (8, 128) f32 tile (one block), or
+    any contiguous f32 tensor (a block per 1024 elements).  An x that is
+    not 16-byte aligned takes the kernel's scalar loads."""
     if x.is_cuda:
         return _probe_kernel("probe_tiny", x)(x)
     if x.device.type == "cpu":
@@ -78,8 +80,9 @@ def probe_tiny(x):
 
 
 def probe_prefetch(idx, x):
-    """P2: P1 with an (8,) int32 operand that the block loads first (the
-    TPU kernel's scalar prefetch)."""
+    """P2: P1 with an (8,) int32 operand (at most 256 long) that each block
+    loads beside its tile (the TPU kernel's scalar prefetch); the result
+    does not wait on it."""
     if x.is_cuda:
         return _probe_kernel("probe_prefetch", x, idx)(idx, x)
     if idx.device.type == "cpu" and x.device.type == "cpu":

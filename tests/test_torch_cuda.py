@@ -276,6 +276,56 @@ def test_probe_kernels_bit_equal(cuda):
     assert _cuda.LAUNCHES["probe_prefetch"] == before["probe_prefetch"] + 1
 
 
+# (offset in floats into a buffer, shape): the tile at each unaligned
+# start (scalar loads; the aligned tile is the test above), and a ragged
+# length over several blocks (a partial last vector)
+PROBE_VIEWS = [(1, (8, 128)), (2, (8, 128)), (3, (8, 128)), (0, (4099,)),
+               (1, (4099,))]
+
+
+@pytest.mark.parametrize("offset,shape", PROBE_VIEWS)
+def test_probe_kernels_on_views(cuda, offset, shape):
+    """P1 and P2 on a contiguous view that starts ``offset`` floats into a
+    larger buffer: bit-equal to their plain versions, one launch a call."""
+    from fos_tpu_torch.tools import launch_probe as lp
+
+    n = int(np.prod(shape))
+    g = torch.Generator().manual_seed(5 + offset)
+    x = torch.randn(n + 4, generator=g).to(cuda)[offset:offset + n].view(shape)
+    assert x.data_ptr() % 16 == 4 * offset
+    idx = torch.arange(1, 9, dtype=torch.int32, device=cuda)
+    for name, call, plain in (
+            ("probe_tiny", lambda: lp.probe_tiny(x), lp.probe_tiny_plain(x)),
+            ("probe_prefetch", lambda: lp.probe_prefetch(idx, x),
+             lp.probe_prefetch_plain(idx, x))):
+        before = _cuda.LAUNCHES[name]
+        assert torch.equal(call(), plain), name
+        assert _cuda.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("nidx", [1, 8, 256])
+def test_probe_prefetch_index_lengths(cuda, nidx):
+    """P2's result does not depend on its operand's length or values (the
+    TPU kernel's index maps ignore it); 256 is the longest it takes."""
+    from fos_tpu_torch.tools import launch_probe as lp
+
+    rng = np.random.default_rng(nidx)
+    x = torch.as_tensor(rng.standard_normal((8, 128), dtype=np.float32),
+                        device=cuda)
+    idx = torch.as_tensor(rng.integers(1, 2**31 - 1, nidx, dtype=np.int32),
+                          device=cuda)
+    zeros = torch.zeros(nidx, dtype=torch.int32, device=cuda)
+    before = _cuda.LAUNCHES["probe_prefetch"]
+    got = lp.probe_prefetch(idx, x)
+    assert _cuda.LAUNCHES["probe_prefetch"] == before + 1
+    assert torch.equal(got, lp.probe_prefetch_plain(idx, x))
+    assert torch.equal(got, lp.probe_prefetch(zeros, x))
+    assert _cuda.LAUNCHES["probe_prefetch"] == before + 2
+    with pytest.raises(ValueError, match="k <= 256"):
+        lp.probe_prefetch(torch.zeros(257, dtype=torch.int32, device=cuda), x)
+    assert _cuda.LAUNCHES["probe_prefetch"] == before + 2
+
+
 def test_tile_mv_raise_on_inputs_they_do_not_take(cuda):
     _, op = _ops("band_1000x1200", "band", cuda)
     xb = op._pad(torch.zeros(op.n, device=cuda), op._ncb() + op.blocks.shape[1],
