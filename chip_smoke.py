@@ -126,7 +126,26 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    own oracle.  Each cell's line gives the lowering, build and solve
    seconds, iterations and it/s, the status and the gate's numbers, the
    operator the build chose and the A shape that reached it, and each
-   kernel's device launch count over the cell.
+   kernel's device launch count over the cell.  The phase opens with
+   ``front_native_packer``: the native tile packer (``fos_tpu_torch/
+   native``, gated loaded) against its numpy versions on phase 2's
+   32768^2 tables, the pack and both format ratios, host seconds of each,
+   tables bit-equal and ratios equal (gated);
+10. ``sharding``: one NCCL group of world size 1 in this process.
+   ``sharded_ops``: ``RowShardedOp`` over phase 2's banded and scattered
+   tables (K2-K5), the dense row and 2D operators over its dense A (K1),
+   every product bit-equal to the unsharded operator's.
+   ``sharded_banded_lp`` / ``sharded_rows_dense_lp``: phase 2's banded LP
+   through ``RowShardedOp`` and its dense LP through
+   ``shard_problem_rows``, on the eager route (a sharded form's, by its
+   operator's type), gated Optimal and equal in status, iterations and
+   bits to phase 5's eager solve of the unsharded form.
+   ``sharded_batched_lp_128``: batched_lp_128's instances through
+   ``shard_batched_form`` at a cut budget, statuses, iterations and
+   objectives equal to the unsharded batch.  ``pipelined_dense_lp``:
+   the dense LP with ``cg_variant="pipelined"`` (graph route), Optimal and
+   phase 2's continuation and objective gate.  ``nccl_capture_probe``: whether NCCL collectives
+   capture into a conditional node's body (printed).
 
 Each kernel counts its launches on the device (``_cuda.
 device_launch_counts``), graph replays included: the counts are zeroed
@@ -138,7 +157,8 @@ launched by its path; these are the ``launches`` of the kernels line
 gated > 0 for K1, K4, K5, and for K1 over lanes and the lane condition
 ``cg_continue_lanes``, whose path it is and whose ``launches`` it gives;
 phase 8's, ``launches_phase8``, gated > 0 for K1; phase 9's,
-``launches_phase9``, gated > 0 for K1, K2 and K3).  The line
+``launches_phase9``, gated > 0 for K1, K2 and K3; phase 10's,
+``launches_phase10``, gated > 0 for K1-K5).  The line
 before the kernels line gives each phase's seconds.  The wrappers' host
 counts (``_cuda.LAUNCHES``) count the calls that launched or captured a
 kernel (``captured_calls``): a replay calls no wrapper.
@@ -1525,8 +1545,11 @@ REFINE_GAIN = 100.0
 # 100 iterations leave AP and the line search over AP at 4x the residual
 # limit on the banded problem, DR within it; a first check at 1000 gives
 # every wrapper the iterations it needs (the longstep wrapper with its
-# default interval, 100: at 50 it stood 5% over the limit at 500)
-WRAPPER_BUDGET = 5000
+# default interval, 100: at 50 it stood 5% over the limit at 500).  The
+# conic cells' budget was 5000 until PR 11: DR and the line search stop
+# at 900, Anderson at 2100 (Optimal, PR 11's run 1), and Longstep, not
+# gated on Optimal, ran all 5000 (39-52 s through its three routes)
+WRAPPER_BUDGET = 2500
 WRAPPER_FEAS_INTERVAL = 50
 WRAPPER_FEAS_CHECKI = 1000
 # batched LPs: bench.py:846-873's recipe, B x (64 x 96), numpy seeds, the
@@ -1940,6 +1963,14 @@ def counted(totals):
     got = _cuda.device_launch_counts(reset=True)
     totals.update(got)
     return got
+
+
+def discard_counts():
+    """Zero the device's launch counts without adding them anywhere: the
+    launches of a reference run, before the run whose counts are read."""
+    from fos_tpu_torch.linalg import _cuda
+
+    _cuda.device_launch_counts(reset=True)
 
 
 def slice_phase(dev, A1, b1, c1, feas, m, n):
@@ -2739,7 +2770,66 @@ def front_examples(dev, totals):
           "launches": _launches(counts)})
 
 
-def front_end_phase(dev, A1, b1, c1, opt1, dense_ref, band, unscaled_iters):
+def front_native_packer(tables):
+    """front_native_packer: the native tile packer (``fos_tpu_torch/
+    native``) on phase 2's 32768^2 banded and scattered tables as COO:
+    the pack (banded layout for the banded table, blocked-ELL for the
+    scattered one) and ``band_span_ratio`` / ``bell_storage_ratio``, each
+    native and numpy (``FOS_TPU_TORCH_NO_NATIVE``), host seconds beside
+    each other.  Gates: the library loaded (else its load error), the
+    tables bit-equal, the ratios equal."""
+    import os
+
+    from fos_tpu_torch import native
+    from fos_tpu_torch.linalg import sparse_ell
+
+    if native.get() is None:
+        print(f"native packer: {native.load_error()}", file=sys.stderr)
+        raise AssertionError(f"front_native_packer: the native library did "
+                             f"not load: {native.load_error()}")
+
+    def both(fn):
+        """(native result, seconds, numpy result, seconds)."""
+        t0 = time.perf_counter()
+        nat = fn()
+        t1 = time.perf_counter()
+        os.environ["FOS_TPU_TORCH_NO_NATIVE"] = "1"
+        try:
+            ref = fn()
+        finally:
+            del os.environ["FOS_TPU_TORCH_NO_NATIVE"]
+        return nat, t1 - t0, ref, time.perf_counter() - t1
+
+    for name, (blocks, slots), build in (
+            ("banded", tables[0], sparse_ell._build_band_arrays),
+            ("scattered", tables[1], sparse_ell._build_ell_arrays)):
+        A = tile_coo(blocks, slots)
+        m, n = A.shape
+        rows, cols = A.row.astype(np.int64), A.col.astype(np.int64)
+        vals = A.data.astype(np.float32)
+        pack, pack_s, pack_np, pack_np_s = both(
+            lambda: build(m, n, rows, cols, vals, TILE, TILE))
+        equal = all(np.array_equal(a, b) for a, b in zip(pack, pack_np))
+        ratios = {}
+        for key, fn in (("band_span_ratio", sparse_ell.band_span_ratio),
+                        ("bell_storage_ratio", sparse_ell.bell_storage_ratio)):
+            got, secs, ref, ref_s = both(lambda: fn(A))
+            ratios[key] = {"native": got, "numpy": ref, "seconds": secs,
+                           "numpy_seconds": ref_s, "equal": got == ref}
+        row = {"phase": "front_native_packer", "table": name,
+               "shape": [m, n], "nnz": int(A.nnz),
+               "layout": "band" if name == "banded" else "bell",
+               "tile_table": list(pack[0].shape),
+               "pack_seconds": pack_s, "numpy_pack_seconds": pack_np_s,
+               "bit_equal": equal, **ratios,
+               "library": native.library_path().name}
+        emit(row)
+        if not equal or not all(r["equal"] for r in ratios.values()):
+            raise AssertionError(f"front_native_packer: {row}")
+
+
+def front_end_phase(dev, A1, b1, c1, opt1, dense_ref, band, unscaled_iters,
+                    tables):
     """Phase 9 (this slice's path): the front end.  The device's counts are
     zeroed before each cell and read after it; returns their sums."""
     from fos_tpu_torch.linalg import _cuda
@@ -2747,7 +2837,8 @@ def front_end_phase(dev, A1, b1, c1, opt1, dense_ref, band, unscaled_iters):
     _cuda.device_launch_counts(reset=True)
     totals = collections.Counter()
     clock = [time.perf_counter()]
-    cells = (("front_solve_lp", lambda: front_solve_lp(
+    cells = (("front_native_packer", lambda: front_native_packer(tables)),
+             ("front_solve_lp", lambda: front_solve_lp(
                  dev, A1, b1, c1, opt1, dense_ref, totals)),
              ("front_load_problem_banded", lambda: front_load_problem_banded(
                  dev, band, unscaled_iters, totals)),
@@ -2762,6 +2853,319 @@ def front_end_phase(dev, A1, b1, c1, opt1, dense_ref, band, unscaled_iters):
         clock.append(time.perf_counter())
     emit({"phase": "front_end_timing", "seconds": dict(zip(
         (name for name, _ in cells), np.diff(clock).tolist()))})
+    return totals
+
+
+# ------------------------------------------------------------- phase 10
+# sharding over torch.distributed on one NCCL group of world size 1 (one
+# card cannot hold an NCCL group of two ranks; tests/test_torch_sharding.py
+# holds the ranks' behaviour over gloo on the CPU).  A sharded form runs
+# the eager route (its collectives are host calls), so each solve is held
+# to the unsharded solve on the eager route (phase 5's, which runs the
+# same forms).  Only the sharded calls' launches are counted: the counts
+# are zeroed just before each and read just after, and a reference's are
+# discarded.  The batched cell's cut budget: the eager route runs
+# batched_lp_128 at 70-100 ms an iteration (PR 11's runs: 6.8 / 10.6 s for
+# 100 iterations), five chunks of ten, a vote after each
+SHARDED_BATCH_ITERS = 50
+SHARDED_BATCH_CHECKI = 10
+KERNELS_K1_K5 = ("fused_matvec", "band_mv_pair", "bell_mv_pair", "band_mv",
+                 "bell_mv")
+
+
+def _pairs(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+def sharded_ops(dev, mesh, ops, A1, totals):
+    """sharded_ops: RowShardedOp over phase 2's banded and scattered
+    tables (A and A' tables), and the dense row and 2D operators over its
+    dense A: every product bit-equal to the unsharded operator's, and each
+    sharded product launching the kernel its local table runs (K4/K5 for
+    mv/rmv, K2/K3 for mv_pair, K1 for the dense blocks)."""
+    import torch
+    from fos_tpu_torch.linalg.dense_pair import PaddedDenseOp
+    from fos_tpu_torch.parallel import RowShardedOp, make_mesh
+    from fos_tpu_torch.parallel.sharding import (Dense2DShardedOp,
+                                                 DenseRowShardedOp)
+
+    rng = np.random.default_rng(41)
+
+    def vec(k):
+        return torch.as_tensor(rng.standard_normal(k, dtype=np.float32),
+                               device=dev)
+
+    A1t = torch.as_tensor(A1, device=dev)
+    mesh2 = make_mesh((1, 1), ("model_r", "model_c"), device=dev)
+    # the kernel each product must launch on each operator's local table
+    tiles = {"banded": {"mv": "band_mv", "rmv": "band_mv",
+                        "mv_pair": "band_mv_pair"},
+             "scattered": {"mv": "bell_mv", "rmv": "bell_mv",
+                           "mv_pair": "bell_mv_pair"}}
+    cases = [(name, op, lambda op=op: RowShardedOp.create(op, mesh, "model"),
+              tiles[name]) for name, op in ops]
+    cases += [("dense_rows", PaddedDenseOp.create(A1t),
+               lambda: DenseRowShardedOp.create(A1t, mesh, "model"),
+               {"mv_pair": "fused_matvec"}),
+              ("dense_2d", PaddedDenseOp.create(A1t),
+               lambda: Dense2DShardedOp.create(A1t, mesh2),
+               {"mv_pair": "fused_matvec"})]
+    for name, op, make, needs in cases:
+        t0 = time.perf_counter()
+        sh = make()
+        torch.cuda.synchronize()
+        create_s = time.perf_counter() - t0
+        m, n = op.shape
+        x, y, z = vec(n), vec(m), vec(m)
+        args = {"mv": (x,), "rmv": (y,), "mv_pair": (x, z)}
+        got, launches, secs = {}, {}, 0.0
+        for k in needs:
+            discard_counts()
+            t0 = time.perf_counter()
+            got[k] = _pairs(getattr(sh, k)(*args[k]))
+            torch.cuda.synchronize()
+            secs += time.perf_counter() - t0
+            counts = counted(totals)
+            launches[k] = {kern: counts[kern] for kern in KERNELS_K1_K5}
+        want = {k: _pairs(getattr(op, k)(*args[k])) for k in needs}
+        discard_counts()
+        equal = {k: all(torch.equal(a, b) for a, b in zip(got[k], want[k]))
+                 for k in needs}
+        row = {"phase": "sharded_ops", "operator": name,
+               "class": type(sh).__name__, "shape": [m, n],
+               "route": "cuda kernels per shard, NCCL world size 1",
+               "create_seconds": create_s, "seconds": secs,
+               "bit_equal": equal, "launches": launches}
+        emit(row)
+        if not all(equal.values()) or not all(
+                launches[k][kern] > 0 for k, kern in needs.items()):
+            raise AssertionError(f"sharded_ops: {row}")
+
+
+def sharded_solve(name, eager, form_s, opt, kernel, totals, **opts):
+    """One sharded LP solve (``engine.run``: the eager route, chosen by the
+    sharded operator's type) against phase 5's solve of the same LP on the
+    eager route (``eager``: its ``run_routes`` result and line): status,
+    iterations and bits equal, Optimal within phase 2's objective gate
+    where ``opt`` is given, and ``kernel`` launched by the solve."""
+    import torch
+    from fos_tpu_torch import DR, Status
+    from fos_tpu_torch.problems.hsde import populate_solution
+    from fos_tpu_torch.solvers import engine
+
+    plain, plain_row = eager
+    discard_counts()
+    sh, sh_s = timed_solve(lambda: engine.run(form_s, DR(), **opts))
+    launches = counted(totals)
+    obj = populate_solution(form_s, sh.guess, sh.status, sh.iters).objval
+    discard_counts()
+    rel = None if opt is None else abs(obj - opt) / abs(opt)
+    row = {"phase": name, "route": form_s.route,
+           "operator": type(form_s.A).__name__,
+           "status": Status.name(sh.status), "iters": sh.iters,
+           "seconds": sh_s, "iters_per_s": sh.iters / sh_s, "obj": obj,
+           "rel_obj_err": rel,
+           "unsharded": {"route": "eager (phase 5)",
+                         "status": Status.name(plain.status),
+                         "iters": plain.iters,
+                         "seconds": plain_row["seconds"]},
+           "bit_equal": bool(torch.equal(sh.guess, plain.guess)),
+           "launches": {k: launches[k] for k in KERNELS_K1_K5}}
+    emit(row)
+    if (form_s.route != "eager" or sh.status != Status.OPTIMAL
+            or sh.status != plain.status or sh.iters != plain.iters
+            or not row["bit_equal"] or (rel is not None and rel > GATE_OBJ)
+            or not launches[kernel]):
+        raise AssertionError(f"{name}: {row}")
+
+
+def sharded_batched_lp(dev, mesh, totals):
+    """sharded_batched_lp_128: batched_lp_128's instances split over the
+    mesh's batch axis (one vote per check, five checks) at a cut budget,
+    against the unsharded batch (graph route): statuses, iterations and
+    objectives equal.  The split batch's instances are dense (B, m, n)
+    stacks in ``torch.bmm``, so it launches none of K1-K5."""
+    import torch
+    from fos_tpu_torch import DR, build_batched_form, nonneg, solve_batched
+    from fos_tpu_torch.parallel import shard_batched_form
+
+    B, seed = BATCHED_LP_CELLS[0][:2]
+    A, b, c = batched_lp(B, seed)
+    m, n = BATCHED_LP_SHAPE
+    l = m + n + 1
+    form = build_batched_form(A, b, c, nonneg(m), nonneg(n), device=dev)
+    opts = dict(max_iters=SHARDED_BATCH_ITERS, eps=GATE_EPS,
+                checki=SHARDED_BATCH_CHECKI)
+    plain, plain_s = timed_solve(lambda: solve_batched(DR(), form, **opts))
+    sform = shard_batched_form(form, mesh)
+    discard_counts()
+    sh, sh_s = timed_solve(lambda: solve_batched(DR(), sform, **opts))
+    launches = counted(totals)
+
+    def objectives(res):
+        g = res.guess.double().cpu().numpy()
+        return np.einsum("bn,bn->b", c.astype(np.float64),
+                         g[:, :n] / g[:, l - 1:l])
+
+    row = {"phase": "sharded_batched_lp_128", "instances": B,
+           "budget": SHARDED_BATCH_ITERS, "checki": SHARDED_BATCH_CHECKI,
+           "route": sform.route,
+           "statuses": np.bincount(sh.status.cpu().numpy(),
+                                   minlength=4).tolist(),
+           "seconds": sh_s,
+           "unsharded": {"route": form.route, "seconds": plain_s},
+           "status_equal": bool(torch.equal(sh.status, plain.status)),
+           "iters_equal": bool(torch.equal(sh.iters, plain.iters)),
+           "objectives_equal": bool(np.array_equal(objectives(sh),
+                                                   objectives(plain))),
+           "bit_equal": bool(torch.equal(sh.guess, plain.guess)),
+           "launches": {k: launches[k] for k in KERNELS_K1_K5}}
+    emit(row)
+    if not (row["status_equal"] and row["iters_equal"]
+            and row["objectives_equal"]):
+        raise AssertionError(f"sharded_batched_lp_128: {row}")
+
+
+def pipelined_dense_lp(dev, A1, b1, c1, opt1, totals):
+    """pipelined_dense_lp: phase 2's dense LP with ``cg_variant=
+    "pipelined"`` (Chronopoulos-Gear CG, K1 through ``pallas=True``) on
+    the graph route, to Optimal at eps 1e-5, then phase 2's continuation
+    to eps 1e-6 and its objective gate."""
+    import torch
+    from fos_tpu_torch import DR, nonneg, solve
+
+    n = A1.shape[0]
+    kw = dict(alg=DR(), dtype=torch.float32, pallas=True, device=dev,
+              verbose=0, cg_variant="pipelined")
+    discard_counts()
+    sol, secs = timed_solve(lambda: solve(A1, b1, c1, nonneg(n), nonneg(n),
+                                          eps=GATE_EPS, **kw))
+    cont, cont_s = timed_solve(lambda: solve(
+        A1, b1, c1, nonneg(n), nonneg(n), eps=GATE_EPS / 10,
+        max_iters=10000, warm_start=sol, **kw))
+    launches = counted(totals)
+    rel = abs(cont.objval - opt1) / abs(opt1)
+    row = {"phase": "pipelined_dense_lp", "route": sol.route,
+           "status": sol.status, "iters": sol.iters, "seconds": secs,
+           "continued": {"eps": GATE_EPS / 10, "status": cont.status,
+                         "iters": cont.iters, "seconds": cont_s},
+           "obj": cont.objval, "obj_certificate": opt1, "rel_obj_err": rel,
+           "launches": {k: launches[k] for k in KERNELS_K1_K5}}
+    emit(row)
+    if (sol.status != "Optimal" or cont.status != "Optimal"
+            or rel > GATE_OBJ):
+        raise AssertionError(f"pipelined_dense_lp: {row}")
+
+
+def nccl_capture_probe(dev):
+    """nccl_capture_probe: whether this group's collectives can be captured
+    into the body of one of the port's conditional nodes (a WHILE node of
+    five passes, each an all-reduce and an all-gather around a multiply),
+    replayed bit-equal to the same passes run eagerly.  A finding for a
+    later graph route of sharded forms; no route is chosen by it."""
+    import torch
+    import torch.distributed as dist
+    from fos_tpu_torch.linalg import control
+    from fos_tpu_torch.solvers import graphs
+
+    def passes(x):
+        y = x * 1.5 + 1.0
+        dist.all_reduce(y)
+        parts = [torch.empty_like(y)]
+        dist.all_gather(parts, y)
+        return parts[0] - 0.5
+
+    x0 = torch.arange(4096, dtype=torch.float32, device=dev) / 4096
+    want = x0
+    for _ in range(5):
+        want = passes(want)
+    row = {"phase": "nccl_capture_probe", "backend": dist.get_backend(),
+           "nccl": ".".join(map(str, torch.cuda.nccl.version()))}
+    try:
+        cap = graphs.Captured(
+            lambda x: control.fori_loop(5, lambda k, v: passes(v), x), (x0,))
+    except RuntimeError as e:   # the finding: the capture is refused
+        row.update(captured_in_conditional_body=False, error=str(e)[:300])
+        emit(row)
+        return
+    try:
+        got = cap(x0)
+        torch.cuda.synchronize()
+        row.update(captured_in_conditional_body=True,
+                   bit_equal=bool(torch.equal(got, want)))
+    finally:
+        cap.release()
+    emit(row)
+    if not row["bit_equal"]:
+        raise AssertionError(f"nccl_capture_probe: {row}")
+
+
+def sharding_phase(dev, band, ell, lps, A1, b1, c1, opt1, eager):
+    """Phase 10 (this slice's path): sharding on one NCCL group of world
+    size 1, in this process.  ``lps`` are phase 2's banded LP's (b, c,
+    optimum), ``eager`` phase 5's eager solves of the banded and dense LPs
+    (``run_routes``' results by path).  Returns the device's launch counts
+    over the phase."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from fos_tpu_torch import nonneg
+    from fos_tpu_torch.linalg import _cuda
+    from fos_tpu_torch.parallel import (RowShardedOp, make_mesh,
+                                        shard_problem_rows)
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    store = _cuda.BUILD_DIR / f"nccl-store-{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    totals = collections.Counter()
+    discard_counts()
+    clock = [time.perf_counter()]
+    try:
+        mesh = make_mesh((1, 1), ("batch", "model"), device=dev)
+        emit({"phase": "sharding_group", "backend": dist.get_backend(),
+              "world_size": dist.get_world_size(),
+              "mesh": {"shape": list(mesh.mesh.shape),
+                       "names": list(mesh.mesh_dim_names)}})
+
+        def lp_form(A, b, c, **kw):
+            return HSDEForm.build(conic_problem(
+                A, b, c, nonneg(A.shape[0]), nonneg(A.shape[1]), device=dev,
+                dtype=torch.float32), **kw)
+
+        b_band, c_band, opt_band = lps
+        # phase 5's routes: eps, budget and check interval
+        opts = dict(eps=GATE_EPS, max_iters=10000, checki=100, verbose=0)
+        cells = (
+            ("sharded_ops", lambda: sharded_ops(
+                dev, mesh, (("banded", band), ("scattered", ell)), A1,
+                totals)),
+            ("sharded_banded_lp", lambda: sharded_solve(
+                "sharded_banded_lp", eager["banded_lp"],
+                lp_form(RowShardedOp.create(band, mesh, "model"), b_band,
+                        c_band), opt_band, "band_mv_pair", totals, **opts)),
+            ("sharded_rows_dense_lp", lambda: sharded_solve(
+                "sharded_rows_dense_lp", eager["dense_lp"],
+                shard_problem_rows(lp_form(A1, b1, c1, pallas=True), mesh),
+                None, "fused_matvec", totals, **opts)),
+            ("sharded_batched_lp_128", lambda: sharded_batched_lp(
+                dev, mesh, totals)),
+            ("pipelined_dense_lp", lambda: pipelined_dense_lp(
+                dev, A1, b1, c1, opt1, totals)),
+            ("nccl_capture_probe", lambda: nccl_capture_probe(dev)))
+        for _, cell in cells:
+            cell()
+            clock.append(time.perf_counter())
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    emit({"phase": "sharding_timing", "seconds": dict(zip(
+        (name for name, _ in cells), np.diff(clock).tolist())),
+        "total_seconds": clock[-1] - clock[0]})
     return totals
 
 
@@ -3303,8 +3707,11 @@ def main() -> int:
          10000),
         ("banded_feasibility", feas_form("band"), eps_feas, 10000),
         ("scattered_feasibility", feas_form("bell"), eps_feas, 10000))
+    eager_lps = {}   # phase 10 holds its sharded solves to these
     for name, make_form, eps, iters in paths:
-        run_routes(name, make_form, initial, eps, iters)
+        out, eager = run_routes(name, make_form, initial, eps, iters)
+        if name in ("dense_lp", "banded_lp"):
+            eager_lps[name] = (eager, out["eager"])
     for name, make_form, eps, _ in paths:
         # eps = 0 keeps the feasibility solves running all PROFILE_ITERS
         profile_routes(name, make_form, eps if "lp" in name else 0.0)
@@ -3390,13 +3797,25 @@ def main() -> int:
     front_counts = front_end_phase(
         dev, A1, b1, c1, opt1, dense_ref,
         (blk_band, band_slots, b_band, c_band, opt_band),
-        lp_iters["equilibrated_banded_lp"])
+        lp_iters["equilibrated_banded_lp"],
+        ((blk_band, band_slots), (blk_ell, cols)))
     for name in kernels:
         kernels[name]["launches_phase9"] = front_counts[name]
     if not all(front_counts[k] for k in ("fused_matvec", "band_mv_pair",
                                          "bell_mv_pair")):
         raise AssertionError(f"phase 9 did not launch K1, K2 and K3: "
                              f"{dict(front_counts)}")
+
+    clock.append(("phase10", time.perf_counter()))
+    # --- phase 10: sharding (this slice's path) on one NCCL group of world
+    # size 1, with the device's launch counts zeroed before it
+    shard_counts = sharding_phase(dev, band, ell, (b_band, c_band, opt_band),
+                                  A1, b1, c1, opt1, eager_lps)
+    for name in kernels:
+        kernels[name]["launches_phase10"] = shard_counts[name]
+    if not all(shard_counts[k] for k in KERNELS_K1_K5):
+        raise AssertionError(f"phase 10 did not launch K1-K5: "
+                             f"{dict(shard_counts)}")
 
     clock.append(("end", time.perf_counter()))
     emit({"phase": "timing", "seconds": {
@@ -3408,7 +3827,7 @@ def main() -> int:
             "device_ms", "plain_device_ms", "captured_calls", "sum_launches",
             "shape", "max_rel_err", "deterministic", "launches_cones_path",
             "launches_phase7", "launches_phase8", "launches_phase9",
-            "backward_ms", "library_device_ms", "graph_us",
+            "launches_phase10", "backward_ms", "library_device_ms", "graph_us",
             "lanes_over_singles", "device_over_mul")
     emit({"kernels": [{k: e.get(k) for k in keys}
                       for e in ({"name": name, "route": "cuda", **entry}

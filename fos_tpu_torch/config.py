@@ -47,13 +47,14 @@ def as_tensor(v, dtype=None, device=None) -> torch.Tensor:
 
 
 def default_device(device=None) -> torch.device:
-    """Where an entry point runs: ``device`` when given, else the first CUDA
-    card.  Without a card it raises: the CPU is used only when asked for
+    """Where an entry point runs: ``device`` when given, else the current
+    CUDA card (the first, unless a rank of a sharded run chose its own).
+    Without a card it raises: the CPU is used only when asked for
     (``device="cpu"``), never as a silent fallback."""
     if device is not None:
         return torch.device(device)
     if torch.cuda.is_available():
-        return torch.device("cuda", 0)
+        return torch.device("cuda", torch.cuda.current_device())
     raise RuntimeError(
         "no CUDA device is available; pass device=\"cpu\" to run on the CPU")
 

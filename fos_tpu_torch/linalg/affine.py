@@ -25,6 +25,7 @@ import torch
 from fos_tpu_torch.config import as_dtype, as_tensor, default_device, eps_of
 from fos_tpu_torch.linalg import hsde_ops, lanes
 from fos_tpu_torch.linalg.cg import (CGState, conjugate_gradient,
+                                     conjugate_gradient_pipelined,
                                      conjugate_gradient_tracked,
                                      decreasing_tolerance)
 
@@ -127,7 +128,10 @@ class HSDEAffineProjector:
 
     def __init__(self, A, b, c, fac=None, *, decreasing_accuracy=True,
                  cg_max_iters=1000, tol_floor=None, cg_unroll=2,
-                 compensated=False):
+                 compensated=False, cg_variant="standard"):
+        if cg_variant not in ("standard", "pipelined"):
+            raise ValueError(f"cg_variant must be 'standard' or 'pipelined', "
+                             f"got {cg_variant!r}")
         self.A = A
         self.b = b
         self.c = c
@@ -138,16 +142,13 @@ class HSDEAffineProjector:
         self.tol_floor = tol_floor
         self.cg_unroll = cg_unroll
         self.compensated = compensated
+        self.cg_variant = cg_variant
         self._neg_cb = -torch.cat([c, b], -1)
 
     @classmethod
     def create(cls, A, b, c, *, direct=False, decreasing_accuracy=True,
                cg_max_iters=1000, tol_floor=None, cg_variant="standard",
                cg_unroll=2, compensated=False):
-        if cg_variant != "standard":
-            raise NotImplementedError(
-                f"cg_variant={cg_variant!r} is not ported yet: ROADMAP queue "
-                "1, 'Sharding' (pipelined CG)")
         fac = None
         if direct:
             # u = argmin ||[I; Q] u - z||^2: QR of [I; Q] touches cond(Q)
@@ -158,15 +159,17 @@ class HSDEAffineProjector:
                                      device=b.device)
         return cls(A, b, c, fac, decreasing_accuracy=decreasing_accuracy,
                    cg_max_iters=cg_max_iters, tol_floor=tol_floor,
-                   cg_unroll=cg_unroll, compensated=compensated)
+                   cg_unroll=cg_unroll, compensated=compensated,
+                   cg_variant=cg_variant)
 
     def replace(self, **changes) -> "HSDEAffineProjector":
-        """A copy with some settings changed (every field is carried)."""
-        kw = dict(fac=self.fac, decreasing_accuracy=self.decreasing_accuracy,
+        """A copy with some fields changed (every field is carried)."""
+        kw = dict(A=self.A, b=self.b, c=self.c, fac=self.fac, decreasing_accuracy=self.decreasing_accuracy,
                   cg_max_iters=self.cg_max_iters, tol_floor=self.tol_floor,
-                  cg_unroll=self.cg_unroll, compensated=self.compensated)
+                  cg_unroll=self.cg_unroll, compensated=self.compensated,
+                  cg_variant=self.cg_variant)
         kw.update(changes)
-        return HSDEAffineProjector(self.A, self.b, self.c, **kw)
+        return HSDEAffineProjector(**kw)
 
     @property
     def l(self) -> int:
@@ -186,11 +189,12 @@ class HSDEAffineProjector:
     def init_state_from(self, z0) -> CGState:
         """Warm start seeded from the initial iterate: ``warm = u0`` and
         ``v_warm = Q u0``, one pair paid once so that every projection
-        forms its CG residual with a single pair.  Direct mode reads no warm
-        start and keeps the plain state.  The state takes ``z0``'s lanes."""
+        forms its CG residual with a single pair.  Direct mode and the
+        pipelined variant read no ``v_warm`` and keep the plain state.  The
+        state takes ``z0``'s lanes."""
         state = CGState.create(self.l, z0.dtype, z0.device,
                                lanes.lane_shape(z0))
-        if self.direct:
+        if self.direct or self.cg_variant == "pipelined":
             return state
         u0 = z0[..., : self.l]
         return state._replace(warm=u0, v_warm=self._q(u0),
@@ -220,27 +224,19 @@ class HSDEAffineProjector:
             new_cg = cg._replace(call_idx=cg.call_idx + 1,
                                  last_iters=torch.zeros_like(cg.last_iters))
             return torch.cat([u, self._q(u)], -1), new_cg
+        if self.cg_variant == "pipelined":
+            return self._project_pipelined(z, cg)
         if cg.v_warm is None:
             raise ValueError(
                 "CGState without v_warm: seed it with init_state_from")
         l = self.l
         u0 = z[..., :l]
         v0 = z[..., l:]
+        tol = self._tol(cg, z)
         # one pair for the initial residual, by skew-symmetry:
         #   r0 = u0 - Q v0 - warm - Q'(Q warm) = u0 - Q(v0 - v_warm) - warm
         warm = cg.warm
         r0 = u0 - self._q(v0 - cg.v_warm) - warm
-        if cg.floor is not None:
-            floor = cg.floor
-        elif self.tol_floor is not None:
-            floor = self.tol_floor
-        else:
-            floor = _default_floor(2 * l, z.dtype)  # KKT size = 2l
-        if self.decreasing_accuracy:
-            tol = decreasing_tolerance(cg.call_idx, floor, z.dtype)
-        else:
-            tol = (floor.to(z.dtype) if isinstance(floor, torch.Tensor)
-                   else torch.full((), floor, dtype=z.dtype, device=z.device))
         res = conjugate_gradient_tracked(
             self._q, r0, warm, cg.v_warm, tol=tol, max_iters=self.cg_max_iters,
             unroll=self.cg_unroll, compensated=self.compensated)
@@ -250,6 +246,39 @@ class HSDEAffineProjector:
                              call_idx=cg.call_idx + 1, last_iters=res.iters,
                              total_iters=total)
         return torch.cat([res.x, res.Qx], -1), new_cg
+
+    def _tol(self, cg: CGState, z):
+        """This projection's CG tolerance: the state's floor, else the
+        projector's, else ``2l eps``, loosened by the decreasing-accuracy
+        schedule."""
+        if cg.floor is not None:
+            floor = cg.floor
+        elif self.tol_floor is not None:
+            floor = self.tol_floor
+        else:
+            floor = _default_floor(2 * self.l, z.dtype)  # KKT size = 2l
+        if self.decreasing_accuracy:
+            return decreasing_tolerance(cg.call_idx, floor, z.dtype)
+        return (floor.to(z.dtype) if isinstance(floor, torch.Tensor)
+                else torch.full((), floor, dtype=z.dtype, device=z.device))
+
+    def _project_pipelined(self, z, cg: CGState):
+        """Chronopoulos-Gear CG on ``(I + Q'Q) u = u0 - Q v0`` from the
+        previous solution (``u0`` on the first call), then ``v = Q u``: the
+        JAX package's pipelined path, which tracks no ``Q u``."""
+        l = self.l
+        u0 = z[..., :l]
+        rhs = u0 - self._q(z[..., l:])
+        warm = lanes.select(cg.initialized, cg.warm, u0)
+        res = conjugate_gradient_pipelined(
+            lambda u: hsde_ops.hsde_normal_mul(self.A, self.b, self.c, u),
+            rhs, warm, tol=self._tol(cg, z), max_iters=self.cg_max_iters)
+        total = None if cg.total_iters is None else cg.total_iters + res.iters
+        new_cg = cg._replace(warm=res.x,
+                             initialized=torch.ones_like(cg.initialized),
+                             call_idx=cg.call_idx + 1, last_iters=res.iters,
+                             total_iters=total)
+        return torch.cat([res.x, self._q(res.x)], -1), new_cg
 
 
 def _matrix(A, device):

@@ -18,6 +18,13 @@ vmapped ``lax.while_loop`` tests it: a group's result is kept only for the
 lanes that were live when it began, so lane j ends where a solve of lane j
 alone ends.  The loop runs while any lane is live (``cg_continue_lanes`` on
 the card).
+
+``group`` (a ``torch.distributed`` process group): the vectors are shards
+of longer ones, one per rank, and every dot product is summed over the
+group with one all-reduce, so each rank computes the same scalars and
+takes the same steps.  Standard CG makes 1 + 2 all-reduces per iteration,
+the pipelined variant 1 + 1 (in the JAX package GSPMD inserted these
+collectives for sharded vectors).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from fos_tpu_torch.linalg import control, lanes
 
@@ -72,12 +80,22 @@ class CGState(NamedTuple):
         )
 
 
-def _dot_fn(compensated: bool):
+def _dot_fn(compensated: bool, group=None):
     if compensated:
+        if group is not None:
+            raise ValueError("compensated CG dots take no process group")
         from fos_tpu_torch.linalg.compensated import cdot
 
         return cdot
-    return lanes.vdot
+    if group is None:
+        return lanes.vdot
+    return lambda a, b: _summed(lanes.vdot(a, b), group)
+
+
+def _summed(t, group):
+    """``t`` summed over the ranks of ``group``: one all-reduce."""
+    dist.all_reduce(t, group=group)
+    return t
 
 
 def _cg_step(dot, Ap, p, x, r, rn, it, tol2):
@@ -143,11 +161,13 @@ def conjugate_gradient(
     max_iters: int,
     unroll: int = 1,
     compensated: bool = False,
+    group=None,
 ) -> CGResult:
     """Solve ``matvec(x) == b`` from warm start ``x0`` to an absolute
     tolerance on ``||r||``; ``compensated`` takes the two dots of each
-    iteration in float-float arithmetic."""
-    dot = _dot_fn(compensated)
+    iteration in float-float arithmetic; ``group`` sums the dots over the
+    ranks that hold the vectors' shards (module docstring)."""
+    dot = _dot_fn(compensated, group)
     r = b - matvec(x0)
     x0 = _like_lanes(x0, r)
     rn = dot(r, r)
@@ -182,15 +202,17 @@ def conjugate_gradient_tracked(
     max_iters: int,
     unroll: int = 1,
     compensated: bool = False,
+    group=None,
 ) -> CGTrackedResult:
     """CG on the HSDE normal operator ``M = I + Q'Q`` that tracks ``Q x``.
 
     The caller supplies the initial residual ``r0 = rhs - M(x0)`` and
     ``Qx0 = Q @ x0``.  Each iteration computes ``Qp`` once and uses it for
     both ``M p = p - Q(Q p)`` and ``Qx += alpha * Qp``, so the final
-    ``v = Q u`` costs no extra product.
+    ``v = Q u`` costs no extra product.  ``group`` as for
+    :func:`conjugate_gradient`.
     """
-    dot = _dot_fn(compensated)
+    dot = _dot_fn(compensated, group)
     rn = dot(r0, r0)
     tol2 = _tol2(tol, r0)
     it = torch.zeros(rn.shape, dtype=torch.int32, device=r0.device)
@@ -210,6 +232,58 @@ def conjugate_gradient_tracked(
         group, (_like_lanes(x0, r0), _like_lanes(Qx0, r0), r0, r0, rn, it),
         4, 5, tol2, max_iters)
     return CGTrackedResult(x=x, Qx=Qx, iters=it, rnorm=torch.sqrt(rn))
+
+
+def conjugate_gradient_pipelined(
+    matvec: Callable[[torch.Tensor], torch.Tensor],
+    b: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    tol,
+    max_iters: int,
+    group=None,
+) -> CGResult:
+    """Chronopoulos-Gear CG: one product and ONE reduction per iteration.
+
+    The two dot products of standard CG become one stacked reduction of
+    ``(r.r, r.Ar)`` per iteration, which halves the collectives when the
+    vectors are sharded (``group``; PAPERS.md, "Communication-reduced
+    Conjugate Gradient Variants").  The same iterates as standard CG in
+    exact arithmetic, slightly less stable in floating point (the alpha
+    recurrence).  It stops on ``(gamma > tol^2) & (it < max_iters)``; with
+    lanes each lane stops on its own, as under the JAX package's ``vmap``.
+    """
+    def dots(r, w):
+        gd = torch.stack([lanes.vdot(r, r), lanes.vdot(r, w)])
+        return gd if group is None else _summed(gd, group)
+
+    r0 = b - matvec(x0)
+    x0 = _like_lanes(x0, r0)
+    w0 = matvec(r0)
+    gamma0, delta0 = dots(r0, w0)
+    tol2 = _tol2(tol, b)
+    alpha0 = torch.where(delta0 != 0, gamma0 / delta0, 0.0)
+    it = torch.zeros(gamma0.shape, dtype=torch.int32, device=b.device)
+
+    def group_step(c):
+        x, r, w, p, s, gamma, alpha, beta, it = c
+        p = r + lanes.per_lane(beta, p) * p
+        s = w + lanes.per_lane(beta, s) * s
+        x = x + lanes.per_lane(alpha, p) * p
+        r = r - lanes.per_lane(alpha, s) * s
+        w = matvec(r)
+        gamma_new, delta_new = dots(r, w)
+        beta_new = gamma_new / gamma
+        denom = delta_new - beta_new * gamma_new / alpha
+        alpha_new = torch.where(denom != 0, gamma_new / denom, 0.0)
+        return x, r, w, p, s, gamma_new, alpha_new, beta_new, it + 1
+
+    zero = torch.zeros_like(r0)
+    carry = (x0, r0, w0, zero, zero, gamma0, alpha0,
+             torch.zeros_like(gamma0), it)
+    x, r, _, _, _, gamma, _, _, it = _loop(group_step, carry, 5, 8, tol2,
+                                           max_iters)
+    return CGResult(x=x, iters=it, rnorm=torch.sqrt(gamma))
 
 
 def decreasing_tolerance(call_idx, floor, dtype):

@@ -23,8 +23,9 @@ CUDA tensor and its plain PyTorch version on a CPU tensor:
   projection needs them: K4 (:func:`band_mv`, of ``_band_mv``) and K5
   (:func:`bell_mv`, of ``_bell_mv``).
 
-The host builders are numpy and produce tables bit-identical to the JAX
-package's builders; ``from_arrays(..., transpose_table=True)`` packs the A'
+The host builders run the native packer (:mod:`fos_tpu_torch.native`), or
+their numpy versions without it, and produce tables bit-identical to the
+JAX package's builders; ``from_arrays(..., transpose_table=True)`` packs the A'
 table from the A table's tiles, bit-identical to what ``create`` packs from
 the same matrix.
 """
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from fos_tpu_torch.config import default_device
+from fos_tpu_torch import native
 from fos_tpu_torch.linalg import _cuda
 
 
@@ -64,9 +66,16 @@ def _coo_parts(A):
 
 
 def _build_ell_arrays(m, n, rows, cols, vals, bm, bn):
-    """Pack COO triplets into blocked-ELL arrays: (blocks, cols, counts)."""
+    """Pack COO triplets into blocked-ELL arrays: (blocks, cols, counts).
+
+    The native packer (:mod:`fos_tpu_torch.native`) runs first; the numpy
+    code below is its fallback and the reference it is held to, bit for
+    bit."""
     nrb = _pad8(math.ceil(m / bm))
     ncb = math.ceil(n / bn)
+    nat = native.ell_pack(rows, cols, vals, nrb, ncb, bm, bn, _ell_kmax)
+    if nat is not None:
+        return nat
     ti = rows // bm
     tj = cols // bn
     pair = ti.astype(np.int64) * ncb + tj
@@ -90,8 +99,12 @@ def _build_ell_arrays(m, n, rows, cols, vals, bm, bn):
 
 def _build_band_arrays(m, n, rows, cols, vals, bm, bn):
     """Pack COO triplets into banded arrays: (blocks, cs, S), where row
-    block i holds the tile-column window [cs_i, cs_i + S)."""
+    block i holds the tile-column window [cs_i, cs_i + S).  Native first,
+    as :func:`_build_ell_arrays`."""
     nrb = _pad8(math.ceil(m / bm))
+    nat = native.band_pack(rows, cols, vals, nrb, math.ceil(n / bn), bm, bn)
+    if nat is not None:
+        return nat
     ti = rows // bm
     tj = cols // bn
     lo = np.full(nrb, np.iinfo(np.int64).max, np.int64)
@@ -108,6 +121,31 @@ def _build_band_arrays(m, n, rows, cols, vals, bm, bn):
     return blocks, lo.astype(np.int32), S
 
 
+def _band_stats_numpy(r, c, mm, br, bc):
+    """(widest window, most distinct tiles) over the row blocks of one
+    direction of a nonempty COO pattern, in numpy."""
+    nrb = _pad8(math.ceil(mm / br))
+    ti = r // br
+    tj = c // bc
+    lo = np.full(nrb, np.iinfo(np.int64).max, np.int64)
+    hi = np.full(nrb, -1, np.int64)
+    np.minimum.at(lo, ti, tj)
+    np.maximum.at(hi, ti, tj)
+    span = int(np.where(hi >= 0, hi - lo + 1, 0).max())
+    ncb_tiles = int(tj.max()) + 1
+    upair = np.unique(ti.astype(np.int64) * ncb_tiles + tj)
+    return span, int(np.bincount(upair // ncb_tiles, minlength=nrb).max())
+
+
+def _tile_stats(rows, cols, m, n, bm, bn):
+    """Both directions' (widest window, most tiles) of a nonempty COO
+    pattern: the native library's, else numpy's."""
+    return (native.tile_stats(rows, cols, math.ceil(m / bm),
+                              math.ceil(n / bn), bm, bn)
+            or (_band_stats_numpy(rows, cols, m, bm, bn),
+                _band_stats_numpy(cols, rows, n, bn, bm)))
+
+
 def band_span_ratio(A, bm=128, bn=128) -> float:
     """Banded storage (of A and of A') relative to blocked-ELL storage:
     1.0 when every row block's tiles are contiguous, large when columns
@@ -115,22 +153,8 @@ def band_span_ratio(A, bm=128, bn=128) -> float:
     rows, cols, _, m, n = _coo_parts(A)
     if rows.size == 0:
         return 1.0
-
-    def one(r, c, mm, br, bc):
-        nrb = _pad8(math.ceil(mm / br))
-        ti = r // br
-        tj = c // bc
-        lo = np.full(nrb, np.iinfo(np.int64).max, np.int64)
-        hi = np.full(nrb, -1, np.int64)
-        np.minimum.at(lo, ti, tj)
-        np.maximum.at(hi, ti, tj)
-        span = int(np.where(hi >= 0, hi - lo + 1, 0).max())
-        ncb_tiles = int(tj.max()) + 1
-        upair = np.unique(ti.astype(np.int64) * ncb_tiles + tj)
-        cnt = int(np.bincount(upair // ncb_tiles, minlength=nrb).max())
-        return span / max(cnt, 1)
-
-    return max(one(rows, cols, m, bm, bn), one(cols, rows, n, bn, bm))
+    return max(span / max(cnt, 1)
+               for span, cnt in _tile_stats(rows, cols, m, n, bm, bn))
 
 
 def bell_storage_ratio(A, bm=128, bn=128) -> float:
@@ -139,12 +163,10 @@ def bell_storage_ratio(A, bm=128, bn=128) -> float:
     rows, cols, _, m, n = _coo_parts(A)
     nrb = _pad8(math.ceil(m / bm))
     ncb = _pad8(math.ceil(n / bn))
-    ti = rows // bm
-    tj = cols // bn
-    pair = ti.astype(np.int64) * ncb + tj
-    upair = np.unique(pair)
-    kmax = int(np.bincount(upair // ncb, minlength=nrb).max()) if upair.size else 1
-    kmax_t = int(np.bincount(upair % ncb, minlength=ncb).max()) if upair.size else 1
+    kmax = kmax_t = 1
+    if rows.size:
+        stats = _tile_stats(rows, cols, m, n, bm, bn)
+        kmax, kmax_t = stats[0][1], stats[1][1]
     return ((nrb * kmax + ncb * kmax_t) * bm * bn) / float(m * n)
 
 

@@ -23,6 +23,7 @@ from fos_tpu_torch.linalg.affine import (HSDEAffineProjector,
                                          _ls_projection_fac)
 from fos_tpu_torch.problems.hsde import HSDEForm, hsde_cone_spec
 from fos_tpu_torch.solvers import engine
+from fos_tpu_torch.solvers.status import Status
 from fos_tpu_torch.solvers.base import GAPP, ConeSet, TwoSets
 
 
@@ -88,6 +89,8 @@ def _start(form, initx):
     if initx is None:
         return form_initial_value(form).expand(B, 2 * l).clone()
     x0 = as_tensor(initx, form.dtype, form.device)
+    if form.batch_shard is not None:
+        x0 = form.batch_shard.local_rows(x0)
     if tuple(x0.shape) != (B, 2 * l):
         raise ValueError(f"initx must be (B, 2l) = {(B, 2 * l)}, got "
                          f"{tuple(x0.shape)}")
@@ -118,6 +121,12 @@ def solve_batched(alg, form: HSDEForm, *, max_iters: int = 10000,
     The algorithm steps every instance at once: the GAP family (GAP, DR,
     AP), GAPA, FISTA and Dykstra.  GAPP and the wrappers, whose steps
     branch per instance, are refused.
+
+    On a form split over ranks (:func:`fos_tpu_torch.parallel.sharding.
+    shard_batched_form`, ``shard_batched_form_rows``) each rank solves its
+    instances, the chunk loop and the segments stop on one vote over the
+    ranks per check, and every rank returns the whole batch's result
+    (``initx`` may be the whole batch's or this rank's rows).
     """
     return _solve_batched(engine.fused_solve, alg, form, max_iters=max_iters,
                           eps=eps, checki=checki,
@@ -148,8 +157,19 @@ def _solve_batched(fused, alg, form, *, max_iters=10000, eps=1e-5,
     x0 = _start(form, initx)
     opts = dict(eps=eps, checki=checki, record_history=record_history)
     if segment_iters is None or segment_iters >= max_iters:
-        return fused(alg, form, x0, max_iters=max_iters,
-                     budget_iters=budget_iters, **opts)
+        res = fused(alg, form, x0, max_iters=max_iters,
+                    budget_iters=budget_iters, **opts)
+    else:
+        res = _segmented(fused, alg, form, x0, max_iters, segment_iters,
+                         budget_iters, opts)
+    if form.batch_shard is not None:
+        res = form.batch_shard.gather(res)
+    return res
+
+
+def _segmented(fused, alg, form, x0, max_iters, segment_iters, budget_iters,
+               opts):
+    record_history = opts["record_history"]
     budget = max_iters if budget_iters is None else budget_iters
     merged = done = state = None
     hists = []
@@ -176,7 +196,9 @@ def _solve_batched(fused, alg, form, *, max_iters=10000, eps=1e-5,
             merged = merged._replace(status=torch.where(
                 done, merged.status, torch.zeros_like(merged.status)))
         state = merged.state
-        if bool(done.all()):
+        # every rank of a split batch runs the same segments
+        left = torch.where(done, Status.OPTIMAL, Status.CONTINUE)
+        if not bool((form.vote(left) == Status.CONTINUE).any()):
             break
     # state.i carries the true count: a resumed segment keeps counting
     merged = merged._replace(iters=merged.state.i)

@@ -110,6 +110,11 @@ class FeasibilityForm:
                              code(Status.CONTINUE))
         return FeasibilityCheck(status, err)
 
+    def vote(self, status):
+        """The chunk loop's status: ``status`` as it is (a feasibility
+        problem is not split over ranks)."""
+        return status
+
     # --- engine observability hooks (printing + history) ------------------
     def header(self, init_duration_s: float) -> str:
         from fos_tpu_torch.utils import printing

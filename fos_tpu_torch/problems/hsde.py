@@ -98,6 +98,9 @@ class HSDEForm:
         self.K2_spec = K2_spec
         self.strict_certificates = strict_certificates
         self.compensated = compensated
+        #: where a batch split over ranks puts this form's instances
+        #: (:func:`fos_tpu_torch.parallel.sharding.shard_batched_form`)
+        self.batch_shard = None
 
     # ------------------------------------------------------------------
     @classmethod
@@ -181,7 +184,8 @@ class HSDEForm:
                     "dtype=torch.float32 or use sparse_format='bcoo'")
         if _is_scipy_sparse(A):
             A = _to_torch_sparse(A, dtype, device)
-        if pallas:
+        if pallas and not getattr(A, "sharded", False):
+            # a sharded operator holds its local blocks' K1 already
             from fos_tpu_torch.linalg.dense_pair import PaddedDenseOp
 
             if not isinstance(A, PaddedDenseOp):
@@ -240,12 +244,27 @@ class HSDEForm:
                                      for cone, _ in s2.spec.blocks) else None)
 
     @property
+    def sharded(self) -> bool:
+        """Whether the solve runs across ranks: a sharded operator
+        (:mod:`fos_tpu_torch.parallel.sharding`) or a split batch."""
+        return bool(getattr(self.A, "sharded", False)
+                    or self.batch_shard is not None)
+
+    def vote(self, status):
+        """The chunk loop's status: ``status`` as it is, or for a batch
+        split over ranks the ranks' one vote on it (:class:`fos_tpu_torch.
+        parallel.sharding.BatchShard`)."""
+        return (status if self.batch_shard is None
+                else self.batch_shard.vote(status))
+
+    @property
     def graph_route(self) -> bool:
         """Whether the engine may run this form as captured CUDA graphs:
         not with PSD blocks projected by ``torch.linalg.eigh``, whose
-        capture the card refuses (the stream capture is invalidated).
-        Decided when the form is built, never by a failed capture."""
-        return self.psd_method != "eigh"
+        capture the card refuses (the stream capture is invalidated), and
+        not across ranks, whose collectives are host calls.  Decided when
+        the form is built, never by a failed capture."""
+        return self.psd_method != "eigh" and not self.sharded
 
     @property
     def route(self) -> str:
@@ -463,12 +482,36 @@ class HSDEForm:
         floors = self.fused_cg_floors()
         if floors is None:
             return None
-        s1b = self.sets.s1.replace(tol_floor=floors[1])
-        form = HSDEForm(TwoSets(s1b, self.sets.s2), self.A, self.b, self.c,
+        form = self._copy(self.sets.s1.replace(tol_floor=floors[1]))
+        form._norms = self._host_norms()
+        return form
+
+    def with_operator(self, A) -> "HSDEForm":
+        """A copy whose A (in the form and in its projector) is ``A``: a
+        sharded operator in place of the replicated data."""
+        form = self._copy(self.sets.s1.replace(A=A), A=A)
+        form.setup_seconds = getattr(self, "setup_seconds", {})
+        return form
+
+    def instances(self, lo: int, hi: int) -> "HSDEForm":
+        """A batched form's instances ``[lo, hi)`` as a batched form."""
+        def sl(t):
+            return None if t is None else t[lo:hi]
+
+        s1 = self.sets.s1
+        s1 = s1.replace(A=sl(s1.A), b=sl(s1.b), c=sl(s1.c), fac=sl(s1.fac))
+        return HSDEForm(TwoSets(s1, self.sets.s2), sl(self.A), sl(self.b),
+                        sl(self.c), sl(self.norm_b), sl(self.norm_c), self.n,
+                        self.m, sl(self.dinv), sl(self.einv), self.K2_spec,
+                        self.strict_certificates, self.compensated)
+
+    def _copy(self, s1, A=None) -> "HSDEForm":
+        form = HSDEForm(TwoSets(s1, self.sets.s2),
+                        self.A if A is None else A, self.b, self.c,
                         self.norm_b, self.norm_c, self.n, self.m, self.dinv,
                         self.einv, self.K2_spec, self.strict_certificates,
                         self.compensated)
-        form._norms = self._host_norms()
+        form.batch_shard = self.batch_shard
         return form
 
     # --- engine observability hooks (printing + history) ------------------

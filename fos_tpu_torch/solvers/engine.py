@@ -550,9 +550,12 @@ def _fused(alg, form, st0, budget, *, nchunks, rem, checki, eps,
     i32 = dict(dtype=torch.int32, device=dev)
     carry = (st0, torch.full(lane, Status.CONTINUE, **i32),
              torch.zeros((), **i32), hist0, torch.zeros(lane, **i32))
+    # a batch split over ranks runs its chunks while any rank's instance
+    # continues: one vote per check (``status`` unchanged for a form that
+    # is not split)
     st, status, k, hist, stall = control.while_loop(
-        lambda c: control.Count(c[2], control.TEST, nchunks, c[1],
-                                Status.CONTINUE),
+        lambda c: control.Count(c[2], control.TEST, nchunks,
+                                form.vote(c[1]), Status.CONTINUE),
         chunk_body, carry)
     if rem:
         # the exact budget: the trailing max_iters % checki iterations

@@ -1012,3 +1012,71 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
          for r in (resumed, straight)]
     assert resumed.status == straight.status == 1
     assert abs(f[0] - f[1]) <= 1e-5 * (1 + abs(f[1]))
+
+
+def test_native_loader_beside_the_kernels(cuda):
+    """The native packer builds from fos_tpu_torch/native into build/ beside
+    the CUDA library, and its packs are the numpy packs bit for bit."""
+    import os
+
+    from fos_tpu_torch import native
+
+    assert native.get() is not None, native.load_error()
+    assert native.library_path().parent == _cuda.BUILD_DIR
+    A = sp.random(900, 700, density=0.02, format="coo", random_state=7,
+                  dtype=np.float32)
+    rows, cols = A.row.astype(np.int64), A.col.astype(np.int64)
+    got = tse._build_ell_arrays(900, 700, rows, cols, A.data, 128, 128)
+    os.environ["FOS_TPU_TORCH_NO_NATIVE"] = "1"
+    try:
+        want = tse._build_ell_arrays(900, 700, rows, cols, A.data, 128, 128)
+        want_ratio = tse.band_span_ratio(A)
+    finally:
+        del os.environ["FOS_TPU_TORCH_NO_NATIVE"]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert tse.band_span_ratio(A) == want_ratio
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(cuda, tmp_path_factory):
+    """A world-size-1 NCCL group in this process and its (1, 1) mesh."""
+    import torch.distributed as dist
+
+    from fos_tpu_torch.parallel import make_mesh
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    try:
+        yield make_mesh((1, 1), ("batch", "model"), device=cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", ["band", "bell"])
+def test_row_sharded_op_nccl_bit_equal(cuda, nccl_mesh, kind):
+    """RowShardedOp over a world-size-1 NCCL group: mv, rmv (K4/K5) and
+    mv_pair (K2/K3) bit-equal to the unsharded operator, and a sharded form
+    runs the eager route."""
+    from fos_tpu_torch import nonneg
+    from fos_tpu_torch.parallel import RowShardedOp
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    A = sp.random(1500, 1300, density=0.003, format="csr", random_state=3,
+                  dtype=np.float32)
+    cls = tse.BandedBlockOp if kind == "band" else tse.BlockedEllOp
+    op = cls.create(A, transpose_table=True, device=cuda)
+    sh = RowShardedOp.create(op, nccl_mesh, "model")
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x, y = (torch.randn(k, generator=g).to(cuda) for k in (1300, 1500))
+    assert torch.equal(sh.mv(x), op.mv(x))
+    assert torch.equal(sh.rmv(y), op.rmv(y))
+    for a, b in zip(sh.mv_pair(x, y), op.mv_pair(x, y)):
+        assert torch.equal(a, b)
+    b = torch.ones(1500, device=cuda)
+    c = torch.ones(1300, device=cuda)
+    form = HSDEForm.build(conic_problem(sh, b, c, nonneg(1500),
+                                        nonneg(1300)))
+    assert form.route == "eager"

@@ -67,6 +67,32 @@ def test_lasso_dsl_variant(capsys):
     assert capsys.readouterr().out.strip()
 
 
+def test_batched_scenario_mesh_branch_over_two_ranks(tmp_path):
+    """The example's mesh branch: launched on two gloo ranks it splits the
+    batch over a (2, 1) mesh, and each rank returns the whole batch, as the
+    example gives it on one process."""
+    import pickle
+
+    import numpy as np
+
+    import _torch_sharding_ranks as ranks
+
+    kwargs = SMALL_ARGS["batched_scenario_lps"]
+    ctx = torch.multiprocessing.start_processes(
+        ranks.example, args=(2, str(tmp_path), kwargs), nprocs=2,
+        join=False, start_method="spawn")
+    one = _load("batched_scenario_lps").main(device="cpu", **kwargs)
+    while not ctx.join(timeout=300):
+        pass
+    for r in range(2):
+        with open(tmp_path / f"example{r}.pkl", "rb") as f:
+            got = pickle.load(f)
+        assert "batch axis sharded over 2 ranks" in got["printed"]
+        np.testing.assert_array_equal(got["status"], one.status.numpy())
+        np.testing.assert_allclose(got["guess"], one.guess.numpy(),
+                                   rtol=1e-9, atol=1e-9)
+
+
 def test_examples_need_a_card_or_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the example would run there")
