@@ -76,8 +76,8 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ``PRNGKey(29)`` draw, ``fos_tpu_torch/tools/data``);
 7. ``slice``: refine, the wrappers and the batched solve (a lane axis
    through CG and fused_solve).  ``refine_dense_lp``: the dense LP at
-   eps = 1e-5 in f32 through K1, then an f64 sweep from its iterate
-   (gated: 100x closer to the certificate, no K1 launch).
+   eps = 1e-5 in f32 through K1, then a 10000-iteration f64 sweep from
+   its iterate (gated: 50x closer to the certificate, no K1 launch).
    ``wrappers_dense_lp``: DR, LineSearch, Anderson and Longstep through
    the three routes (gated equal), and K1's device counts over one
    line-search step against the counts its CG passes imply (exact): single
@@ -85,8 +85,14 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    ``wrappers_feasibility``: LineSearch(AP) and Longstep(DR) through K4,
    LineSearch(DR) through K5, per probe lane (routes, Optimal, residual).
    ``batched_lp_128`` / ``_1024``: bench.py's batched LPs at a
-   12000-iteration budget (a floor of Optimal instances gated; the
+   12000- / 6000-iteration budget (a floor of Optimal instances gated; the
    instances that stop within 1e-3 of HiGHS), segments and routes equal.
+   ``batched_wrappers_lp_128``: the 128 instances under GAPP and the three
+   wrappers, continuing DR's batched state at its budget (the line
+   search's probes a (128, 31) lane axis through CG; finite guesses,
+   objectives within 1e-3 of HiGHS, Optimal floors, graph route equal to
+   eager, ``cg_continue_lanes`` launched; two instances continued alone
+   printed).
    ``batched_sdp_64``: 64 lambda-min SDPs sharing one stride-0 A.
    Route agreement in phases 5 and 6 runs at a smaller depth where a
    repeated solve would cost minutes (the constants say which);
@@ -104,6 +110,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    K1 with a cut derivative budget, gated on K1's launches and finite
    gradients (DR stops short of its optimum); ``diff_batched_lp``: 64 LPs
    differentiated at once, per-lane gradient gated;
+   ``diff_batched_lp_wrapped``: the same batch with the forward under the
+   line search and Anderson (every instance Optimal, g_c against x and
+   against plain DR's gradient, gated);
 9. ``front_end``: the front end (the SCS/MathProgBase interface, the
    modeling DSL, checkpoints and the examples) driving K1-K3 from modeled
    data, f32.  ``front_solve_lp``: phase 2's dense LP through ``solve_lp``
@@ -156,7 +165,10 @@ launched by its path; these are the ``launches`` of the kernels line
 ``launches_cones_path``; phase 7's, of every kernel, ``launches_phase7``,
 gated > 0 for K1, K4, K5, and for K1 over lanes and the lane condition
 ``cg_continue_lanes``, whose path it is and whose ``launches`` it gives;
-phase 8's, ``launches_phase8``, gated > 0 for K1; phase 9's,
+``launches_batched_wrappers_lp_128``, the part of them that cell made,
+gated > 0 for ``cg_continue_lanes``; phase 8's, ``launches_phase8``,
+gated > 0 for K1, with ``launches_diff_batched_lp_wrapped`` the wrapped
+batch's part; phase 9's,
 ``launches_phase9``, gated > 0 for K1, K2 and K3; phase 10's,
 ``launches_phase10``, gated > 0 for K1-K5).  The line
 before the kernels line gives each phase's seconds.  The wrappers' host
@@ -1534,10 +1546,13 @@ def cones_phase(dev, A1, b1, c1, opt1, lp_tables, unscaled_iters):
 # at least REFINE_GAIN times closer to the certificate than the f32 stage.
 # DR's f64 sweep on this LP gains about a decade of residual per 15000
 # iterations: eps 1e-9, or an objective within 1e-6, are out of reach of
-# the time this script has (PERF.md, Findings)
-REFINE_ITERS = 20000
+# the time this script has (PERF.md, Findings).  20000 iterations (52.1 s)
+# gave a gain of 212; 10000 (26.6 s), run since batched_wrappers_lp_128
+# came in, gave 4.23e-5 against the f32 stage's 2.44e-3, a gain of 57.8
+# (NVIDIA H100 80GB HBM3, 700 W)
+REFINE_ITERS = 10000
 REFINE_EPS = 1e-9
-REFINE_GAIN = 100.0
+REFINE_GAIN = 50.0
 # wrappers: the conic cells' budget; the feasibility cells' wrapper interval
 # and check interval.  In f32 the feasibility test (consecutive iterates
 # within eps) passes at the first check, whatever the algorithm (see
@@ -1564,16 +1579,36 @@ WRAPPER_FEAS_CHECKI = 1000
 # segment length and the budget over which segments are held to the
 # single run (a whole second solve of the 1024 instances takes longer than
 # this script may); the route-agreement and rate budget; the objective
-# gate against host f64 HiGHS, |obj - f*| <= 1e-3 (1 + |f*|)
-BATCHED_LP_CELLS = ((128, 13, 12000, 44), (1024, 17, 12000, 230))
+# gate against host f64 HiGHS, |obj - f*| <= 1e-3 (1 + |f*|).  To make
+# room for batched_wrappers_lp_128 the 1024 instances run 6000 iterations
+# (35.4 s, 6 Optimal, the first at 4800; 12000 took 65.6 s) and the
+# segments are held over 2000 iterations (3000 before)
+BATCHED_LP_CELLS = ((128, 13, 12000, 44), (1024, 17, 6000, 5))
 BATCHED_LP_SHAPE = (64, 96)
 BATCHED_SEGMENT = 1000
-BATCHED_SEGMENT_CHECK = 3000
+BATCHED_SEGMENT_CHECK = 2000
 BATCHED_ROUTE_ITERS = 200
 BATCHED_LP_GATE = 1e-3
 # batched SDP: bench.py:173-229, instances, side, iterations, gate
 BATCHED_SDP = (64, 64, 4000)
 BATCHED_SDP_GATE = 1e-3
+# batched_wrappers_lp_128: batched_lp_128's instances under GAPP and the
+# three wrappers (default intervals), continuing DR's batched solve from
+# its state at batched_lp_128's budget (its CG schedule at the floor),
+# each algorithm's aux fresh.  From scratch no instance is Optimal within
+# 1500 iterations under any of the four (DR's first stops at 7000), and
+# from DR's iterate alone (``initx``: a fresh CG schedule) none within
+# 1000.  One budget for the four solves, chosen from a measured run so
+# that the cell fits the script's time (2000 iterations: 1.0-6.6 s a
+# solve, the cell 29.9 s); the Optimal floors of the line search and
+# Anderson, under what that run gave (45 and 44; GAPP 67, Longstep 117;
+# NVIDIA H100 80GB HBM3, 700 W); the route-agreement budget,
+# intervals of 20 (the longstep's 20 with 4 saved planes) and Anderson
+# non-adaptive, so that each wrapper's extra work happens at least twice
+# there (eager costs ~50-65 ms an iteration at 128 instances)
+BATCHED_WRAPPER_ITERS = 2000
+BATCHED_WRAPPER_MIN_OPTIMAL = {"linesearch": 40, "anderson": 40}
+BATCHED_WRAPPER_ROUTE_ITERS = 60
 
 
 def refine_dense_lp(dev, totals):
@@ -1808,7 +1843,9 @@ def batched_lp_cells(dev):
     eager and graph routes equal (status, iterations, CG iterations, bits)
     over BATCHED_ROUTE_ITERS iterations.  Prints the aggregate iterations/s
     (instances x iterations / wall) of a BATCHED_ROUTE_ITERS-iteration
-    replay that runs every instance, and the memory peak."""
+    replay that runs every instance, and the memory peak.  Returns the
+    first cell's data, HiGHS optima and DR statuses and counts, for
+    :func:`batched_wrapper_cell`."""
     import torch
     from scipy.optimize import linprog
     from fos_tpu_torch import DR, build_batched_form, nonneg, solve_batched
@@ -1816,6 +1853,7 @@ def batched_lp_cells(dev):
 
     m, n = BATCHED_LP_SHAPE
     l = m + n + 1
+    first = None
     for B, seed, budget, min_optimal in BATCHED_LP_CELLS:
         A, b, c = batched_lp(B, seed)
         torch.cuda.synchronize()
@@ -1895,8 +1933,136 @@ def batched_lp_cells(dev):
                                           *routes.items())
                            if k.endswith("equal"))):
             raise AssertionError(f"batched_lp_{B}: {row}")
+        if first is None:
+            first = {"A": A, "b": b, "c": c, "ref": ref, "status": status,
+                     "iters": iters, "budget": budget, "state": res.state}
         del form, res, whole, seg, eager, graph
         torch.cuda.empty_cache()
+    return first
+
+
+def _lp_objectives(c, guess, n, l):
+    """c'x of each instance's guess, x = u / tau, in f64 on the host."""
+    g = guess.double().cpu().numpy()
+    return np.einsum("bn,bn->b", c.astype(np.float64),
+                     g[:, :n] / g[:, l - 1:l])
+
+
+def batched_wrapper_cell(dev, lp, totals):
+    """batched_wrappers_lp_128: batched_lp_128's instances (its data and
+    host f64 HiGHS optima, not solved again) on the graph route under
+    GAPP(), LineSearchWrapper(DR()), AndersonWrapper(DR()) and
+    LongstepWrapper(DR()), default intervals, BATCHED_WRAPPER_ITERS
+    iterations each at eps = 1e-5, continuing DR's batched solve from its
+    state at batched_lp_128's budget with the algorithm's aux fresh (the
+    batched ``fused_solve`` with ``resume_state``, as each segment of
+    ``solve_batched`` calls it).  The line search's 31 probes per instance
+    are a (128, 31) lane axis through CG.  Gates: every guess finite;
+    every Optimal objective within BATCHED_LP_GATE (1 + |f*|) of HiGHS;
+    the line search's and Anderson's Optimal counts at least their floors;
+    over BATCHED_WRAPPER_ROUTE_ITERS iterations from the same state
+    (intervals of 20, Anderson non-adaptive) the graph route equal to the
+    eager route in statuses, iterations and bits, for each algorithm; the
+    lane condition kernel launched in the cell.  Printed: each algorithm's
+    seconds and aggregate iterations/s; two instances continued alone by
+    the single ``fused_solve`` under the line search from their lanes'
+    states (one that DR stopped early, one it left running), their status
+    and iterations beside their lanes' (f32 sum order moves these: the
+    batched products are bmm, the single ones matmul).  Returns the
+    device's launch counts over the cell."""
+    import torch
+    from fos_tpu_torch import (DR, GAPP, AndersonWrapper, LineSearchWrapper,
+                               LongstepWrapper, build_batched_form, nonneg)
+    from fos_tpu_torch.linalg import control
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+    from fos_tpu_torch.solvers.engine import _fused_solve_eager, fused_solve
+
+    counted(totals)
+    A, b, c, ref = lp["A"], lp["b"], lp["c"], lp["ref"]
+    B = A.shape[0]
+    m, n = BATCHED_LP_SHAPE
+    l = m + n + 1
+    form = build_batched_form(A, b, c, nonneg(m), nonneg(n), device=dev)
+    algs = {"gapp": GAPP(), "linesearch": LineSearchWrapper(DR()),
+            "anderson": AndersonWrapper(DR()),
+            "longstep": LongstepWrapper(DR())}
+    short = {"gapp": GAPP(iproj=20),
+             "linesearch": LineSearchWrapper(DR(), lsinterval=20),
+             "anderson": AndersonWrapper(DR(), adaptive=False),
+             "longstep": LongstepWrapper(DR(), longinterval=20, nsave=4)}
+    # one that DR stopped early, one still running at its budget
+    order = np.argsort(np.where(lp["status"] == 1, lp["iters"], np.inf))
+    alone = [int(order[0]), int(np.flatnonzero(lp["status"] == 0)[0])]
+    rows, bad = {}, []
+    def start(alg):
+        """DR's state with the algorithm's fresh aux."""
+        return lp["state"]._replace(aux=alg.init_aux(lp["state"].x))
+
+    def solve(fused, alg, f, st, **kw):
+        return fused(alg, f, st.x, resume_state=st, eps=GATE_EPS, **kw)
+
+    i0 = lp["state"].i.cpu().numpy()   # DR's counts: the start's
+    for name, alg in algs.items():
+        res, secs = timed_solve(lambda: solve(
+            fused_solve, alg, form, start(alg),
+            max_iters=BATCHED_WRAPPER_ITERS, checki=100))
+        status = res.status.cpu().numpy()
+        iters = res.iters.cpu().numpy()
+        finite = bool(torch.isfinite(res.guess).all())
+        optimal = status == 1
+        obj = _lp_objectives(c, res.guess, n, l)
+        err = (np.abs(obj - ref) / (1.0 + np.abs(ref)))[optimal]
+        ropts = dict(max_iters=BATCHED_WRAPPER_ROUTE_ITERS, checki=20)
+        eager, eager_s = timed_solve(lambda: solve(
+            _fused_solve_eager, short[name], form, start(short[name]),
+            **ropts))
+        graph, _ = timed_solve(lambda: solve(
+            fused_solve, short[name], form, start(short[name]), **ropts))
+        routes = {
+            "status_equal": bool(torch.equal(eager.status, graph.status)),
+            "iters_equal": bool(torch.equal(eager.iters, graph.iters)),
+            "bit_equal": bool(torch.equal(eager.guess, graph.guess)
+                              and torch.equal(eager.state.x, graph.state.x))}
+        singles = []
+        for i in alone if name == "linesearch" else ():
+            f1 = HSDEForm.build(conic_problem(A[i], b[i], c[i], nonneg(m),
+                                              nonneg(n), device=dev))
+            one = control.tree_map(lambda t: t[i], start(alg))
+            r1 = solve(fused_solve, alg, f1, one,
+                       max_iters=BATCHED_WRAPPER_ITERS, checki=100)
+            singles.append({"instance": i,
+                            "dr_batched": [int(lp["status"][i]),
+                                           int(lp["iters"][i])],
+                            "alone": [int(r1.status), int(r1.iters)],
+                            "lane": [int(status[i]), int(iters[i])]})
+        rows[name] = {
+            "seconds": secs,
+            "agg_iters_per_s": float((iters - i0).sum()) / secs,
+            "optimal": int(optimal.sum()),
+            "min_optimal": BATCHED_WRAPPER_MIN_OPTIMAL.get(name),
+            "statuses": np.bincount(status, minlength=4).tolist(),
+            "iters_max": int(iters.max()), "iters_min": int(iters.min()),
+            "finite": finite,
+            "max_rel_obj_err_vs_highs": (float(err.max()) if err.size
+                                         else None),
+            "routes": {"iters": BATCHED_WRAPPER_ROUTE_ITERS,
+                       "eager_seconds": eager_s, **routes},
+            **({"alone": singles} if singles else {})}
+        if (not finite or (err.size and err.max() > BATCHED_LP_GATE)
+                or rows[name]["optimal"] < BATCHED_WRAPPER_MIN_OPTIMAL.get(
+                    name, 0)
+                or not all(routes.values())):
+            bad.append(name)
+    got = counted(totals)
+    row = {"phase": "batched_wrappers_lp_128", "instances": B,
+           "shape": [m, n], "eps": GATE_EPS,
+           "budget": BATCHED_WRAPPER_ITERS, **rows,
+           "launches": {k: got[k] for k in sorted(got) if got[k]}}
+    emit(row)
+    if bad or not got["cg_continue_lanes"]:
+        raise AssertionError(f"batched_wrappers_lp_128: {bad}: {row}")
+    return got
 
 
 def batched_sdp_cell(dev):
@@ -1960,7 +2126,7 @@ def counted(totals):
     added to ``totals``."""
     from fos_tpu_torch.linalg import _cuda
 
-    got = _cuda.device_launch_counts(reset=True)
+    got = collections.Counter(_cuda.device_launch_counts(reset=True))
     totals.update(got)
     return got
 
@@ -1983,10 +2149,11 @@ def slice_phase(dev, A1, b1, c1, feas, m, n):
     refine_dense_lp(dev, totals)
     wrapper_dense_cells(dev, A1, b1, c1, totals)
     wrapper_feasibility_cells(dev, feas, m, n, totals)
-    batched_lp_cells(dev)
+    lp128 = batched_lp_cells(dev)
+    wrapped = batched_wrapper_cell(dev, lp128, totals)
     batched_sdp_cell(dev)
     counted(totals)
-    return totals
+    return totals, wrapped
 
 
 # ------------------------------------------------------------- phase 8
@@ -2024,6 +2191,12 @@ DIFF_GATE_F64 = 5e-5
 DIFF_JVP_GATE = 1e-3
 DIFF_BATCHED = (64, 64, 96, 32, 41)
 DIFF_BATCHED_GATE = 1e-3
+# diff_batched_lp_wrapped: the same batch with the forward under the line
+# search (interval 20) and Anderson (memory 5, non-adaptive), so that each
+# wrapper acts within DR's few hundred iterations; each gradient within
+# DIFF_WRAPPED_GATE of plain DR's (the backward differentiates the inner
+# DR's frozen map in both)
+DIFF_WRAPPED_GATE = 1e-3
 
 
 def k1_derivative_rules(dev, shapes):
@@ -2316,7 +2489,53 @@ def diff_batched_lp(dev):
     if (row["statuses"][1] != B
             or not row["max_abs_g_c_minus_x"] <= DIFF_BATCHED_GATE):
         raise AssertionError(f"diff_batched_lp: {row}")
-    return row
+    return (At, bt, ct), g.detach()
+
+
+def diff_batched_lp_wrapped(dev, data, g_plain):
+    """diff_batched_lp_wrapped: diff_batched_lp's batch (``data``: its A,
+    b and c on the card) with the forward under LineSearchWrapper(DR(),
+    20) and AndersonWrapper(DR(), memory=5, adaptive=False) through
+    ``solve_batched``; the backward differentiates the inner DR's frozen
+    map.  Gates, for each: every instance Optimal, g_c of sum(c'x) within
+    DIFF_BATCHED_GATE of each lane's x and within DIFF_WRAPPED_GATE of
+    plain DR's gradient (``g_plain``).  Prints the forward's iterations
+    and both times."""
+    import torch
+    from fos_tpu_torch import (DR, AndersonWrapper, LineSearchWrapper,
+                               diff_solve, nonneg)
+
+    B, m, n, k, seed = DIFF_BATCHED
+    At, bt, c = data
+    rows, bad = {}, []
+    for name, alg in (("linesearch", LineSearchWrapper(DR(), lsinterval=20)),
+                      ("anderson", AndersonWrapper(DR(), memory=5,
+                                                   adaptive=False))):
+        ct = c.detach().clone().requires_grad_()
+        stats = {}
+        (x, _, _), fwd_s = timed_solve(lambda: diff_solve(
+            At, bt, ct, nonneg(m), nonneg(n), alg=alg, device=dev,
+            stats=stats, **DIFF_F32))
+        status = stats["status"].cpu().numpy()
+        iters = stats["iters"].cpu().numpy()
+        (g,), bwd_s = timed_solve(lambda: torch.autograd.grad(
+            (ct * x).sum(), ct))
+        rows[name] = {
+            "statuses": np.bincount(status, minlength=4).tolist(),
+            "iters_max": int(iters.max()), "iters_mean": float(iters.mean()),
+            "forward_seconds": fwd_s, "backward_seconds": bwd_s,
+            "max_abs_g_c_minus_x": float((g - x).detach().abs().max()),
+            "max_abs_g_minus_plain": float((g - g_plain).abs().max())}
+        if (rows[name]["statuses"][1] != B
+                or not rows[name]["max_abs_g_c_minus_x"] <= DIFF_BATCHED_GATE
+                or not rows[name]["max_abs_g_minus_plain"]
+                <= DIFF_WRAPPED_GATE):
+            bad.append(name)
+    row = {"phase": "diff_batched_lp_wrapped", "instances": B,
+           "shape": [m, n], "options": DIFF_F32, **rows}
+    emit(row)
+    if bad:
+        raise AssertionError(f"diff_batched_lp_wrapped: {bad}: {row}")
 
 
 def diff_phase(dev, A1, A4):
@@ -2336,13 +2555,17 @@ def diff_phase(dev, A1, A4):
     clock.append(time.perf_counter())
     diff_gaussian_basis_lp(dev, totals)
     clock.append(time.perf_counter())
-    diff_batched_lp(dev)
+    data, g_plain = diff_batched_lp(dev)
     clock.append(time.perf_counter())
     counted(totals)
+    diff_batched_lp_wrapped(dev, data, g_plain)
+    wrapped = counted(totals)
+    clock.append(time.perf_counter())
     emit({"phase": "diff_timing", "seconds": dict(zip(
         ("k1_derivative_rules", "diff_dense_lp", "diff_gaussian_basis_lp",
-         "diff_batched_lp"), np.diff(clock).tolist()))})
-    return totals, k1
+         "diff_batched_lp", "diff_batched_lp_wrapped"),
+        np.diff(clock).tolist()))})
+    return totals, k1, wrapped
 
 
 # ------------------------------------------------------------- phase 9
@@ -3761,9 +3984,11 @@ def main() -> int:
     clock.append(("phase7", time.perf_counter()))
     # --- phase 7: refine, the wrappers and the batched solve (this slice's
     # path), with the device's launch counts zeroed before it
-    slice_counts = slice_phase(dev, A1, b1, c1, feas, m, n)
+    slice_counts, wrapped_counts = slice_phase(dev, A1, b1, c1, feas, m, n)
     for name in kernels:
         kernels[name]["launches_phase7"] = slice_counts[name]
+        kernels[name]["launches_batched_wrappers_lp_128"] = wrapped_counts[
+            name]
     for name in ("cg_continue_lanes", "fused_matvec_lanes"):
         kernels[name]["launches"] = slice_counts[name]
     kernels["fused_matvec_lanes"]["sum_launches"] = slice_counts[
@@ -3782,9 +4007,11 @@ def main() -> int:
     clock.append(("phase8", time.perf_counter()))
     # --- phase 8: implicit differentiation (this slice's path), with the
     # device's launch counts zeroed before it
-    diff_counts, k1_rules = diff_phase(dev, A1, A4)
+    diff_counts, k1_rules, diff_wrapped = diff_phase(dev, A1, A4)
     for name in kernels:
         kernels[name]["launches_phase8"] = diff_counts[name]
+        kernels[name]["launches_diff_batched_lp_wrapped"] = diff_wrapped[
+            name]
     kernels["fused_matvec"]["backward_ms"] = k1_rules["fused_matvec"][
         "backward_ms"]
     if not diff_counts["fused_matvec"]:
@@ -3826,8 +4053,10 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "plain_device_ms", "captured_calls", "sum_launches",
             "shape", "max_rel_err", "deterministic", "launches_cones_path",
-            "launches_phase7", "launches_phase8", "launches_phase9",
-            "launches_phase10", "backward_ms", "library_device_ms", "graph_us",
+            "launches_phase7", "launches_batched_wrappers_lp_128",
+            "launches_phase8", "launches_diff_batched_lp_wrapped",
+            "launches_phase9", "launches_phase10", "backward_ms",
+            "library_device_ms", "graph_us",
             "lanes_over_singles", "device_over_mul")
     emit({"kernels": [{k: e.get(k) for k in keys}
                       for e in ({"name": name, "route": "cuda", **entry}

@@ -41,8 +41,8 @@ shape)``) gets gradients on its stored values, as the JAX package's BCOO
 convention.  A leading batch axis (A ``(B, m, n)``, b ``(B, m)``, c ``(B,
 n)``) differentiates B independent solves at once (the JAX package's
 ``vmap`` of ``grad``): the forward through
-:func:`~fos_tpu_torch.parallel.batched.solve_batched`, the CG and CGLS
-solves with a lane axis.
+:func:`~fos_tpu_torch.parallel.batched.solve_batched` (a wrapped algorithm
+there too), the CG and CGLS solves with a lane axis.
 
 The forward honours the (inner) algorithm's ``direct`` flag, as ``solve``
 does: the host QR factor in place of CG for the affine projection.  The
@@ -480,7 +480,7 @@ def diff_solve(A, b, c, K1: ConeSpec, K2: ConeSpec, alg=None,
     ``(values, indices, shape)`` (gradients on the stored values), or
     carry a leading batch axis with b and c (dense only).  The algorithm
     may be GAP-family (GAP/DR/AP) or GAPA, plain or wrapped (LineSearch/
-    Longstep/Anderson; not in a batch).  ``device``: where the solve runs,
+    Longstep/Anderson, in a batch too).  ``device``: where the solve runs,
     the card unless given (``device="cpu"`` for the CPU); tensors move
     there (differentiably).  ``opts``: see :data:`OPTIONS` (and the
     module's note on f32).  The solve must reach its fixed point:

@@ -21,7 +21,7 @@ from fos_tpu_torch.cones.spec import Cone, ConeSpec
 from fos_tpu_torch.linalg.cg import CGState
 from fos_tpu_torch.linalg.dense_pair import PaddedDenseOp
 from fos_tpu_torch.linalg.sparse_ell import BandedBlockOp, BlockedEllOp
-from fos_tpu_torch.solvers.base import SolverState
+from fos_tpu_torch.solvers.base import PlaneBuf, SolverState
 
 
 def cone_spec_from_blocks(blocks, params=()) -> ConeSpec:
@@ -83,10 +83,18 @@ def _t(a, device, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
+#: the named tuples a JAX algorithm's aux may hold, by name, and the port's
+#: class for each; carried field by field, by name (the JAX package's
+#: ``PlaneBuf`` also carries ``nsave``, which the port's wrapper holds)
+_NAMED = {"PlaneBuf": PlaneBuf}
+
+
 def _leaves(a, device):
-    """numpy arrays (alone or in tuples) as tensors on ``device``."""
+    """numpy arrays (alone or in tuples, nested, a named tuple kept) as
+    tensors on ``device``."""
     if isinstance(a, (tuple, list)):
-        return tuple(_leaves(v, device) for v in a)
+        vals = tuple(_leaves(v, device) for v in a)
+        return type(a)(*vals) if hasattr(a, "_fields") else vals
     return _t(a, device)
 
 
@@ -115,7 +123,9 @@ def solver_state_from_numpy(*, x, i, z_check, z_check_prev, s1_state,
     of CGState field names to arrays (``v_warm`` only for the HSDE
     projector), ``()`` for a stateless set, or a tuple of those (a
     BlockSet's members); ``aux`` is an array or a tuple of arrays (GAPA's
-    a12, FISTA's (t, y, x_old), Dykstra's (p, q))."""
+    a12, FISTA's (t, y, x_old), Dykstra's (p, q)), nested for a wrapper
+    (Anderson's inner aux and ring, longstep's inner aux and
+    ``PlaneBuf``)."""
     return SolverState(x=_t(x, device), i=_t(i, device, torch.int32),
                        z_check=_t(z_check, device),
                        z_check_prev=_t(z_check_prev, device),
@@ -136,17 +146,26 @@ def _host_leaves(s):
     return np.asarray(s)
 
 
+def _host_aux(a):
+    """An algorithm's aux as numpy leaves, nested tuples kept, a named
+    tuple of :data:`_NAMED` as the port's."""
+    named = _NAMED.get(type(a).__name__)
+    if named is not None:
+        return named(*(_host_aux(getattr(a, f)) for f in named._fields))
+    if isinstance(a, (tuple, list)):
+        return tuple(_host_aux(v) for v in a)
+    return np.asarray(a)
+
+
 def solver_state_from_tree(state, device=None) -> SolverState:
     """A port :class:`SolverState` from a whole solver state of the JAX
     package (``run``'s or ``FusedResult.state``: x, i, z_check,
     z_check_prev, the sets' states and the algorithm's aux), every leaf
     read with ``np.asarray``."""
-    aux = state.aux
-    aux = (tuple(np.asarray(a) for a in aux) if isinstance(aux, (tuple, list))
-           else np.asarray(aux))
     return solver_state_from_numpy(
         x=np.asarray(state.x), i=np.asarray(state.i),
         z_check=np.asarray(state.z_check),
         z_check_prev=np.asarray(state.z_check_prev),
         s1_state=_host_leaves(state.s1_state),
-        s2_state=_host_leaves(state.s2_state), aux=aux, device=device)
+        s2_state=_host_leaves(state.s2_state), aux=_host_aux(state.aux),
+        device=device)

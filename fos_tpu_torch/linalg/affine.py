@@ -14,7 +14,10 @@
 Both project a lane axis (:mod:`fos_tpu_torch.linalg.lanes`): points
 ``(B, dim)`` against one state (the line search's candidate steps, which
 share the step's warm start) or against a state with the same lane axis
-(a batched solve); CG then runs per lane.
+(a batched solve); CG then runs per lane.  The HSDE projector also takes
+each instance's candidates, ``(B, P, dim)`` against a state with the lanes
+``(B,)`` (a batched line search): the candidates share their instance's
+warm start, and the state returned has the lanes ``(B, P)``.
 """
 
 from __future__ import annotations
@@ -218,6 +221,7 @@ class HSDEAffineProjector:
         return cg._replace(v_warm=self._q(cg.warm))
 
     def project(self, z, cg: CGState):
+        cg = _lead_state(cg, z)
         if self.direct:
             # one full-f32 GEMV (TF32 is off, fos_tpu_torch.config)
             u = self._fac_t(z)
@@ -279,6 +283,13 @@ class HSDEAffineProjector:
                              call_idx=cg.call_idx + 1, last_iters=res.iters,
                              total_iters=total)
         return torch.cat([res.x, self._q(res.x)], -1), new_cg
+
+
+def _lead_state(cg: CGState, z) -> CGState:
+    """``cg`` broadcast against points with more lane axes than it has:
+    an instance's state against its candidates (:func:`lanes.lead`)."""
+    return CGState(*(lanes.lead(v, z, vector=k in ("warm", "v_warm"))
+                     for k, v in cg._asdict().items()))
 
 
 def _matrix(A, device):

@@ -146,9 +146,16 @@ def _like_lanes(v, like):
 def _tol2(tol, like):
     """tol^2 in ``like``'s dtype on its device, made there (a fill, not a
     copy from the host, so that it can be captured); a tensor ``tol`` may
-    hold one tolerance per lane."""
+    hold one tolerance per lane, or one per instance for an instance's
+    candidate lanes (``(B, 1)`` against ``(B, P)``), which is spread over
+    the candidates here, once, so that the lane condition reads one
+    tolerance per lane."""
     if isinstance(tol, torch.Tensor):
-        return tol.to(like.dtype) ** 2
+        tol2 = tol.to(like.dtype) ** 2
+        lane = lanes.lane_shape(like)
+        if tol2.dim() > 0 and tuple(tol2.shape) != lane:
+            tol2 = tol2.expand(lane).contiguous()
+        return tol2
     return torch.full((), tol, dtype=like.dtype, device=like.device) ** 2
 
 

@@ -102,8 +102,9 @@ class CGContinue(NamedTuple):
 
 class CGContinueLanes(NamedTuple):
     """CG's stopping test over lanes: any lane with ``(rn > tol2) & (it <
-    max_iters)``; ``rn`` and ``it`` have one entry per lane, ``tol2`` one
-    per lane or one for all."""
+    max_iters)``; ``rn`` and ``it`` have one entry per lane (lanes that
+    nest, ``(B, P)``, are handed to the kernel as one run of ``B P``),
+    ``tol2`` one per lane or one for all."""
 
     rn: torch.Tensor
     tol2: torch.Tensor
@@ -114,8 +115,9 @@ class CGContinueLanes(NamedTuple):
         return bool(((self.rn > self.tol2) & (self.it < self.max_iters)).any())
 
     def launch(self, handle: int) -> None:
-        _cuda.cg_continue_lanes(handle, self.rn, self.tol2, self.it,
-                                self.max_iters)
+        tol2 = self.tol2.reshape(-1) if self.tol2.dim() else self.tol2
+        _cuda.cg_continue_lanes(handle, self.rn.reshape(-1), tol2,
+                                self.it.reshape(-1), self.max_iters)
 
 
 def count_continue_plain(k, mode: int, limit: int, status=None,

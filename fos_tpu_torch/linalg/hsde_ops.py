@@ -29,7 +29,11 @@ pass over A for every lane, as the JAX package's ``vmap`` over a
 hand kernel once per lane otherwise (K2-K5), or one ``torch.matmul`` for
 a tensor; a batched A ``(B, m, n)`` (a batched solve's instances) takes
 ``torch.bmm``, or one ``torch.matmul`` when its instances share one
-matrix through a stride-0 batch axis (``expand``).
+matrix through a stride-0 batch axis (``expand``).  Each instance's
+candidate points ``(B, P, k)`` (a batched line search's probes) take one
+``torch.matmul`` against the stacked A, or one over all ``B P`` rows for
+a shared A; ``b`` and ``c`` broadcast against them
+(:func:`~fos_tpu_torch.linalg.lanes.lead`).
 """
 
 from __future__ import annotations
@@ -56,10 +60,12 @@ def _lanes_mv(A, x, transpose):
     if _is_sparse(A):
         At = A.t() if transpose else A
         return torch.sparse.mm(At, x.T).T
-    if A.dim() == 3:   # one matrix per lane
-        if A.stride(0) == 0:   # one matrix shared by every lane
+    if A.dim() == 3:   # one matrix per instance
+        if A.stride(0) == 0:   # one matrix shared by every instance
             A0 = A[0]
             return torch.matmul(x, A0 if transpose else A0.T)
+        if x.dim() > 2:   # each instance's candidates (B, P, k)
+            return torch.matmul(x, A if transpose else A.transpose(1, 2))
         At = A.transpose(1, 2) if transpose else A
         return torch.bmm(At, x[..., None])[..., 0]
     return torch.matmul(x, A if transpose else A.T)
@@ -112,6 +118,7 @@ def q_mul(A, b, c, z, neg_cb=None):
     Az1, ATz2 = mv_pair(A, z1, z2)
     if neg_cb is None:
         neg_cb = -torch.cat([c, b], -1)
+    b, c, neg_cb = (lanes.lead(v, z) for v in (b, c, neg_cb))
     y3 = lanes.vdot(neg_cb, z[..., : n + m])
     return torch.cat([ATz2 + c * z3, b * z3 - Az1, y3[..., None]], -1)
 

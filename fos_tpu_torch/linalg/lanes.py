@@ -7,6 +7,12 @@ product, CG's residual, a status) has shape ``(B,)``.  Without lanes the
 same code sees ``(k,)`` and 0-dim tensors, and runs exactly the operations
 it ran before the lane axis existed (``torch.dot``, ``torch.linalg.norm``),
 so single solves keep their bits.
+
+Lanes may nest: a batched solve's line search (or GAPP) evaluates P
+candidate points per instance, ``(B, P, k)``, against instance data and
+states with the lanes ``(B,)``.  The instance axes always lead;
+:func:`lead` inserts the unit axes that let an instance's vector or scalar
+broadcast against its candidates.
 """
 
 from __future__ import annotations
@@ -43,6 +49,42 @@ def select(mask, new, old):
     return torch.where(per_lane(mask, new), new, old)
 
 
+def lead(t, like, vector: bool = True):
+    """``t`` with unit axes after its lane axes, so that it broadcasts
+    against ``like``, a vector whose lane axes ``t``'s lanes lead: an
+    instance's vector ``(B, k)`` (``vector``) or per-lane scalar ``(B,)``
+    against the instance's candidates ``(B, P, k)``.  A tensor without
+    lanes, or one with all of ``like``'s, is returned as it is."""
+    if not isinstance(t, torch.Tensor):
+        return t
+    cut = t.dim() - 1 if vector else t.dim()
+    extra = like.dim() - 1 - cut
+    if cut <= 0 or extra <= 0:
+        return t
+    return t.reshape(t.shape[:cut] + (1,) * extra + t.shape[cut:])
+
+
+def matvec(A, x):
+    """``A @ x`` per lane: ``A`` ``(..., r, k)``, ``x`` ``(..., k)``."""
+    if x.dim() == 1:
+        return torch.matmul(A, x)
+    return torch.matmul(A, x[..., None])[..., 0]
+
+
+def vecmat(w, X):
+    """``w @ X`` per lane: ``w`` ``(..., r)``, ``X`` ``(..., r, k)``."""
+    if w.dim() == 1:
+        return torch.matmul(w, X)
+    return torch.matmul(w[..., None, :], X)[..., 0, :]
+
+
+def trace(M):
+    """The trace of each lane's square matrix ``(..., k, k)``."""
+    if M.dim() == 2:
+        return torch.trace(M)
+    return M.diagonal(0, -2, -1).sum(-1)
+
+
 def lane_by_lane(pair, X1, X2):
     """``pair(u, v)`` on each lane of X1 and X2, the two outputs stacked:
     a pair product over lanes where the product takes one vector each."""
@@ -59,5 +101,9 @@ def common_count(i):
     """The iteration count shared by the lanes that still run: a batched
     solve's lanes step together until they freeze, and a frozen lane's count
     stops, so the largest count is the running lanes' (a 0-dim count is
-    returned as it is)."""
+    returned as it is).  The steps that branch on the count (GAPP, the
+    wrappers) branch once for the whole batch on this count, where the JAX
+    package's ``vmap`` selects per instance; the two agree on every running
+    lane, and a frozen lane's step is discarded by the chunk's mask (in a
+    segmented solve, by the merge of the segments)."""
     return i if i.dim() == 0 else i.amax()

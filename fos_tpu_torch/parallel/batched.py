@@ -24,7 +24,7 @@ from fos_tpu_torch.linalg.affine import (HSDEAffineProjector,
 from fos_tpu_torch.problems.hsde import HSDEForm, hsde_cone_spec
 from fos_tpu_torch.solvers import engine
 from fos_tpu_torch.solvers.status import Status
-from fos_tpu_torch.solvers.base import GAPP, ConeSet, TwoSets
+from fos_tpu_torch.solvers.base import ConeSet, TwoSets
 
 
 def _batched(v, device):
@@ -119,8 +119,11 @@ def solve_batched(alg, form: HSDEForm, *, max_iters: int = 10000,
     ``max_iters``).  ``unroll`` is accepted and has no effect.
 
     The algorithm steps every instance at once: the GAP family (GAP, DR,
-    AP), GAPA, FISTA and Dykstra.  GAPP and the wrappers, whose steps
-    branch per instance, are refused.
+    AP), GAPA, GAPP, FISTA, Dykstra and the three wrappers (a batched line
+    search evaluates ``(B, 31, dim)`` probes and each instance takes its
+    own best step).  GAPP and the wrappers branch on the count that the
+    running instances share, once for the batch
+    (:func:`fos_tpu_torch.linalg.lanes.common_count`).
 
     On a form split over ranks (:func:`fos_tpu_torch.parallel.sharding.
     shard_batched_form`, ``shard_batched_form_rows``) each rank solves its
@@ -145,15 +148,6 @@ def _solve_batched_eager(alg, form, **kw) -> engine.FusedResult:
 def _solve_batched(fused, alg, form, *, max_iters=10000, eps=1e-5,
                    checki=100, record_history=False, initx=None,
                    segment_iters=None, budget_iters=None):
-    from fos_tpu_torch.solvers.wrappers import (AndersonWrapper,
-                                                LineSearchWrapper,
-                                                LongstepWrapper)
-
-    if isinstance(alg, (GAPP, LineSearchWrapper, AndersonWrapper,
-                        LongstepWrapper)):
-        raise NotImplementedError(
-            f"{type(alg).__name__} in a batched solve is not ported: its "
-            "steps branch per instance (ROADMAP)")
     x0 = _start(form, initx)
     opts = dict(eps=eps, checki=checki, record_history=record_history)
     if segment_iters is None or segment_iters >= max_iters:
@@ -209,8 +203,9 @@ def _segmented(fused, alg, form, x0, max_iters, segment_iters, budget_iters,
 
 def _merge(keep, old, new):
     """``old`` where ``keep`` (one flag per instance), else ``new``, over
-    every tensor of a result; a field that is not per instance stays
-    ``old``'s."""
+    every tensor of a result, the algorithm's nested aux included (an
+    Anderson ring, a longstep ``PlaneBuf``: their tensors lead with the
+    instance axis); a field that is not per instance stays ``old``'s."""
     B = keep.shape[0]
 
     def pick(o, n):

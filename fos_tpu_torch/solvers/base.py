@@ -19,8 +19,11 @@ S1/S2 maps of the line search, the capability traits, and
 :class:`PlaneBuf` for the longstep wrapper.
 
 A state may carry a lane axis (a batched solve's instances): ``x`` of
-shape ``(B, dim)``, ``i`` and the per-algorithm scalars ``(B,)``; the GAP
-family, GAPA, FISTA and Dykstra step every lane at once.
+shape ``(B, dim)``, ``i`` and the per-algorithm scalars ``(B,)``; every
+algorithm steps every lane at once.  GAPP's projected step evaluates each
+instance's 21 candidates as ``(B, 21, dim)`` and picks each instance's
+best; which step runs follows the lanes' shared count
+(:func:`~fos_tpu_torch.linalg.lanes.common_count`).
 """
 
 from __future__ import annotations
@@ -53,7 +56,9 @@ class PlaneBuf(NamedTuple):
     ``[nsave + 1, 2 nsave + 1]`` inequality planes (from S2 projections),
     the intended layout of the reference's ``SavedPlanes``
     (longstep.jl:68-101, saveplanes.jl:13-60).  ``slot`` (int32, on the
-    device) is the 0-based window position; negative means no capture.
+    device) is the 0-based window position; negative means no capture.  A
+    batched solve's buffer has one of each per instance: ``A`` ``(B, rows,
+    dim)``, ``b`` ``(B, rows)``, ``slot`` ``(B,)``.
     """
 
     A: torch.Tensor      # (rows, dim)
@@ -63,15 +68,14 @@ class PlaneBuf(NamedTuple):
 
 def _plane_row(planes: PlaneBuf, row, x, y) -> PlaneBuf:
     """Write the plane {w : <x-y, w> = <x-y, y>} into ``row`` when the
-    capture is active, as a masked write on the device (no host read)."""
+    capture is active, as a masked write on the device (no host read);
+    ``row`` and the capture flag are per lane, like ``x``."""
     a = x - y
-    bval = torch.dot(a, y)
-    write = planes.slot >= 0
-    at = torch.clamp(row, 0, planes.A.shape[0] - 1).reshape(1).long()
-    A = planes.A.index_copy(0, at, torch.where(
-        write, a, planes.A.index_select(0, at)[0])[None])
-    b = planes.b.index_copy(0, at, torch.where(
-        write, bval, planes.b.index_select(0, at)[0]).reshape(1))
+    bval = lanes.vdot(a, y)
+    hit = ((torch.arange(planes.b.shape[-1], device=row.device)
+            == row[..., None]) & (planes.slot >= 0)[..., None])
+    A = torch.where(hit[..., None], a[..., None, :], planes.A)
+    b = torch.where(hit, bval[..., None], planes.b)
     return planes._replace(A=A, b=b)
 
 
@@ -86,7 +90,7 @@ def capture_ineq(planes, x, y):
     """Record an S2 (inequality) supporting plane (longstep.jl:87-101)."""
     if planes is None:
         return None
-    return _plane_row(planes, planes.A.shape[0] // 2 + planes.slot, x, y)
+    return _plane_row(planes, planes.b.shape[-1] // 2 + planes.slot, x, y)
 
 
 class ConeSet:
@@ -362,14 +366,22 @@ class GAPP(Algorithm):
         p1, s1_state = sets.s1.project(tmp2, s1_state)
         res = p1 - tmp1
         alphas = 2.0 ** torch.arange(21, dtype=st.x.dtype, device=st.x.device)
-        cands = tmp1[None, :] + alphas[:, None] * res[None, :]
+        # (21, dim) candidates, or (B, 21, dim): each instance's own
+        cands = tmp1[..., None, :] + alphas[:, None] * res[..., None, :]
         projs, _ = sets.s2.project(cands, s2_state)
         norms = torch.linalg.vector_norm(projs - cands, dim=-1)
-        # gather, not indexing with a device scalar (which may read it)
-        t1 = tmp1 + alphas.gather(0, torch.argmin(norms).reshape(1)) * res
+        t1 = tmp1 + _argmin_step(alphas, norms) * res
         z, s2_state = sets.s2.project(t1, s2_state)
         x_new = a2 * z + (1.0 - a2) * t1
         return _advance(st, x_new, z, s1_state, s2_state)
+
+
+def _argmin_step(alphas, res):
+    """The step of ``alphas`` whose residual ``res`` (one per step, per
+    lane) is least: ``(1,)``, or ``(B, 1)`` for B lanes.  A gather, not
+    indexing with a device scalar (which may read it on the host)."""
+    at = torch.argmin(res, -1, keepdim=True)
+    return alphas.expand(res.shape).gather(-1, at)
 
 
 @dataclass(frozen=True)

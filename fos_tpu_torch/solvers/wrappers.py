@@ -22,6 +22,13 @@ ordinary :class:`Algorithm`, so ``run``, the graph route and
 Which step does the extra work follows the host's iteration count when the
 engine passes one; inside a CUDA graph and in ``fused_solve`` it follows the
 device's ``st.i`` through :func:`control.cond` (IF nodes).
+
+Each wrapper steps a batched solve's instances at once (``x`` ``(B, dim)``,
+the JAX package's ``vmap``): the line search's probes are ``(B, 31, dim)``
+and each instance takes its own best step; Anderson keeps a ring, a Gram
+system and its counters per instance; the longstep planes are per
+instance.  The batch branches once on its lanes' shared count
+(:func:`~fos_tpu_torch.linalg.lanes.common_count`).
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ import torch
 
 from fos_tpu_torch.linalg import control, lanes
 from fos_tpu_torch.linalg.cg import CGState
-from fos_tpu_torch.solvers.base import Algorithm, PlaneBuf, SolverState
+from fos_tpu_torch.solvers.base import (Algorithm, PlaneBuf, SolverState,
+                                        _argmin_step)
 
 #: the line search's step sizes: 0.1 * 1.8^k, k = 1..31 (linesearch.jl:54)
 LS_GRID = 31
@@ -98,7 +106,8 @@ class LineSearchWrapper(Algorithm):
         z, x_new, s2_state = inner.relaxed_s2(sets, tmp2, st.s2_state, st.aux)
         res = x_new - x_prev
         alphas = ls_alphas(st.x)
-        cands = x_prev[None, :] + alphas[:, None] * res[None, :]
+        # (31, dim) probes, or (B, 31, dim): each instance's own
+        cands = x_prev[..., None, :] + alphas[:, None] * res[..., None, :]
         s1 = sets.s1
         if (getattr(s1, "projection_is_affine", False)
                 and getattr(s1, "direct", False)):
@@ -115,16 +124,14 @@ class LineSearchWrapper(Algorithm):
                 s1_zero, _ = inner.relaxed_s1(sets, torch.zeros_like(res),
                                               s1_state, st.aux)
                 dirn = s1_res - s1_zero
-            y1c = tmp2[None, :] + alphas[:, None] * dirn[None, :]
+            y1c = tmp2[..., None, :] + alphas[:, None] * dirn[..., None, :]
         else:
             # the probes share the step's warm start, read only, and their
             # states are dropped (NoStatus probes, linesearch.jl:58-63)
             y1c, _ = inner.relaxed_s1(sets, cands, s1_state, st.aux)
         _, Tx, _ = inner.relaxed_s2(sets, y1c, s2_state, st.aux)
         testres = torch.linalg.vector_norm(Tx - cands, dim=-1)
-        # gather, not indexing with a device scalar (which may read it)
-        best = alphas.gather(0, torch.argmin(testres).reshape(1))
-        x_ls = x_prev + best * res
+        x_ls = x_prev + _argmin_step(alphas, testres) * res
         # the reference's prox! counts its probe calls too
         # (affinepluslinear.jl:113 under NoStatus), so the decreasing-
         # accuracy schedule sees all 31; the warm start stays the real
@@ -140,24 +147,26 @@ class LineSearchWrapper(Algorithm):
 
 
 def _solve_small(M, rhs):
-    """Solve ``M w = rhs`` for a small k x k ``M``: Gaussian elimination
-    with partial pivoting (LAPACK getrf's choice of pivot), unrolled over
-    the k columns in tensor operations, so nothing is read on the host and
-    a CUDA graph can hold it."""
-    k = M.shape[0]
+    """Solve ``M w = rhs`` for a small k x k ``M`` (or one per lane, ``(B,
+    k, k)`` and ``(B, k)``): Gaussian elimination with partial pivoting
+    (LAPACK getrf's choice of pivot, each lane its own), unrolled over the
+    k columns in tensor operations, so nothing is read on the host and a
+    CUDA graph can hold it."""
+    k = M.shape[-1]
     rows = torch.arange(k, device=M.device)
-    Ab = torch.cat([M, rhs[:, None]], 1)
+    Ab = torch.cat([M, rhs[..., None]], -1)
     for j in range(k):
         # the row at or below j with the largest |entry| in column j
-        mag = torch.where(rows >= j, Ab[:, j].abs(), -1.0)
-        p = torch.argmax(mag)
+        mag = torch.where(rows >= j, Ab[..., j].abs(), -1.0)
+        p = torch.argmax(mag, -1, keepdim=True)
         perm = torch.where(rows == j, p, torch.where(rows == p, j, rows))
-        Ab = Ab.index_select(0, perm)
-        f = torch.where(rows > j, Ab[:, j] / Ab[j, j], 0.0)
-        Ab = Ab - f[:, None] * Ab[j][None, :]
-    w = torch.zeros(k, dtype=M.dtype, device=M.device)
+        Ab = Ab.gather(-2, perm[..., None].expand(Ab.shape))
+        f = torch.where(rows > j, Ab[..., j] / Ab[..., j, j, None], 0.0)
+        Ab = Ab - f[..., None] * Ab[..., j, None, :]
+    w = torch.zeros(rhs.shape, dtype=M.dtype, device=M.device)
     for j in range(k - 1, -1, -1):
-        w[j] = (Ab[j, k] - torch.dot(Ab[j, :k], w)) / Ab[j, j]
+        w[..., j] = ((Ab[..., j, k] - lanes.vdot(Ab[..., j, :k], w))
+                     / Ab[..., j, j])
     return w
 
 
@@ -166,28 +175,30 @@ def _project_on_planes(x, A, b, nsave: int, iters: int = 400):
     ``[0, nsave]`` of (A, b) are equalities, the rest inequalities
     (saveplanes.jl).  Solved in the r-dimensional dual ``min 1/2 th'G th -
     th'g0 s.t. th_ineq >= 0`` with ``y = x - A' th`` by ``iters`` FISTA
-    steps, a loop on the device (r = 2 (nsave + 1))."""
-    r = A.shape[0]
-    G = torch.matmul(A, A.T)
-    g0 = torch.matmul(A, x) - b
+    steps, a loop on the device (r = 2 (nsave + 1)).  With lanes (``x``
+    ``(B, dim)``, ``A`` ``(B, r, dim)``, ``b`` ``(B, r)``) each lane's QP
+    is solved in the same loop."""
+    r = A.shape[-2]
+    G = torch.matmul(A, A.mT)
+    g0 = lanes.matvec(A, x) - b
     # Lipschitz bound: trace(G) >= lambda_max(G); zero planes guarded
-    L = torch.clamp_min(torch.trace(G), 1e-30)
+    L = lanes.per_lane(torch.clamp_min(lanes.trace(G), 1e-30), g0)
     ineq = torch.arange(r, device=x.device) > nsave
 
     def body(_, carry):
         th, th_prev, t = carry
         t_new = (1.0 + torch.sqrt(1.0 + 4.0 * t ** 2)) / 2.0
         w = th + ((t - 1.0) / t_new) * (th - th_prev)
-        th_next = w - (torch.matmul(G, w) - g0) / L
+        th_next = w - (lanes.matvec(G, w) - g0) / L
         # equality multipliers free, inequality multipliers >= 0
         th_next = torch.where(ineq, torch.clamp_min(th_next, 0.0), th_next)
         return th_next, th, t_new
 
-    th0 = torch.zeros(r, dtype=x.dtype, device=x.device)
+    th0 = torch.zeros(b.shape, dtype=x.dtype, device=x.device)
     th, _, _ = control.fori_loop(
         iters, body,
         (th0, th0.clone(), torch.ones((), dtype=x.dtype, device=x.device)))
-    return x - torch.matmul(A.T, th)
+    return x - lanes.matvec(A.mT, th)
 
 
 @dataclass(frozen=True)
@@ -216,18 +227,20 @@ class AndersonWrapper(Algorithm):
 
     def init_aux(self, x0):
         k, dim = self.memory, x0.shape[-1]
+        lane = lanes.lane_shape(x0)   # every field per instance
         f = dict(dtype=x0.dtype, device=x0.device)
         i32 = dict(dtype=torch.int32, device=x0.device)
         return (
             self.alg.init_aux(x0),
-            torch.zeros((k, dim), **f),                       # X ring
-            torch.zeros((k, dim), **f),                       # F ring
-            torch.zeros((), **i32),                           # pairs since flush
-            torch.full((), float("inf"), **f),                # last residual
-            torch.full((self.stall_window,), float("inf"), **f),  # its history
-            torch.full((), not self.adaptive, dtype=torch.bool,
+            torch.zeros(lane + (k, dim), **f),                # X ring
+            torch.zeros(lane + (k, dim), **f),                # F ring
+            torch.zeros(lane, **i32),                         # pairs since flush
+            torch.full(lane, float("inf"), **f),              # last residual
+            torch.full(lane + (self.stall_window,), float("inf"),
+                       **f),                                  # its history
+            torch.full(lane, not self.adaptive, dtype=torch.bool,
                        device=x0.device),                     # engaged
-            torch.zeros((), **i32),                           # steps taken
+            torch.zeros(lane, **i32),                         # steps taken
         )
 
     def coeffs(self, aux):
@@ -241,41 +254,44 @@ class AndersonWrapper(Algorithm):
         st2 = self.alg.step(sets, st._replace(aux=inner_aux), i)
         x_plain = st2.x
         f = x_plain - st.x
-        fn = torch.linalg.vector_norm(f)
+        fn = torch.linalg.vector_norm(f, dim=-1)
 
-        # engage once the plain iteration stalls, with a flushed memory
-        at = (tstep % W).reshape(1).long()
-        oldest = fnbuf.index_select(0, at)[0]
+        # engage once the plain iteration stalls, with a flushed memory;
+        # ring positions are one-hot masks, a position per lane
+        pos = (tstep % W)[..., None]
+        at = torch.arange(W, device=dev) == pos
+        oldest = fnbuf.gather(-1, pos.long())[..., 0]
         stalled = (tstep >= W) & (fn > self.stall_decay * oldest)
         newly_engaged = stalled & ~engaged
         engaged = engaged | stalled
-        fnbuf = fnbuf.index_copy(0, at, fn.reshape(1))
+        fnbuf = torch.where(at, fn[..., None], fnbuf)
         tstep = tstep + 1
 
         # safeguard: the residual grew too much -> flush, plain step
         reset = (fn > self.safeguard * prev_fn) | newly_engaged
         count = torch.where(reset, torch.zeros_like(count), count)
-        slot = (count % k).reshape(1).long()
-        Xb = Xb.index_copy(0, slot, st.x[None])
-        Fb = Fb.index_copy(0, slot, f[None])
+        slot = (torch.arange(k, device=dev) == (count % k)[..., None])[..., None]
+        Xb = torch.where(slot, st.x[..., None, :], Xb)
+        Fb = torch.where(slot, f[..., None, :], Fb)
         count = count + 1
 
         # the Gram system at unit trace (alpha is scale-invariant), with a
         # dtype-relative ridge and the unfilled slots masked out by a large
         # diagonal (which also keeps the pivots safe)
-        filled = torch.arange(k, device=dev) < count
-        M = torch.matmul(Fb, Fb.T)
-        M = M / torch.clamp_min(torch.trace(M), 1e-30)
+        filled = torch.arange(k, device=dev) < count[..., None]
+        M = torch.matmul(Fb, Fb.mT)
+        M = M / lanes.per_lane(torch.clamp_min(lanes.trace(M), 1e-30), M)
         reg = max(self.reg, 100.0 * torch.finfo(dtype).eps)
         eye = torch.eye(k, dtype=dtype, device=dev)
         M = M + reg * eye
-        M = M + torch.where(filled, 0.0, 1e30).to(dtype) * eye
-        w = _solve_small(M, torch.ones(k, dtype=dtype, device=dev))
-        x_aa = torch.matmul(w / w.sum(), Xb + Fb)
+        M = M + torch.where(filled, 0.0, 1e30).to(dtype)[..., None, :] * eye
+        w = _solve_small(M, torch.ones(count.shape + (k,), dtype=dtype,
+                                       device=dev))
+        x_aa = lanes.vecmat(w / w.sum(-1, keepdim=True), Xb + Fb)
 
         # accelerate once engaged, with >= 2 pairs, while the solve is finite
-        use_aa = engaged & (count >= 2) & torch.isfinite(x_aa).all()
-        x_new = torch.where(use_aa, x_aa, x_plain)
+        use_aa = engaged & (count >= 2) & torch.isfinite(x_aa).all(-1)
+        x_new = lanes.select(use_aa, x_aa, x_plain)
         return st2._replace(
             x=x_new, aux=(st2.aux, Xb, Fb, count, fn, fnbuf, engaged, tstep))
 
@@ -304,11 +320,12 @@ class LongstepWrapper(Algorithm):
 
     def init_aux(self, x0):
         rows = 2 * (self.nsave + 1)
+        lane = lanes.lane_shape(x0)   # a buffer per instance
         planes = PlaneBuf(
-            A=torch.zeros((rows, x0.shape[-1]), dtype=x0.dtype,
+            A=torch.zeros(lane + (rows, x0.shape[-1]), dtype=x0.dtype,
                           device=x0.device),
-            b=torch.zeros(rows, dtype=x0.dtype, device=x0.device),
-            slot=torch.full((), -1, dtype=torch.int32, device=x0.device))
+            b=torch.zeros(lane + (rows,), dtype=x0.dtype, device=x0.device),
+            slot=torch.full(lane, -1, dtype=torch.int32, device=x0.device))
         return (self.alg.init_aux(x0), planes)
 
     def coeffs(self, aux):
@@ -322,9 +339,12 @@ class LongstepWrapper(Algorithm):
     def step(self, sets, st: SolverState, i=None) -> SolverState:
         inner_aux, planes = st.aux
         if i is None:
+            # each lane records at its own count; the longstep is taken or
+            # not for the whole batch, at the lanes' shared count
             slot = self._slot(st.i)
+            boundary = self._slot(lanes.common_count(st.i)) == self.nsave
         else:
-            slot = torch.full((), self._slot(i), dtype=torch.int32,
+            slot = torch.full(st.i.shape, self._slot(i), dtype=torch.int32,
                               device=st.x.device)
         inner, planes = self.alg.step_capture(
             sets, st._replace(aux=inner_aux), planes._replace(slot=slot))
@@ -334,8 +354,7 @@ class LongstepWrapper(Algorithm):
                                       self.qp_iters)
 
         if i is None:
-            x_new = control.cond(slot == self.nsave, longstep, lambda x: x,
-                                 inner.x)
+            x_new = control.cond(boundary, longstep, lambda x: x, inner.x)
         else:
             x_new = (longstep(inner.x) if self._slot(i) == self.nsave
                      else inner.x)

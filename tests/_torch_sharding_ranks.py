@@ -241,6 +241,29 @@ def batched_sharded(inp):
     return _batched(inp, lambda f: shard_batched_form(f, mesh))
 
 
+def batched_linesearch(inp):
+    """LineSearch(DR) over a batch split one instance a rank, and the whole
+    batch solved in this process alone: both results."""
+    from fos_tpu_torch import DR, LineSearchWrapper, nonneg
+    from fos_tpu_torch.parallel import (build_batched_form, make_mesh,
+                                        shard_batched_form, solve_batched)
+
+    A, b, c = inp["lp"]
+    m, n = A.shape[1:]
+    form = build_batched_form(A, b, c, nonneg(m), nonneg(n), device="cpu")
+    alg = LineSearchWrapper(DR(), lsinterval=20)
+    run = dict(max_iters=100, eps=1e-3, checki=50)
+    mesh = make_mesh((4, 1), ("batch", "model"), device="cpu")
+    out = {}
+    for name, f in (("split", shard_batched_form(form, mesh)),
+                    ("whole", form)):
+        r = solve_batched(alg, f, **run)
+        out[name] = {"status": host(r.status), "iters": host(r.iters),
+                     "guess": host(r.guess), "x": host(r.state.x),
+                     "calls": host(r.state.s1_state.call_idx)}
+    return out
+
+
 def hybrid_rows(inp):
     from fos_tpu_torch.parallel import make_hybrid_mesh, shard_batched_form_rows
 
@@ -297,7 +320,8 @@ def cg_counts(inp):
 
 CASES = {f.__name__: f for f in (
     sparse_flat, sparse_hierarchical, rows_single, square_rows, single_2d,
-    rows_2d_equal, batched_sharded, hybrid_rows, hybrid_validation,
+    rows_2d_equal, batched_sharded, batched_linesearch, hybrid_rows,
+    hybrid_validation,
     cg_counts)}
 
 

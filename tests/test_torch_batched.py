@@ -286,7 +286,10 @@ def test_batched_captured_route_and_refusals():
     """The batched fused solve on the captured route's buffers
     (``control.emulated``: the chunk loop's lane-status condition and CG's
     any-lane condition read on the host) gives the eager run's bits and
-    history; algorithms whose steps branch per instance are refused."""
+    history; so do the algorithms whose steps branch on the lanes' shared
+    count (GAPP and the three wrappers, 100 iterations, their extra steps
+    every 20 or 40: IF nodes on the card, the line search's CG over
+    (B, 31) probe lanes)."""
     _, tf = _forms()
     eager = T.solve_batched(T.DR(), tf, max_iters=300, eps=EPS,
                             record_history=True)
@@ -296,7 +299,13 @@ def test_batched_captured_route_and_refusals():
     assert torch.equal(emu.guess, eager.guess)
     assert torch.equal(emu.hist, eager.hist)
     assert torch.equal(emu.iters, eager.iters)
-    for alg in (T.GAPP(), T.LineSearchWrapper(T.DR()),
-                T.AndersonWrapper(T.DR()), T.LongstepWrapper(T.DR())):
-        with pytest.raises(NotImplementedError):
-            T.solve_batched(alg, tf, max_iters=10)
+    for alg in (T.GAPP(iproj=20), T.LineSearchWrapper(T.DR(), lsinterval=20),
+                T.AndersonWrapper(T.DR(), memory=5, adaptive=False),
+                T.LongstepWrapper(T.DR(), longinterval=40, nsave=4)):
+        eager = T.solve_batched(alg, tf, max_iters=100, eps=EPS)
+        with control.emulated():
+            emu = T.solve_batched(alg, tf, max_iters=100, eps=EPS)
+        assert torch.equal(emu.status, eager.status), alg
+        assert torch.equal(emu.iters, eager.iters), alg
+        assert torch.equal(emu.guess, eager.guess), alg
+        assert torch.equal(emu.state.x, eager.state.x), alg

@@ -851,6 +851,47 @@ def test_solve_batched_routes_agree(cuda):
     assert torch.equal(graph.guess, eager.guess)
 
 
+@pytest.mark.parametrize("key", ["gapp", "linesearch", "anderson",
+                                 "longstep"])
+def test_solve_batched_wrapped_routes_agree(cuda, key):
+    """GAPP and the wrappers in solve_batched on 16 instances of 32 x 48
+    (their extra steps every 20 or 40 iterations: IF nodes on the lanes'
+    shared count, the line search's CG over (16, 31) probe lanes): the
+    captured fused graph (under sync debug mode "error") and its loops run
+    eagerly give equal statuses, iterations and bits; the lane condition
+    kernel ran in the graph."""
+    from fos_tpu_torch import (DR, GAPP, AndersonWrapper, LineSearchWrapper,
+                               LongstepWrapper, build_batched_form, nonneg,
+                               solve_batched)
+    from fos_tpu_torch.parallel import batched
+
+    alg = {"gapp": GAPP(iproj=20),
+           "linesearch": LineSearchWrapper(DR(), lsinterval=20),
+           "anderson": AndersonWrapper(DR(), memory=5, adaptive=False),
+           "longstep": LongstepWrapper(DR(), longinterval=40,
+                                       nsave=4)}[key]
+    rng = np.random.default_rng(6)
+    B, m, n = 16, 32, 48
+    A = rng.standard_normal((B, m, n)).astype(np.float32)
+    b = (np.einsum("bmn,bn->bm", A, np.abs(rng.standard_normal((B, n))))
+         + np.abs(rng.standard_normal((B, m)))).astype(np.float32)
+    c = np.abs(rng.standard_normal((B, n))).astype(np.float32)
+    form = build_batched_form(A, b, c, nonneg(m), nonneg(n), device=cuda)
+    kw = dict(max_iters=120, eps=1e-5, checki=40)
+    eager = batched._solve_batched_eager(alg, form, **kw)
+    torch.cuda.set_sync_debug_mode("error")
+    _cuda.device_launch_counts(reset=True)
+    try:
+        graph = solve_batched(alg, form, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _cuda.device_launch_counts(reset=True)["cg_continue_lanes"] > 0
+    assert torch.equal(graph.status, eager.status)
+    assert torch.equal(graph.iters, eager.iters)
+    assert torch.equal(graph.guess, eager.guess)
+    assert torch.equal(graph.state.x, eager.state.x)
+
+
 # K1's derivative rules (DensePairFn): the shapes of the first test, the
 # 1000^2 LP's and the tile-counting ones
 @pytest.mark.parametrize("M,N", [(1000, 1000), (33, 129), (1, 4000),

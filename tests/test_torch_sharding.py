@@ -103,6 +103,8 @@ def _inputs():
         "rows_2d_equal": {"lp": eq, "x": xe, "z": ze},
         "batched_sharded": {"lp": _lp_batch(np.random.default_rng(6), B=4,
                                             m=16, n=24)},
+        "batched_linesearch": {"lp": _lp_batch(np.random.default_rng(6),
+                                               B=4, m=16, n=24)},
         "hybrid_rows": {"lp": _lp_batch(np.random.default_rng(7), B=2,
                                         m=16, n=24)},
         "hybrid_validation": {"lp": _lp_batch(np.random.default_rng(8),
@@ -405,6 +407,20 @@ def test_batched_sharded(run):
     assert set(res["counts"]) <= {"all_reduce", "all_gather"}
     checks = int(res["iters"].max()) // 100 + 1
     assert res["counts"]["all_reduce"] <= checks + 1
+
+
+def test_batched_sharded_linesearch(run):
+    """LineSearch(DR) with CG on a batch split one instance a rank (each
+    rank's line search probes its instance on a (1, 31) lane axis): every
+    rank holds the whole batch's result, bit for bit the batch solved
+    whole in one process; some instances stop at a check, the others run
+    to the budget."""
+    res = _case(run, "batched_linesearch")
+    split, whole = res["split"], res["whole"]
+    for k in whole:
+        np.testing.assert_array_equal(split[k], whole[k], err_msg=k)
+    assert 0 < int((whole["status"] == 1).sum()) < 4
+    assert int(whole["calls"].max()) > 200   # the probes' calls counted
 
 
 def test_hybrid_batched_rows(run):
