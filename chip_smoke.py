@@ -25,7 +25,12 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    time replayed from a graph against 31 single calls' (gated at 1/5)
    beside the lane-batched cuBLAS pair; K2/K3 (the pairs);
    K4/K5 over the A tables (``mv``) and the A' tables (``rmv``), against a
-   block-sparse ``torch.sparse_bsr_tensor`` matvec; the SOC/rotated-SOC
+   block-sparse ``torch.sparse_bsr_tensor`` matvec; K2-K5 over lanes
+   (``tile_lane_cells``: phase 2's tables, K4/K5 also the A' tables, 1, 2
+   and 31 lanes as rows of a larger state; each lane bit-equal to the
+   single kernel, a 100-call repeat launching each lane kernel and its
+   sum once a call, at 31 lanes at most 1/3 of 31 single calls' replayed
+   time, beside the BSR product against a (k, 31) matrix); the SOC/rotated-SOC
    projection run twice on the card (bit-equal) against the CPU;
 2. the conic path: the dense 1000x1000 certificate LP through K1
    (``pallas=True``) to Optimal at eps=1e-5, continued to eps=1e-6 for the
@@ -82,8 +87,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    the three routes (gated equal), and K1's device counts over one
    line-search step against the counts its CG passes imply (exact): single
    calls for the real projection, lane calls for the 31 probe lanes.
+   ``wrappers_tile_lp``: LineSearch(DR) on phase 2's banded and scattered
+   LPs (Optimal, objective gate, three routes) and the same exact counts
+   for K2 / K3, the probes' projection bit-equal to single calls.
    ``wrappers_feasibility``: LineSearch(AP) and Longstep(DR) through K4,
-   LineSearch(DR) through K5, per probe lane (routes, Optimal, residual).
+   LineSearch(DR) through K5, the probes through their lane kernels
+   (routes, Optimal, residual, the probes' projection bit-equal to single
+   calls).
    ``batched_lp_128`` / ``_1024``: bench.py's batched LPs at a
    12000- / 6000-iteration budget (a floor of Optimal instances gated; the
    instances that stop within 1e-3 of HiGHS), segments and routes equal.
@@ -163,7 +173,7 @@ of its solves, for that solve's count), and every kernel must have been
 launched by its path; these are the ``launches`` of the kernels line
 (phase 6's counts of K1-K3, the kernels of its path, are
 ``launches_cones_path``; phase 7's, of every kernel, ``launches_phase7``,
-gated > 0 for K1, K4, K5, and for K1 over lanes and the lane condition
+gated > 0 for K1, K4, K5, and for K1-K5 over lanes and the lane condition
 ``cg_continue_lanes``, whose path it is and whose ``launches`` it gives;
 ``launches_batched_wrappers_lp_128``, the part of them that cell made,
 gated > 0 for ``cg_continue_lanes``; phase 8's, ``launches_phase8``,
@@ -231,6 +241,15 @@ K1_LANE_COUNTS = (1, 2, LINESEARCH_LANES)
 K1_LANE_SHAPES = ("fused_matvec", "fused_matvec_5000x300",
                   "fused_matvec_300x5000")
 K1_LANES_OVER_SINGLES = 0.2
+# K2-K5 over lanes at phase 2's tables (and, for K4/K5, their A' tables):
+# the lane counts, a bit repeat's length, and the gate on one lane call's
+# time over that of LINESEARCH_LANES single calls (both replayed from
+# graphs) at LINESEARCH_LANES lanes
+TILE_LANE_REPEATS = 100
+TILE_LANES_OVER_SINGLES = 1 / 3
+# the lane kernels, whose path is phase 7's line searches
+LANE_KERNELS = ("fused_matvec_lanes", "band_mv_pair_lanes",
+                "bell_mv_pair_lanes", "band_mv_lanes", "bell_mv_lanes")
 LAUNCH_ROUTE_TARGET = 1.3   # P1 per call in a chain / torch's tiny multiply
 # P1's and P2's device time over torch.mul's on the same tile, calls in
 # turns under one profiler (the design with a loop read 1.37-1.65)
@@ -654,6 +673,195 @@ def k1_lanes(name, A, op, dev):
             raise AssertionError(f"{name} over {B} lanes: {res}")
         out = res
     return out
+
+
+def tile_lanes(name, lane_fn, single_fn, plain_fn, rows, stored, single,
+               counters, library, dev):
+    """A tile kernel over lanes bound to its operator (``lane_fn``, K2-K5's
+    lane route: ``op._pair_lanes``, ``op._mv_lanes``, ``op._rmv_lanes``) on
+    lanes of padded tile vectors, each input ``(L, r, 128)`` for ``r`` in
+    ``rows``, the lanes rows of a larger random state at a lane stride 4
+    floats past their length.  For each of K1_LANE_COUNTS lane counts:
+    lane b bit-equal to the single kernel (``single_fn``, named ``single``)
+    on lane b's vectors and within tolerance of the plain lane version; a
+    call again (TILE_LANE_REPEATS calls at LINESEARCH_LANES lanes)
+    bit-equal, each one launch of every kernel in ``counters`` counted on
+    the device and none of the single kernel.  At LINESEARCH_LANES lanes:
+    the plain version's and the call's times, the device time, a call
+    replayed from a CUDA graph (bit-equal) against LINESEARCH_LANES single
+    calls (gated at TILE_LANES_OVER_SINGLES), the bound (the ``stored``
+    tiles read once, the lanes' vectors read and outputs written once; 4
+    flops a tile entry a lane for a pair, 2 for one product) and the time
+    of ``library`` = (a call making one block-sparse cuSPARSE product per
+    direction against the lanes as dense (k, L) matrices, the tile rows of
+    each of those matrices, zero past the lanes' rows).  At one lane: the
+    lane kernel's graph-replayed and device times against the single
+    kernel's on the same vectors (printed, not gated).  Returns the row of
+    LINESEARCH_LANES lanes with the one-lane times."""
+    import torch
+    from fos_tpu_torch.linalg import _cuda
+
+    g = np.random.default_rng(len(name) * 101 + stored)
+    pair = len(rows) == 2
+    out = {}
+    for L in K1_LANE_COUNTS:
+        ins = []
+        for r in rows:
+            big = torch.as_tensor(g.standard_normal(
+                (L, r * TILE + 4), dtype=np.float32), device=dev)
+            ins.append(big[:, :r * TILE].unflatten(1, (r, TILE)))
+        got = lane_fn(*ins)
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        res = {}
+        if L == LINESEARCH_LANES:
+            res = compare(f"{name}_lanes_{L}", lambda: tuple(
+                lane_fn(*ins)) if pair else (lane_fn(*ins),),
+                lambda: tuple(plain_fn(*ins)) if pair else (plain_fn(*ins),))
+        else:
+            want = plain_fn(*ins)
+            want = want if isinstance(want, (tuple, list)) else (want,)
+            d = max(float((a - w).abs().max()) for a, w in zip(got, want))
+            res["max_abs_err"] = d
+            if not all(bool(((a - w).abs() <= ATOL + RTOL * w.abs()).all())
+                       for a, w in zip(got, want)):
+                raise AssertionError(f"{name} over {L} lanes disagrees with "
+                                     f"its plain version (max abs err {d})")
+        res["bit_equal_to_single"] = all(
+            all(torch.equal(a[b], s) for a, s in zip(got, (
+                single_fn(*(x[b] for x in ins)) if pair else
+                (single_fn(*(x[b] for x in ins)),))))
+            for b in range(L))
+        repeats = TILE_LANE_REPEATS if L == LINESEARCH_LANES else 1
+        _cuda.device_launch_counts(reset=True)
+        res["bit_repeat"] = all([
+            all(torch.equal(a, b) for a, b in zip(
+                (lambda o: o if pair else (o,))(lane_fn(*ins)), got))
+            for _ in range(repeats)])
+        counts = _cuda.device_launch_counts(reset=True)
+        res["launches_in_repeat"] = {k: counts[k]
+                                     for k in (*counters, single)}
+        entries = stored * TILE * TILE
+        res.update(bound(4 * (entries + sum(x.numel() for x in ins)
+                              + sum(o.numel() for o in got)),
+                         (4 if pair else 2) * L * entries))
+        if L == 1:
+            # one lane: the lane kernel against the single kernel on the
+            # same vectors, graphs replayed in turns (lane, single, single,
+            # lane), and their device times
+            lane1 = lambda: lane_fn(*ins)  # noqa: E731
+            single1 = lambda: single_fn(*(x[0] for x in ins))  # noqa: E731
+            t = [graph_us(f)[0] for f in (lane1, single1, single1, lane1)]
+            at_one = {"graph_us_at_1": (t[0] + t[3]) / 2,
+                      "single_graph_us_at_1": (t[1] + t[2]) / 2,
+                      "device_ms_at_1": device_ms(lane1),
+                      "single_device_ms_at_1": device_ms(single1)}
+            at_one["lane_over_single_at_1"] = (
+                at_one["graph_us_at_1"] / at_one["single_graph_us_at_1"])
+            res.update(at_one)
+        if L == LINESEARCH_LANES:
+            call = lambda: lane_fn(*ins)  # noqa: E731
+            singles = lambda: [single_fn(*(x[b] for x in ins))  # noqa: E731
+                               for b in range(L)]
+            (res["profiler_kernels_per_call"], res["device_ms_by_kernel"],
+             _) = kernel_breakdown(call)
+            res["graph_us"], replayed = graph_us(call)
+            replayed = replayed if pair else (replayed,)
+            res["graph_bit_equal"] = all(torch.equal(a, b)
+                                         for a, b in zip(replayed, got))
+            res["singles_device_ms"] = device_ms(singles)
+            res["singles_graph_us"], _ = graph_us(singles, calls=10)
+            res["lanes_over_singles"] = (res["graph_us"]
+                                         / res["singles_graph_us"])
+            res["share_of_bound"] = res["bound_ms"] * 1e3 / res["graph_us"]
+            lib_fn, lib_rows = library
+            dense = []
+            for x, r in zip(ins, lib_rows):
+                d = torch.zeros(r * TILE, L, device=dev)
+                d[:x.shape[1] * TILE] = x.reshape(L, -1).T
+                dense.append(d)
+            res["library"] = ("torch.sparse_bsr_tensor @ X (k, L), A' table "
+                              "@ Z" if pair else
+                              "torch.sparse_bsr_tensor @ X (k, L)")
+            res["library_ms"] = median_ms(lambda: lib_fn(*dense))
+            res["library_device_ms"] = device_ms(lambda: lib_fn(*dense))
+        emit({"phase": "kernel", "name": f"{name}_lanes", "lanes": L,
+              "stored_tiles": stored, **res})
+        want_counts = {k: repeats for k in counters}
+        want_counts[single] = 0
+        if (not res["bit_equal_to_single"] or not res["bit_repeat"]
+                or res.get("deterministic") is False
+                or res["launches_in_repeat"] != want_counts
+                or res.get("graph_bit_equal") is False
+                or res.get("lanes_over_singles", 0) > TILE_LANES_OVER_SINGLES):
+            raise AssertionError(f"{name} over {L} lanes: {res}")
+        out = res
+    return {**out, **at_one}
+
+
+def tile_lane_cells(dev, band, ell, yardsticks):
+    """Phase 1's K2-K5 over lanes (:func:`tile_lanes`) through phase 2's
+    operators' lane routes, on inputs padded as the products pad them:
+    the pairs, and each single-product kernel over the A table (mv) and
+    the A' table (rmv).  ``yardsticks``: phase 1's block-sparse cuSPARSE
+    products of the pairs' two tables.  Returns the kernels line's rows
+    (the rmv rows are printed only)."""
+    from fos_tpu_torch.linalg.sparse_ell import (band_mv_lanes_plain,
+                                                 band_mv_pair_lanes_plain,
+                                                 bell_mv_lanes_plain,
+                                                 bell_mv_pair_lanes_plain)
+    nrb, S = band.blocks.shape[:2]
+    stored_ell = int(ell.counts.sum())
+    rows_out = {}
+    lib_band_a, lib_band_t = yardsticks["band_mv_pair"][:2]
+    lib_ell_a, lib_ell_t = yardsticks["bell_mv_pair"][:2]
+    band_t_rows = nrb + band.blocks_t.shape[1]
+    lane_cells = (
+        ("band_mv_pair", "", band._pair_lanes, band._pair,
+         functools.partial(band_mv_pair_lanes_plain, band.cs, band.blocks),
+         (band._xrows, nrb), nrb * S,
+         (lambda X, Z: (lib_band_a(X), lib_band_t(Z)),
+          (band._xrows, band_t_rows)), "fos_tpu/linalg/sparse_ell.py:249",
+         "pair_kernels.cu"),
+        ("bell_mv_pair", "", ell._pair_lanes, ell._pair,
+         functools.partial(bell_mv_pair_lanes_plain, ell.cols, ell.blocks),
+         (ell._xrows, nrb), stored_ell,
+         (lambda X, Z: (lib_ell_a(X), lib_ell_t(Z)), (ell._xrows, nrb)),
+         "fos_tpu/linalg/sparse_ell.py:333", "pair_kernels.cu"))
+    for op, kind, plain, repl in (
+            (band, "band", band_mv_lanes_plain,
+             "fos_tpu/linalg/sparse_ell.py:156"),
+            (ell, "bell", bell_mv_lanes_plain,
+             "fos_tpu/linalg/sparse_ell.py:89")):
+        counts = None if kind == "band" else op.counts
+        blocks_t, index_t, counts_t = op.transposed()
+        for direction, blocks, index, cnt, lane_fn, single_fn, xrows in (
+                ("mv", op.blocks, op.cs if kind == "band" else op.cols,
+                 counts, op._mv_lanes, op._mv, op._xrows),
+                ("rmv", blocks_t, index_t, counts_t, op._rmv_lanes, op._rmv,
+                 op._yrows_t)):
+            if cnt is None:
+                slots = index.cpu().numpy()[:, None] + np.arange(
+                    blocks.shape[1])
+                cnt_h = np.full(blocks.shape[0], blocks.shape[1])
+            else:
+                slots, cnt_h = index.cpu().numpy(), cnt.cpu().numpy()
+            lib = library_mv(blocks, slots, cnt_h, xrows, dev)
+            lane_cells += ((
+                f"{kind}_mv", direction, lane_fn, single_fn,
+                functools.partial(plain, index, blocks), (xrows,),
+                int(cnt_h.sum()), (lib, (xrows,)), repl, "tile_mv.cu"),)
+    for (name, direction, lane_fn, single_fn, plain, rows, stored, lib,
+         replaces, src) in lane_cells:
+        label = f"{name}.{direction}" if direction else name
+        counters = (f"{name}_lanes",) + (
+            (f"{name}_lanes_sum",) if name.endswith("pair") else ())
+        res = tile_lanes(label, lane_fn, single_fn, plain, rows, stored,
+                         name, counters, lib, dev)
+        if direction != "rmv":
+            rows_out[f"{name}_lanes"] = {
+                "source": f"fos_tpu_torch/csrc/{src}", "replaces": replaces,
+                "shape": [LINESEARCH_LANES, *rows], **res}
+    return rows_out
 
 
 # ------------------------------------------------------------ graph route
@@ -1565,6 +1773,8 @@ REFINE_GAIN = 50.0
 # at 900, Anderson at 2100 (Optimal, PR 11's run 1), and Longstep, not
 # gated on Optimal, ran all 5000 (39-52 s through its three routes)
 WRAPPER_BUDGET = 2500
+# wrappers_tile_lp's budget (DR alone stops at 2000 / 2200 on these LPs)
+TILE_WRAPPER_BUDGET = 10000
 WRAPPER_FEAS_INTERVAL = 50
 WRAPPER_FEAS_CHECKI = 1000
 # batched LPs: bench.py:846-873's recipe, B x (64 x 96), numpy seeds, the
@@ -1659,37 +1869,85 @@ def refine_dense_lp(dev, totals):
         raise AssertionError(f"refine_dense_lp: {row}")
 
 
-def linesearch_k1_count(form, interval, totals):
-    """K1's device counts over one LineSearch(DR) boundary step of the
-    dense LP, eager and replayed from a CUDA graph, against the counts the
-    step's CG passes imply: single-vector calls for the real projection
-    (its pair for r0 plus 2 unroll pairs per pass), and lane calls for the
-    31 probe lanes, one call for all of them per product (their r0 pair
-    plus 2 unroll pairs per pass, the passes running to the slowest lane:
-    ``it_j`` CG iterations take ceil(it_j / unroll) passes).  Those counts
-    come from the step's pieces run eagerly first."""
-    import torch
-    from fos_tpu_torch import DR, LineSearchWrapper
-    from fos_tpu_torch.solvers import engine, graphs, wrappers
+class SingleVectorOp:
+    """An operator whose products take one vector: ``hsde_ops`` then runs
+    its lane products lane by lane (``lanes.lane_by_lane``), one single
+    kernel call per lane.  The reference the lane kernels are held to
+    inside a projection; no solve runs it."""
+
+    pair_lanes = mv_lanes = False
+
+    def __init__(self, op):
+        self.op = op
+
+    def __getattr__(self, name):
+        return getattr(self.op, name)
+
+
+def probe_step(form, alg, interval):
+    """A line-search boundary step's pieces, run eagerly: the state after
+    ``interval - 1`` steps of ``alg`` (a LineSearchWrapper), the S1 state
+    after the step's real projection (and its CG iterations), and the 31
+    probe points."""
+    from fos_tpu_torch.solvers import engine, wrappers
     from fos_tpu_torch.solvers.base import init_solver_state
 
-    alg = LineSearchWrapper(DR(), lsinterval=interval)
     sets, inner = form.sets, alg.alg
     st = init_solver_state(alg, sets, form.initial_value(form.dtype))
     st = engine._run_steps(alg, form, st, interval - 1, 0)
-    unroll = sets.s1.cg_unroll
     tmp2, s1 = inner.relaxed_s1(sets, st.x, st.s1_state, st.aux)
     _, x_new, _ = inner.relaxed_s2(sets, tmp2, st.s2_state, st.aux)
     res = x_new - st.x
     cands = st.x[None] + wrappers.ls_alphas(st.x)[:, None] * res[None]
-    _, probes = sets.s1.project(cands, s1)
+    return st, s1, cands
+
+
+def probe_projection(sets, s1, cands):
+    """The probes' S1 projection through the operator's lane products and
+    through single calls per lane (:class:`SingleVectorOp`): the lane
+    route's projection and CG states, and whether the two projections and
+    their per-lane CG counts are bit-equal."""
+    import torch
+
+    got, st = sets.s1.project(cands, s1)
+    ref_set = copy.copy(sets.s1)
+    ref_set.A = SingleVectorOp(sets.s1.A)
+    want, ref = ref_set.project(cands, s1)
+    return got, st, bool(torch.equal(got, want)) and bool(
+        torch.equal(st.last_iters, ref.last_iters))
+
+
+def linesearch_pair_count(form, interval, totals, kernel):
+    """A pair kernel's device counts (``kernel``: K1 ``fused_matvec``, K2
+    ``band_mv_pair`` or K3 ``bell_mv_pair``) over one LineSearch(DR)
+    boundary step of an LP, eager and replayed from a CUDA graph, against
+    the counts the step's CG passes imply: single-vector calls for the real
+    projection (its pair for r0 plus 2 unroll pairs per pass), and lane
+    calls for the 31 probe lanes, one call for all of them per product
+    (their r0 pair plus 2 unroll pairs per pass, the passes running to the
+    slowest lane: ``it_j`` CG iterations take ceil(it_j / unroll) passes);
+    each lane kernel's sum once per call.  Those counts come from the
+    step's pieces run eagerly first, and the probes' projection there is
+    held bit for bit to the same projection through single calls (both
+    projections a reference: their launches are not added to
+    ``totals``)."""
+    import torch
+    from fos_tpu_torch import DR, LineSearchWrapper
+    from fos_tpu_torch.solvers import graphs
+
+    alg = LineSearchWrapper(DR(), lsinterval=interval)
+    sets = form.sets
+    st, s1, cands = probe_step(form, alg, interval)
+    counted(totals)
+    unroll = sets.s1.cg_unroll
+    _, probes, probes_bit_equal = probe_projection(sets, s1, cands)
+    discard_counts()   # a reference: its single calls are not the path's
     lanes = cands.shape[0]
     real_passes = -(-int(s1.last_iters) // unroll)
     probe_iters = probes.last_iters.cpu().numpy()
     probe_passes = int(-(-probe_iters.max() // unroll))
     implied = 1 + 2 * unroll * real_passes
     implied_lanes = 1 + 2 * unroll * probe_passes
-    counted(totals)
     eager = alg.step(sets, st, interval - 1)
     n_eager = counted(totals)
     form.prepare(st.x)
@@ -1697,29 +1955,32 @@ def linesearch_k1_count(form, interval, totals):
     counted(totals)
     replayed = g(st)[0]
     n_graph = counted(totals)
-    out = {"phase": "linesearch_k1_count", "lsinterval": interval,
-           "probe_lanes": lanes, "cg_unroll": unroll,
+    lane = f"{kernel}_lanes"
+    out = {"phase": "linesearch_pair_count", "kernel": kernel,
+           "lsinterval": interval, "probe_lanes": lanes, "cg_unroll": unroll,
            "real_cg_iters": int(s1.last_iters),
            "probe_cg_iters_max": int(probe_iters.max()),
            "probe_cg_iters_min": int(probe_iters.min()),
-           "k1_implied": implied,
-           "k1_eager": n_eager["fused_matvec"],
-           "k1_graph": n_graph["fused_matvec"],
-           "k1_sum_graph": n_graph["fused_matvec_sum"],
-           "k1_lanes_implied": implied_lanes,
-           "k1_lanes_eager": n_eager["fused_matvec_lanes"],
-           "k1_lanes_graph": n_graph["fused_matvec_lanes"],
-           "k1_lanes_sum_graph": n_graph["fused_matvec_lanes_sum"],
-           "k1_single_calls_replaced": lanes * implied_lanes,
+           "probes_bit_equal_to_single_calls": probes_bit_equal,
+           "single_implied": implied,
+           "single_eager": n_eager[kernel],
+           "single_graph": n_graph[kernel],
+           "lanes_implied": implied_lanes,
+           "lanes_eager": n_eager[lane],
+           "lanes_graph": n_graph[lane],
+           "lanes_sum_graph": n_graph[f"{lane}_sum"],
+           "single_calls_replaced": lanes * implied_lanes,
            "cg_continue_lanes_graph": n_graph["cg_continue_lanes"],
            "bit_equal": bool(torch.equal(replayed.x, eager.x))}
+    if kernel == "fused_matvec":
+        out["single_sum_graph"] = n_graph["fused_matvec_sum"]
     emit(out)
-    if not (implied == out["k1_eager"] == out["k1_graph"]
-            == out["k1_sum_graph"]) or not (
-                implied_lanes == out["k1_lanes_eager"]
-                == out["k1_lanes_graph"] == out["k1_lanes_sum_graph"]) \
-            or not out["bit_equal"]:
-        raise AssertionError(f"LineSearch boundary step: K1 {out}")
+    if not (implied == out["single_eager"] == out["single_graph"]
+            == out.get("single_sum_graph", implied)) or not (
+                implied_lanes == out["lanes_eager"] == out["lanes_graph"]
+                == out["lanes_sum_graph"]) \
+            or not out["bit_equal"] or not probes_bit_equal:
+        raise AssertionError(f"LineSearch boundary step: {kernel} {out}")
     g.release()
 
 
@@ -1758,15 +2019,88 @@ def wrapper_dense_cells(dev, A1, b1, c1, totals):
         rows[name]["eager_iters_per_s"] = out["eager"]["iters_per_s"]
     emit({"phase": "wrappers_dense_lp", "shape": [N, N], "eps": GATE_EPS,
           "budget": WRAPPER_BUDGET, **rows})
-    linesearch_k1_count(make(), 100, totals)
+    linesearch_pair_count(make(), 100, totals, "fused_matvec")
+
+
+def wrapper_tile_lp_cells(dev, lps, totals):
+    """wrappers_tile_lp: LineSearch(DR) at its default interval on phase
+    2's banded (K2) and scattered (K3) 32768^2 LPs, f32, the CG projection,
+    so the 31 probes of each line-search step run their CG through the
+    pair's lane kernel.  Through ``solve``: Optimal at eps 1e-5 within
+    TILE_WRAPPER_BUDGET and the objective within GATE_OBJ of the
+    certificate (continued from its iterate to eps 1e-6 when it is not, as
+    phase 2's dense LP).  Through the three routes: gated equal.  Then the
+    kernels' exact counts and the probes' bits over one line-search step
+    (:func:`linesearch_pair_count`).  ``lps``: (name, pair kernel,
+    operator, b, c, certificate optimum) of each LP."""
+    import torch
+    from fos_tpu_torch import DR, LineSearchWrapper, nonneg, solve
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    alg = LineSearchWrapper(DR())
+    for name, kernel, op, b, c, opt in lps:
+        m, n = op.shape
+
+        def run(eps, warm=None):
+            return timed_solve(lambda: solve(
+                op, b, c, nonneg(m), nonneg(n), alg=alg, eps=eps,
+                max_iters=TILE_WRAPPER_BUDGET, verbose=0, device=dev,
+                warm_start=warm))
+
+        def make():
+            return HSDEForm.build(conic_problem(
+                op, b, c, nonneg(m), nonneg(n), device=dev,
+                dtype=torch.float32))
+
+        counted(totals)
+        sol, secs = run(GATE_EPS)
+        first = {"status": sol.status, "iters": sol.iters, "seconds": secs,
+                 "rel_obj_err": abs(sol.objval - opt) / abs(opt)}
+        continued = None
+        if sol.status == "Optimal" and first["rel_obj_err"] > GATE_OBJ:
+            sol, secs = run(GATE_EPS / 10, sol)
+            continued = {"eps": GATE_EPS / 10, "status": sol.status,
+                         "iters": sol.iters, "seconds": secs}
+        rel = abs(sol.objval - opt) / abs(opt)
+        solved = counted(totals)
+        out, _ = run_routes(f"wrappers_tile_lp_{name}", make,
+                            lambda f: f.initial_value(f.dtype), GATE_EPS,
+                            TILE_WRAPPER_BUDGET, alg=alg)
+        routes = counted(totals)
+        row = {"phase": "wrappers_tile_lp", "lp": name, "shape": [m, n],
+               "table": list(op.blocks.shape), "eps": GATE_EPS,
+               "budget": TILE_WRAPPER_BUDGET, "lsinterval": alg.lsinterval,
+               **first, "continued": continued, "obj": sol.objval,
+               "obj_certificate": opt, "final_rel_obj_err": rel,
+               "iters_per_s": first["iters"] / first["seconds"],
+               "graph_iters_per_s": out["graph"]["iters_per_s"],
+               "eager_iters_per_s": out["eager"]["iters_per_s"],
+               "fused_iters_per_s": out["fused"]["iters_per_s"],
+               f"{kernel}_launches_solve": solved[kernel],
+               f"{kernel}_lanes_launches_solve": solved[f"{kernel}_lanes"],
+               f"{kernel}_launches_three_routes": routes[kernel],
+               f"{kernel}_lanes_launches_three_routes":
+                   routes[f"{kernel}_lanes"]}
+        emit(row)
+        if (sol.status != "Optimal" or rel > GATE_OBJ
+                or not solved[f"{kernel}_lanes"]
+                or not routes[f"{kernel}_lanes"]):
+            raise AssertionError(f"wrappers_tile_lp {name}: {row}")
+        linesearch_pair_count(make(), alg.lsinterval, totals, kernel)
 
 
 def wrapper_feasibility_cells(dev, feas, m, n, totals):
     """wrappers_feasibility: LineSearch(AP) and Longstep(DR) on the banded
-    32768^2 feasibility problem (K4 per probe lane), LineSearch(DR) on the
-    scattered one (K5), each through the three routes (gated equal) with
-    the first check at WRAPPER_FEAS_CHECKI, gated Optimal with the answer
-    inside the box, s >= 0, and phase 3's f64 host residual limit."""
+    32768^2 feasibility problem (K4; the line search's probes through its
+    lane kernel), LineSearch(DR) on the scattered one (K5, the same), each
+    through the three routes (gated equal) with the first check at
+    WRAPPER_FEAS_CHECKI, gated Optimal with the answer inside the box, s
+    >= 0, and phase 3's f64 host residual limit; the line-search cells
+    launch the lane kernel, and one boundary step's probe projection
+    through it is bit-equal to the same projection through single calls
+    (:func:`probe_projection`).  Each cell prints the single and the lane
+    kernel's launches over its three routes."""
     import torch
     from fos_tpu_torch import (AP, DR, AffinePlusLinearProjector, BlockSet,
                                Box, Feasibility, LineSearchWrapper,
@@ -1795,7 +2129,17 @@ def wrapper_feasibility_cells(dev, feas, m, n, totals):
                                 lambda f: f.initial_value(f.dtype), eps,
                                 10000, checki=WRAPPER_FEAS_CHECKI, alg=alg)
         key = f"{kind}_mv"
-        count = counted(totals)[key]
+        routes = counted(totals)
+        count, lane_count = routes[key], routes[f"{key}_lanes"]
+        probes = None
+        if isinstance(alg, LineSearchWrapper):
+            # one boundary step's probe projection: the lane kernel against
+            # single calls, lane by lane (a reference, not counted)
+            form = make()
+            _, s1, cands = probe_step(form, alg, k)
+            _, pst, probes = probe_projection(form.sets, s1, cands)
+            probe_cg = pst.last_iters.cpu().numpy()
+            discard_counts()
         z = eager.guess
         inside = (bool((z[:n] >= 0).all()) and bool((z[:n] <= 1).all())
                   and bool((z[n:] >= 0).all()))
@@ -1809,11 +2153,19 @@ def wrapper_feasibility_cells(dev, feas, m, n, totals):
               "iters": out["eager"]["iters"],
               "graph_iters_per_s": out["graph"]["iters_per_s"],
               "inside_box_and_s_nonneg": inside, "resid_inf": resid,
-              "resid_gate": gate, f"{key}_launches_three_routes": count})
-        if status != "Optimal" or not inside or resid > gate or count == 0:
+              "resid_gate": gate, f"{key}_launches_three_routes": count,
+              f"{key}_lanes_launches_three_routes": lane_count,
+              **({} if probes is None else {
+                  "probes_bit_equal_to_single_calls": probes,
+                  "probe_cg_iters": [int(probe_cg.min()),
+                                     int(probe_cg.max())]})})
+        if (status != "Optimal" or not inside or resid > gate or count == 0
+                or probes is False or (probes is not None
+                                       and lane_count == 0)):
             raise AssertionError(f"wrappers_feasibility {name}: {status}, "
                                  f"inside {inside}, residual {resid} (gate "
-                                 f"{gate}), {key} launches {count}")
+                                 f"{gate}), {key} launches {count}, lanes "
+                                 f"{lane_count}, probes bit-equal {probes}")
         del eager
         torch.cuda.empty_cache()
 
@@ -2139,15 +2491,17 @@ def discard_counts():
     _cuda.device_launch_counts(reset=True)
 
 
-def slice_phase(dev, A1, b1, c1, feas, m, n):
+def slice_phase(dev, A1, b1, c1, feas, m, n, tile_lps):
     """Phase 7 (this slice's path): refine, the wrappers and the batched
-    solve.  Returns the device's launch counts over the phase."""
+    solve.  ``tile_lps``: :func:`wrapper_tile_lp_cells`' LPs.  Returns the
+    device's launch counts over the phase."""
     from fos_tpu_torch.linalg import _cuda
 
     _cuda.device_launch_counts(reset=True)
     totals = collections.Counter()
     refine_dense_lp(dev, totals)
     wrapper_dense_cells(dev, A1, b1, c1, totals)
+    wrapper_tile_lp_cells(dev, tile_lps, totals)
     wrapper_feasibility_cells(dev, feas, m, n, totals)
     lp128 = batched_lp_cells(dev)
     wrapped = batched_wrapper_cell(dev, lp128, totals)
@@ -3653,6 +4007,9 @@ def main() -> int:
                              else "fos_tpu/linalg/sparse_ell.py:89"),
                 "shape": list(blocks.shape), **res}
 
+    # K2-K5 over lanes (the lane kernels' phase-1 rows)
+    kernels.update(tile_lane_cells(dev, band, ell, yardsticks))
+
     # the condition kernels of the graph route (csrc/graph.cu)
     for name, res in condition_kernels(dev).items():
         emit({"phase": "kernel", "name": name, **res})
@@ -3891,10 +4248,10 @@ def main() -> int:
           "p1_within_target": route["p1_over_torch"] <= LAUNCH_ROUTE_TARGET})
     for name in ("probe_tiny", "probe_prefetch"):
         kernels[name]["launches"] = _cuda.LAUNCHES[name]
-    # the lane condition's and K1's lane kernel's path is phase 7's
+    # the lane condition's and the lane kernels' path is phase 7's
     # (counted there)
     missing = [k for k, e in kernels.items()
-               if k not in ("cg_continue_lanes", "fused_matvec_lanes")
+               if k not in ("cg_continue_lanes", *LANE_KERNELS)
                and (e["launches"] == 0 or e.get("captured_calls") == 0)]
     if missing:
         raise AssertionError(f"kernels never launched by their path: {missing}")
@@ -3984,24 +4341,29 @@ def main() -> int:
     clock.append(("phase7", time.perf_counter()))
     # --- phase 7: refine, the wrappers and the batched solve (this slice's
     # path), with the device's launch counts zeroed before it
-    slice_counts, wrapped_counts = slice_phase(dev, A1, b1, c1, feas, m, n)
+    slice_counts, wrapped_counts = slice_phase(
+        dev, A1, b1, c1, feas, m, n,
+        (("banded", "band_mv_pair", band, b_band, c_band, opt_band),
+         ("scattered", "bell_mv_pair", ell, b_ell, c_ell, opt_ell)))
     for name in kernels:
         kernels[name]["launches_phase7"] = slice_counts[name]
         kernels[name]["launches_batched_wrappers_lp_128"] = wrapped_counts[
             name]
-    for name in ("cg_continue_lanes", "fused_matvec_lanes"):
+    for name in ("cg_continue_lanes", *LANE_KERNELS):
         kernels[name]["launches"] = slice_counts[name]
-    kernels["fused_matvec_lanes"]["sum_launches"] = slice_counts[
-        "fused_matvec_lanes_sum"]
-    if not all(slice_counts[k] for k in ("fused_matvec", "fused_matvec_lanes",
-                                         "band_mv", "bell_mv",
-                                         "cg_continue_lanes")):
-        raise AssertionError(f"phase 7 did not launch K1, K1 over lanes, K4, "
-                             f"K5 and the lane condition: "
+    for name in ("fused_matvec_lanes", "band_mv_pair_lanes",
+                 "bell_mv_pair_lanes"):
+        kernels[name]["sum_launches"] = slice_counts[f"{name}_sum"]
+    if not all(slice_counts[k] for k in ("fused_matvec", "band_mv", "bell_mv",
+                                         "cg_continue_lanes",
+                                         *LANE_KERNELS)):
+        raise AssertionError(f"phase 7 did not launch K1, K4, K5, K1-K5 over "
+                             f"lanes and the lane condition: "
                              f"{dict(slice_counts)}")
-    if slice_counts["fused_matvec_lanes"] != slice_counts[
-            "fused_matvec_lanes_sum"]:
-        raise AssertionError(f"K1 over lanes on phase 7's path: "
+    if any(slice_counts[k] != slice_counts[f"{k}_sum"]
+           for k in ("fused_matvec_lanes", "band_mv_pair_lanes",
+                     "bell_mv_pair_lanes")):
+        raise AssertionError(f"K1-K3 over lanes on phase 7's path: "
                              f"{dict(slice_counts)}")
 
     clock.append(("phase8", time.perf_counter()))

@@ -18,6 +18,24 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// One step of a warp sum of many values at once: lanes with bit h of their
+// index keep the upper kHalf of v, the others the lower kHalf, and each
+// kept value gets its partner lane's copy added (own value first).  Every
+// add is the one warp_sum's step h makes for that value on that lane, so
+// after the steps 16, 8, 4, 2 (and 1) each value's total has warp_sum's
+// bits; a lane ends holding the values whose index bits match its own.
+// N values take N - 1 shuffles down to one a lane where warp_sum takes 5 N.
+template <int kHalf>
+__device__ __forceinline__ void trade_halves(float* v, int lane, int h) {
+  const bool up = lane & h;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float send = up ? v[i] : v[i + kHalf];
+    const float keep = up ? v[i + kHalf] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, h);
+  }
+}
+
 // A launch record: the int64 slots an entry point reads, in the order its
 // comment lists (pointers and sizes, the stream last).  The caller keeps
 // one record per bound kernel and rewrites only the per-call slots, so a
@@ -37,7 +55,7 @@ struct Record {
 // say only that a kernel was captured; each counted kernel also adds one
 // here (thread 0 of block 0), once per launch, replayed or not.  Each
 // source file has its own counters and an entry point that reads them.
-constexpr int kCounters = 6;
+constexpr int kCounters = 10;
 __device__ unsigned long long launch_count[kCounters];
 
 __device__ __forceinline__ void count_launch(int id) {

@@ -62,6 +62,19 @@
 // row block's tiles for y1, and over the tiles that land in a column block
 // for y2, listed by an inverse table built once on the host).
 //
+// K2, K3 over lanes (the line search's 31 candidate steps through the
+// HSDE projection's CG, a vmap over the pallas_call in the JAX package):
+// the same grid, one block per stored tile, which loads its tile into
+// registers once (each warp its 16 rows, as tile_products) and runs every
+// lane's x and z through it, then the same ordered sums with a lane axis
+// in their grid.  Per lane the arithmetic is tile_products' and
+// tile_pair_sum's: the row dots' warp sums are taken 16 at a time
+// (trade_halves, 16 shuffles where 16 butterflies take 80, the same adds)
+// and the column totals kPairRound lanes per shared-memory round, in warp
+// order, so lane b is bit-equal to a single call on lane b's vectors.
+// At L lanes the work is 4 L flops per tile entry over the tile's 4
+// bytes: past ~20 lanes the f32 rate, not the table's bytes, bounds it.
+//
 // The TPU kernels' VMEM constants (8-tile slabs, 8-row-block batches, the
 // 512x512 dense padding) do not apply here.
 
@@ -93,25 +106,14 @@ __device__ __forceinline__ void wait_for_primary() {
 
 // The warp sums of a warp's four row dots (d[i] on each lane: its columns'
 // part of row i); row lane >> 3 ends on the lane.  The first two steps of
-// the butterfly trade halves of the rows (at step 16 lanes below 16 keep
-// rows 0 and 1 and add their partner's copies; at step 8 one row of the
-// two), then a plain butterfly over 8 lanes: 6 shuffles where four
-// butterflies take 20.  Each add takes the two operands that the same step
-// of warp_sum takes for that row (and a + b == b + a in IEEE arithmetic),
-// so every row has warp_sum's bits.
+// the butterfly trade halves of the rows (trade_halves: at step 16 lanes
+// below 16 keep rows 0 and 1, at step 8 one row of the two), then a plain
+// butterfly over 8 lanes: 6 shuffles where four butterflies take 20, with
+// warp_sum's bits for every row.
 __device__ __forceinline__ float rows_sum(float (&d)[kDenseRows], int lane) {
   static_assert(kDenseRows == 4, "rows_sum trades halves twice");
-#pragma unroll
-  for (int step = 0; step < 2; ++step) {
-    const int h = 16 >> step, half = kDenseRows >> (step + 1);
-    const bool up = lane & h;
-#pragma unroll
-    for (int i = 0; i < half; ++i) {
-      const float send = up ? d[i] : d[i + half];
-      const float keep = up ? d[i + half] : d[i];
-      d[i] = keep + __shfl_xor_sync(0xffffffffu, send, h);
-    }
-  }
+  trade_halves<2>(d, lane, 16);
+  trade_halves<1>(d, lane, 8);
 #pragma unroll
   for (int h = 4; h > 0; h >>= 1)
     d[0] += __shfl_xor_sync(0xffffffffu, d[0], h);
@@ -476,6 +478,8 @@ __device__ __forceinline__ float column_total(float (*zsh)[kTile],
 // T x_{col(r,s)} and y2part[r, s] = T' z_r.
 struct BandCols {
   static constexpr int kCounter = 1;  // launch counter (K2)
+  static constexpr int kLaneCounter = 6;     // its lane kernel
+  static constexpr int kLaneSumCounter = 7;  // and that kernel's sum
   const int* cs;
   int S;
   __device__ int count(int) const { return S; }
@@ -485,6 +489,8 @@ struct BandCols {
 
 struct EllCols {
   static constexpr int kCounter = 2;  // launch counter (K3)
+  static constexpr int kLaneCounter = 8;
+  static constexpr int kLaneSumCounter = 9;
   const int* cols;
   const int* counts;
   int kmax;
@@ -562,6 +568,133 @@ int tile_pair_launch(const float* blocks, Cols cols, int nrb, int slots,
   return (int)cudaGetLastError();
 }
 
+// K2/K3 over lanes: the grid and tiles of tile_pair.  Lane b's x tiles
+// are at xb + b ldx, its z rows at zb + b ldz (16-byte aligned, ld a
+// multiple of 4), its partials at part + b lane_part (y1part, then y2part
+// at half of lane_part, each laid out as tile_pair's).
+constexpr int kPairRound = 4;  // lanes per shared-memory round of columns
+
+template <class Cols>
+__global__ void __launch_bounds__(kThreads)
+tile_pair_lanes(const float* __restrict__ blocks, Cols cols, int lanes,
+                const float* __restrict__ xb, long long ldx,
+                const float* __restrict__ zb, long long ldz,
+                float* __restrict__ part, long long lane_part) {
+  __shared__ float zsh[kPairRound][kWarps][kTile];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  count_launch(Cols::kLaneCounter);
+  const int nslots = cols.slots();
+  const int r = blockIdx.x / nslots, s = blockIdx.x % nslots;
+  if (s >= cols.count(r)) return;  // the whole block: no barrier is skipped
+  const int row0 = warp * kRowsPerWarp;
+  const size_t t = (size_t)blockIdx.x;
+  const float* __restrict__ T =
+      blocks + t * (kTile * kTile) + (size_t)row0 * kTile;
+  float a[kRowsPerWarp][4];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a[i][k] = __ldg(T + i * kTile + lane + 32 * k);
+  const float* xt = xb + (size_t)cols.col(r, s) * kTile + lane;
+  const float* zt = zb + (size_t)r * kTile + row0;
+  float* y1part = part + t * kTile + row0;
+  float* y2part = part + lane_part / 2 + t * kTile;
+  for (int q0 = 0; q0 < lanes; q0 += kPairRound) {
+#pragma unroll 1
+    for (int p = 0; p < kPairRound; ++p) {
+      const int q = q0 + p;
+      const bool live = q < lanes;
+      float xr[4], zr[kRowsPerWarp], d[kRowsPerWarp], zacc[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) xr[k] = live ? xt[q * ldx + 32 * k] : 0.f;
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; i += 4) {
+        const float4 z4 =
+            live ? *reinterpret_cast<const float4*>(zt + q * ldz + i)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+        zr[i] = z4.x, zr[i + 1] = z4.y, zr[i + 2] = z4.z, zr[i + 3] = z4.w;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) zacc[k] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kRowsPerWarp; ++i) {
+        d[i] = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          d[i] = fmaf(a[i][k], xr[k], d[i]);
+          zacc[k] = fmaf(a[i][k], zr[i], zacc[k]);
+        }
+      }
+      // row (lane >> 1) of the warp's 16 ends on lanes 2i and 2i + 1
+      trade_halves<8>(d, lane, 16);
+      trade_halves<4>(d, lane, 8);
+      trade_halves<2>(d, lane, 4);
+      trade_halves<1>(d, lane, 2);
+      d[0] += __shfl_xor_sync(0xffffffffu, d[0], 1);
+      if (live && (lane & 1) == 0) y1part[q * lane_part + (lane >> 1)] = d[0];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) zsh[p][warp][lane + 32 * k] = zacc[k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kPairRound * kTile / kThreads; ++u) {
+      const int e = threadIdx.x + u * kThreads, p = e / kTile, c = e % kTile;
+      if (q0 + p < lanes) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) sum += zsh[p][w][c];
+        y2part[(q0 + p) * lane_part + c] = sum;
+      }
+    }
+    __syncthreads();  // before zsh is rewritten
+  }
+}
+
+// tile_pair_sum for lane blockIdx.y: its partials at part + lane_part y,
+// its y1 at y1 + nrb 128 y, its y2 at y2 + ncb_out 128 y.
+template <class Cols>
+__global__ void tile_pair_lanes_sum(Cols cols, int nrb, int ncb_out,
+                                    const float* __restrict__ part,
+                                    long long lane_part,
+                                    const int* __restrict__ inv_ptr,
+                                    const int* __restrict__ inv_idx,
+                                    float* __restrict__ y1,
+                                    float* __restrict__ y2) {
+  count_launch(Cols::kLaneSumCounter);
+  const int b = blockIdx.x, c = threadIdx.x;
+  const float* y1part = part + blockIdx.y * lane_part;
+  const float* y2part = y1part + lane_part / 2;
+  float s = 0.f;
+  if (b < nrb) {
+    const float* p = y1part + (size_t)b * cols.slots() * kTile + c;
+    const int n = cols.count(b);
+    for (int k = 0; k < n; ++k) s += p[(size_t)k * kTile];
+    y1[((size_t)blockIdx.y * nrb + b) * kTile + c] = s;
+  } else {
+    const int cb = b - nrb;
+    for (int e = inv_ptr[cb]; e < inv_ptr[cb + 1]; ++e)
+      s += y2part[(size_t)inv_idx[e] * kTile + c];
+    y2[((size_t)blockIdx.y * ncb_out + cb) * kTile + c] = s;
+  }
+}
+
+template <class Cols>
+int tile_pair_lanes_launch(const float* blocks, Cols cols, int nrb,
+                           int slots, const int* inv_ptr, const int* inv_idx,
+                           int ncb_out, int lanes, float* part,
+                           const float* xb, long long ldx, const float* zb,
+                           long long ldz, float* y1, float* y2,
+                           cudaStream_t st) {
+  const long long lane_part = 2LL * nrb * slots * kTile;
+  tile_pair_lanes<Cols><<<nrb * slots, kThreads, 0, st>>>(
+      blocks, cols, lanes, xb, ldx, zb, ldz, part, lane_part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  tile_pair_lanes_sum<Cols><<<dim3(nrb + ncb_out, lanes), kTile, 0, st>>>(
+      cols, nrb, ncb_out, part, lane_part, inv_ptr, inv_idx, y1, y2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -575,8 +708,8 @@ const char* fos_error_string(int code) {
 }
 
 // Device launch counts of K1's tile kernel, K2, K3, K1's sum, K1's lane
-// tile kernel and its sum, in that order (read_launch_counts in
-// common.cuh).
+// tile kernel and its sum, K2's lane kernel and its sum, K3's lane kernel
+// and its sum, in that order (read_launch_counts in common.cuh).
 int fos_pair_launch_counts(const long long* slots) {
   return read_launch_counts(slots);
 }
@@ -632,6 +765,35 @@ int fos_bell_pair(const long long* slots) {
                           a.ptr<float>(8), a.ptr<const float>(9),
                           a.ptr<const float>(10), a.ptr<float>(11),
                           a.ptr<float>(12), a.stream(13));
+}
+
+// K2 over L lanes.  Record: 0-6 as fos_band_pair's, 7 L (1..65535),
+// 8 part (L * 2 * nrb * S * 128 f32), 9 XB (lane b's xb, (ncb_out, 128), at
+// XB + b ldx), 10 ldx, 11 ZB (lane b's zb, (nrb, 128), at ZB + b ldz),
+// 12 ldz, 13 Y1 (L, nrb, 128), 14 Y2 (L, ncb_out, 128), 15 stream.  XB and
+// ZB 16-byte aligned, ldx and ldz multiples of 4.
+int fos_band_pair_lanes(const long long* slots) {
+  const Record a{slots};
+  const BandCols cols{a.ptr<const int>(1), a.num(3)};
+  return tile_pair_lanes_launch(
+      a.ptr<const float>(0), cols, a.num(2), a.num(3), a.ptr<const int>(4),
+      a.ptr<const int>(5), a.num(6), a.num(7), a.ptr<float>(8),
+      a.ptr<const float>(9), slots[10], a.ptr<const float>(11), slots[12],
+      a.ptr<float>(13), a.ptr<float>(14), a.stream(15));
+}
+
+// K3 over L lanes.  Record: 0-7 as fos_bell_pair's, 8 L, 9 part (L * 2 *
+// nrb * kmax * 128 f32), 10 XB, 11 ldx, 12 ZB, 13 ldz (as
+// fos_band_pair_lanes), 14 Y1 (L, nrb, 128), 15 Y2 (L, ncb, 128),
+// 16 stream.
+int fos_bell_pair_lanes(const long long* slots) {
+  const Record a{slots};
+  const EllCols ell{a.ptr<const int>(1), a.ptr<const int>(2), a.num(4)};
+  return tile_pair_lanes_launch(
+      a.ptr<const float>(0), ell, a.num(3), a.num(4), a.ptr<const int>(5),
+      a.ptr<const int>(6), a.num(7), a.num(8), a.ptr<float>(9),
+      a.ptr<const float>(10), slots[11], a.ptr<const float>(12), slots[13],
+      a.ptr<float>(14), a.ptr<float>(15), a.stream(16));
 }
 
 }  // extern "C"

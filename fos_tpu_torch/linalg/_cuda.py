@@ -20,7 +20,11 @@ The launch route, the same for every kernel wrapper (:class:`Kernel`):
   handle (``torch._C._cuda_getCurrentRawStream``, no Stream object), so a
   launch is one foreign call with one argument;
 * the pair kernels' partial sums live in a scratch buffer that the
-  operator allocates once; a call allocates only its outputs.
+  operator allocates once (a lane kernel's, once per lane count); a call
+  allocates only its outputs;
+* a lane kernel (K1-K5 over the line search's candidate steps) takes the
+  same route with a lane axis: the record carries the call's lane count
+  and each vector's lane stride.
 
 A bound kernel, its record and its scratch serve one host thread and one
 stream at a time, which is how the port runs.  The free wrapper functions,
@@ -63,7 +67,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 
 LAUNCHES = {"fused_matvec": 0, "fused_matvec_lanes": 0, "band_mv_pair": 0,
-            "bell_mv_pair": 0, "band_mv": 0, "bell_mv": 0, "probe_tiny": 0,
+            "bell_mv_pair": 0, "band_mv": 0, "bell_mv": 0,
+            "band_mv_pair_lanes": 0, "bell_mv_pair_lanes": 0,
+            "band_mv_lanes": 0, "bell_mv_lanes": 0, "probe_tiny": 0,
             "probe_prefetch": 0}
 
 #: tile side the kernels are compiled for (checked when the library loads)
@@ -71,7 +77,7 @@ TILE = 128
 #: kernels the free wrapper functions keep bound (:func:`bound_kernel`)
 BOUND_KEPT = 8
 #: device launch counters of each source file (``kCounters``, common.cuh)
-COUNTERS = 6
+COUNTERS = 10
 
 _lib = None
 
@@ -162,7 +168,9 @@ def build_library(out: Path, sources) -> str:
 
 #: the kernels' C entry points, each taking one launch record
 ENTRY_POINTS = ("fos_dense_pair", "fos_dense_pair_lanes", "fos_band_pair",
-                "fos_bell_pair", "fos_band_mv", "fos_bell_mv", "fos_probe_tiny",
+                "fos_bell_pair", "fos_band_mv", "fos_bell_mv",
+                "fos_band_pair_lanes", "fos_bell_pair_lanes",
+                "fos_band_mv_lanes", "fos_bell_mv_lanes", "fos_probe_tiny",
                 "fos_probe_prefetch", "fos_graph_handle", "fos_graph_cond_open",
                 "fos_graph_cond_close", "fos_stream_create", "fos_cg_continue",
                 "fos_cg_continue_lanes", "fos_count_continue", "fos_flag_continue",
@@ -173,8 +181,11 @@ ENTRY_POINTS = ("fos_dense_pair", "fos_dense_pair_lanes", "fos_band_pair",
 DEVICE_COUNTERS = {
     "fos_pair_launch_counts": ("fused_matvec", "band_mv_pair", "bell_mv_pair",
                                "fused_matvec_sum", "fused_matvec_lanes",
-                               "fused_matvec_lanes_sum"),
-    "fos_tile_mv_launch_counts": ("band_mv", "bell_mv"),
+                               "fused_matvec_lanes_sum", "band_mv_pair_lanes",
+                               "band_mv_pair_lanes_sum", "bell_mv_pair_lanes",
+                               "bell_mv_pair_lanes_sum"),
+    "fos_tile_mv_launch_counts": ("band_mv", "bell_mv", "band_mv_lanes",
+                                  "bell_mv_lanes"),
     "fos_graph_launch_counts": ("cg_continue", "count_continue",
                                 "flag_continue", "cg_continue_lanes"),
 }
@@ -245,9 +256,20 @@ class Kernel:
     passes; ``outs``: the shapes of the f32 outputs a call allocates.  The
     record's remaining slots are the vectors, the outputs and the stream,
     in that order.  ``keep`` holds tensors whose pointers are in ``fixed``.
+
+    With ``lanes`` the kernel takes a lane axis whose length L changes per
+    call: each vector is ``(L, *shape)``, each lane's block contiguous at a
+    lane stride (rows of a larger tensor will do; with ``aligned``, every
+    lane 16-byte aligned), and the outputs are ``(L, *shape)``.  The
+    record's slots after ``fixed`` are then L, the partial sums (when
+    ``part``, their floats a lane, is nonzero), each vector's pointer and
+    lane stride, the outputs and the stream.  The partials are allocated
+    once per lane count and kept, as a single kernel's are at bind, so a
+    captured call and its replays keep one buffer.
     """
 
-    def __init__(self, name, entry, device, fixed, ins, outs, keep=()):
+    def __init__(self, name, entry, device, fixed, ins, outs, keep=(),
+                 lanes=False, part=0, aligned=False):
         if device.type != "cuda" or device.index is None:
             raise ValueError(f"{name}: needs an indexed CUDA device, got "
                              f"{device}")
@@ -255,18 +277,23 @@ class Kernel:
         self.ins = tuple((torch.Size(s), d) for s, d in ins)
         # an output shaped like an f32 input is allocated with empty_like
         # (the cheapest allocation call), others from their sizes
-        like = {s: k for k, (s, d) in enumerate(self.ins)
-                if d is torch.float32}
+        like = {} if lanes else {s: k for k, (s, d) in enumerate(self.ins)
+                                 if d is torch.float32}
         self.outs = tuple((like.get(torch.Size(s)), tuple(s)) for s in outs)
         self.keep = keep
+        self.lanes, self.part, self.parts = lanes, part, {}
+        self.aligned = aligned
         self.lo = len(fixed)
-        self.slots = (ctypes.c_longlong * (self.lo + len(ins) + len(outs)
-                                           + 1))(*fixed)
+        size = (self.lo + (1 + bool(part) + 2 * len(ins) if lanes
+                           else len(ins)) + len(outs) + 1)
+        self.slots = (ctypes.c_longlong * size)(*fixed)
         self.addr = ctypes.addressof(self.slots)
         self.fn = getattr(library(), entry)
         self.stream = torch._C._cuda_getCurrentRawStream
 
     def __call__(self, *vectors):
+        if self.lanes:
+            return self._call_lanes(vectors)
         index = self.index
         for t, (shape, dtype) in zip(vectors, self.ins):
             if (t.get_device() != index or t.dtype is not dtype
@@ -279,27 +306,73 @@ class Kernel:
         for t in vectors:
             slots[i] = t.data_ptr()
             i += 1
+        return self._launch(outs, i)
+
+    def _call_lanes(self, vectors):
+        lanes = vectors[0].shape[0] if vectors[0].dim() else 0
+        if not 0 < lanes <= 65535:
+            raise ValueError(f"{self.name}: {lanes} lanes (1 to 65535)")
+        index, aligned = self.index, self.aligned
+        for t, (shape, dtype) in zip(vectors, self.ins):
+            if (t.get_device() != index or t.dtype is not dtype
+                    or t.shape[1:] != shape or t.shape[0] != lanes
+                    or not t[0].is_contiguous() or aligned and (
+                        t.data_ptr() % 16 or t.stride(0) % 4)):
+                self._reject(t, shape, dtype, lanes)
+        outs = [torch.empty((lanes, *s), dtype=torch.float32,
+                            device=self.device) for _, s in self.outs]
+        slots, i = self.slots, self.lo
+        slots[i] = lanes
+        i += 1
+        if self.part:
+            part = self.parts.get(lanes)
+            if part is None:
+                part = self.parts[lanes] = torch.empty(
+                    lanes * self.part, dtype=torch.float32,
+                    device=self.device)
+            slots[i] = part.data_ptr()
+            i += 1
+        for t in vectors:
+            slots[i], slots[i + 1] = t.data_ptr(), t.stride(0)
+            i += 2
+        return self._launch(outs, i)
+
+    def _launch(self, outs, i):
+        """Write the outputs' pointers and the stream from slot ``i`` on,
+        launch, count the launch."""
+        slots = self.slots
         for t in outs:
             slots[i] = t.data_ptr()
             i += 1
-        slots[i] = self.stream(index)
+        slots[i] = self.stream(self.index)
         rc = self.fn(self.addr)
         if rc:
             check(rc, self.name)
         LAUNCHES[self.name] += 1
         return outs[0] if len(outs) == 1 else outs
 
-    def _reject(self, t, shape, dtype):
+    def _reject(self, t, shape, dtype, lanes=None):
+        """Raise for the first check ``t`` fails (``lanes``: the call's
+        lane count, on the lane route)."""
+        name = self.name
         if t.device != self.device:
-            raise ValueError(f"{self.name}: a vector is on device {t.device}"
+            raise ValueError(f"{name}: a vector is on device {t.device}"
                              f", expected {self.device}")
         if t.dtype is not dtype:
-            raise TypeError(f"{self.name}: a vector is {t.dtype}, expected "
+            raise TypeError(f"{name}: a vector is {t.dtype}, expected "
                             f"{dtype}")
-        if t.shape != shape:
-            raise ValueError(f"{self.name}: a vector has shape "
-                             f"{tuple(t.shape)}, expected {tuple(shape)}")
-        raise ValueError(f"{self.name}: a vector is not contiguous")
+        want = tuple(shape) if lanes is None else (lanes, *shape)
+        if t.shape[1 if lanes else 0:] != shape or t.dim() != len(want):
+            raise ValueError(f"{name}: a vector has shape "
+                             f"{tuple(t.shape)}, expected {want}")
+        if lanes is None:
+            raise ValueError(f"{name}: a vector is not contiguous")
+        if t.shape[0] != lanes:
+            raise ValueError(f"{name}: a vector has shape {tuple(t.shape)}:"
+                             f" {t.shape[0]} lanes, expected {lanes}")
+        if not t[0].is_contiguous():
+            raise ValueError(f"{name}: a lane of a vector is not contiguous")
+        raise ValueError(f"{name}: a vector's lanes are not 16-byte aligned")
 
 
 def require_cuda_f32(name: str, device, **tensors) -> None:

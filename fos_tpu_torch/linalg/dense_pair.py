@@ -30,8 +30,6 @@ edges.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 import fos_tpu_torch.config  # noqa: F401  (pins full-f32 matmuls)
@@ -79,16 +77,19 @@ class DensePair:
         self.shape = (M, N)
         self.part = torch.empty(ntj * M + nti * N, dtype=torch.float32,
                                 device=A.device)
-        # the lane kernel's record: A, M, N fixed; B, the partial sums, the
-        # lanes, their row strides, the outputs and the stream per call
-        self._lane_slots = (ctypes.c_longlong * 12)(A.data_ptr(), M, N)
-        self._lane_fn = _cuda.library().fos_dense_pair_lanes
         f32 = torch.float32
         self.kernel = _cuda.Kernel(
             name, "fos_dense_pair", A.device,
             (A.data_ptr(), M, N, self.part.data_ptr()),
             ins=(((N,), f32), ((M,), f32)), outs=((M,), (N,)),
             keep=(A, self.part))
+        # lanes at any row stride (the columns of a larger state), rows
+        # unaligned: the kernel loads them a float at a time
+        self.lane_kernel = _cuda.Kernel(
+            f"{name}_lanes", "fos_dense_pair_lanes", A.device,
+            (A.data_ptr(), M, N), ins=(((N,), f32), ((M,), f32)),
+            outs=((M,), (N,)), keep=(A,), lanes=True,
+            part=self.part.numel())
 
     def __call__(self, x1, x2):
         y, z = self.kernel(x1, x2)
@@ -99,36 +100,7 @@ class DensePair:
         lane tile kernel and one of its sum.  Each lane's row has unit
         stride (the lanes may sit at any row stride, as the columns of a
         larger state do); f32 on A's device."""
-        name = "fused_matvec_lanes"
-        M, N = self.shape
-        for key, X, k in (("X1", X1, N), ("X2", X2, M)):
-            if X.device != self.part.device:
-                raise ValueError(f"{name}: {key} is on device {X.device}, "
-                                 f"expected {self.part.device}")
-            if X.dtype != torch.float32:
-                raise TypeError(f"{name}: {key} is {X.dtype}, expected "
-                                f"torch.float32")
-            if X.dim() != 2 or X.shape[1] != k:
-                raise ValueError(f"{name}: {key} has shape "
-                                 f"{tuple(X.shape)}, expected (B, {k})")
-            if X.stride(1) != 1 and k > 1:
-                raise ValueError(f"{name}: {key}'s rows are not contiguous")
-        B = X1.shape[0]
-        if X2.shape[0] != B or not 0 < B <= 65535:
-            raise ValueError(f"{name}: {X1.shape[0]} and {X2.shape[0]} "
-                             f"lanes (1 to 65535, the same for both)")
-        part = torch.empty(B * self.part.numel(), dtype=torch.float32,
-                           device=self.part.device)
-        Y = torch.empty(B, M, dtype=torch.float32, device=self.part.device)
-        Z = torch.empty(B, N, dtype=torch.float32, device=self.part.device)
-        slots = self._lane_slots
-        slots[3:] = [B, part.data_ptr(), X1.data_ptr(), X1.stride(0),
-                     X2.data_ptr(), X2.stride(0), Y.data_ptr(), Z.data_ptr(),
-                     self.kernel.stream(self.kernel.index)]
-        rc = self._lane_fn(ctypes.addressof(slots))
-        if rc:
-            _cuda.check(rc, name)
-        _cuda.LAUNCHES[name] += 1
+        Y, Z = self.lane_kernel(X1, X2)
         return Y, Z
 
 

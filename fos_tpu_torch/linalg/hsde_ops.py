@@ -22,12 +22,15 @@ COO tensor, or a dense tensor, whose products go to ``torch.matmul`` at
 full f32 (``fos_tpu_torch.config`` turns TF32 off).
 
 Every product takes a lane axis (:mod:`fos_tpu_torch.linalg.lanes`):
-vectors ``(B, k)`` against one A are B products: one call of an
-operator whose pair takes lanes (``pair_lanes``: K1's lane kernel, one
-pass over A for every lane, as the JAX package's ``vmap`` over a
-``pallas_call`` is one call with a lane axis in its grid), an operator's
-hand kernel once per lane otherwise (K2-K5), or one ``torch.matmul`` for
-a tensor; a batched A ``(B, m, n)`` (a batched solve's instances) takes
+vectors ``(B, k)`` against one A are B products, in one call wherever
+the operator's products take lanes, as the JAX package's ``vmap`` over a
+``pallas_call`` is one call with a lane axis in its grid: the pair of an
+operator with ``pair_lanes`` (K1's lane kernel, one pass over A for every
+lane; K2/K3's over a tile table), ``mv`` / ``rmv`` of one with
+``mv_lanes`` (K4/K5's lane kernels), one ``torch.matmul`` for a tensor.
+An operator without them (the row-sharded tile operator,
+``parallel/sharding.py``) takes its single products lane by lane.  A
+batched A ``(B, m, n)`` (a batched solve's instances) takes
 ``torch.bmm``, or one ``torch.matmul`` when its instances share one
 matrix through a stride-0 batch axis (``expand``).  Each instance's
 candidate points ``(B, P, k)`` (a batched line search's probes) take one
@@ -56,7 +59,8 @@ def _per_lane(fn, *xs):
 def _lanes_mv(A, x, transpose):
     """A @ x (or A' @ x) for vectors with a lane axis."""
     if not isinstance(A, torch.Tensor):   # an operator
-        return _per_lane(A.rmv if transpose else A.mv, x)
+        fn = A.rmv if transpose else A.mv
+        return fn(x) if getattr(A, "mv_lanes", False) else _per_lane(fn, x)
     if _is_sparse(A):
         At = A.t() if transpose else A
         return torch.sparse.mm(At, x.T).T
@@ -95,7 +99,8 @@ def rmv(A, y):
 
 def mv_pair(A, x1, x2):
     """(A @ x1, A' @ x2); one pass over A where the operator has a fused
-    pair kernel (once per lane, unless its pair takes the lanes)."""
+    pair kernel (for every lane at once where its pair takes lanes, else
+    once per lane)."""
     if hasattr(A, "mv_pair"):
         if x1.dim() > 1 and not getattr(A, "pair_lanes", False):
             return lanes.lane_by_lane(A.mv_pair, x1, x2)
@@ -146,5 +151,6 @@ def hsde_normal_mul(A, b, c, u):
 def kkt_normal_mul(A, lam):
     """(I + A A') lam: the SPD reduction of the ``[I A'; A -I]`` KKT
     operator (affinepluslinear.jl:4-52), as ``mv(A, rmv(A, lam))`` -- on a
-    tile operator the single-product kernels K4/K5, not the pair."""
+    tile operator the single-product kernels K4/K5 (over lanes, their lane
+    kernels), not the pair."""
     return lam + mv(A, rmv(A, lam))

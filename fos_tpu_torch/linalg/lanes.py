@@ -87,7 +87,11 @@ def trace(M):
 
 def lane_by_lane(pair, X1, X2):
     """``pair(u, v)`` on each lane of X1 and X2, the two outputs stacked:
-    a pair product over lanes where the product takes one vector each."""
+    a pair product over lanes where the product takes one vector each.
+    Used by ``hsde_ops.mv_pair`` for an operator whose pair takes no lanes
+    (the row-sharded tile operator), by the plain lane versions of K1-K3
+    and K1's differentiated lanes (``dense_pair``, ``sparse_ell``), and as
+    the reference the lane kernels are held to."""
     ys, zs = zip(*(pair(u, v) for u, v in zip(X1, X2)))
     return torch.stack(ys), torch.stack(zs)
 

@@ -23,6 +23,14 @@ CUDA tensor and its plain PyTorch version on a CPU tensor:
   projection needs them: K4 (:func:`band_mv`, of ``_band_mv``) and K5
   (:func:`bell_mv`, of ``_bell_mv``).
 
+The operators' three products also take a lane axis, vectors ``(L, k)``
+(the line search's 31 candidate steps; the JAX package's ``vmap`` over
+the ``pallas_call``, one call with the lanes in its grid): one launch of
+a lane kernel that reads each tile once for all L lanes (K2-K5 over
+lanes), each lane bit-equal to a single call on its vectors.  Their plain
+versions (:func:`band_mv_pair_lanes_plain` and the three beside it) run
+the single plain version lane by lane.
+
 The host builders run the native packer (:mod:`fos_tpu_torch.native`), or
 their numpy versions without it, and produce tables bit-identical to the
 JAX package's builders; ``from_arrays(..., transpose_table=True)`` packs the A'
@@ -41,6 +49,7 @@ import torch
 from fos_tpu_torch.config import default_device
 from fos_tpu_torch import native
 from fos_tpu_torch.linalg import _cuda
+from fos_tpu_torch.linalg.lanes import lane_by_lane
 
 
 # ------------------------------------------------------------ host builders
@@ -252,6 +261,24 @@ def bell_mv_pair_plain(cols, blocks, xb, zb):
     return _tile_pair_plain(blocks, cols.long(), xb, zb)
 
 
+# The plain lane versions run the single plain version lane by lane: a
+# lane has the bits of a single call whatever the number of lanes, as the
+# lane kernels' lanes do (a batched ``torch.matmul`` on the CPU gives bits
+# that depend on it).
+def band_mv_pair_lanes_plain(cs, blocks, XB, ZB):
+    """Plain K2 over lanes: XB (L, ncb+S, bn), ZB (L, nrb, bm) -> (Y1 (L,
+    nrb, bm), Y2 (L, ncb+S, bn))."""
+    return lane_by_lane(functools.partial(band_mv_pair_plain, cs, blocks),
+                        XB, ZB)
+
+
+def bell_mv_pair_lanes_plain(cols, blocks, XB, ZB):
+    """Plain K3 over lanes: XB (L, ncb, bn), ZB (L, nrb, bm) -> (Y1 (L,
+    nrb, bm), Y2 (L, ncb, bn))."""
+    return lane_by_lane(functools.partial(bell_mv_pair_plain, cols, blocks),
+                        XB, ZB)
+
+
 def _on_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts)
 
@@ -301,6 +328,34 @@ def _pair_kernel(kind, blocks, index, counts, inverse, ncb_out):
         ins=(((ncb_out, T), _F32), ((nrb, T), _F32)),
         outs=((nrb, T), (ncb_out, T)),
         keep=(blocks, index, counts, *inverse, part))
+
+
+def _pair_lanes_kernel(kind, blocks, index, counts, inverse, ncb_out):
+    """K2 or K3 over lanes bound to a checked table (as
+    :func:`_pair_kernel`): ``(XB, ZB) -> (Y1, Y2)`` with XB (L, ncb_out,
+    128), ZB (L, nrb, 128); each lane count's partials (2 nrb slots 128
+    floats a lane) are allocated at its first call."""
+    nrb, slots = blocks.shape[:2]
+    T = _cuda.TILE
+    return _cuda.Kernel(
+        f"{kind}_mv_pair_lanes", f"fos_{kind}_pair_lanes", blocks.device,
+        (*_table_slots(blocks, index, counts), nrb, slots,
+         inverse[0].data_ptr(), inverse[1].data_ptr(), ncb_out),
+        ins=(((ncb_out, T), _F32), ((nrb, T), _F32)),
+        outs=((nrb, T), (ncb_out, T)), keep=(blocks, index, counts, *inverse),
+        lanes=True, part=2 * nrb * slots * T, aligned=True)
+
+
+def _mv_lanes_kernel(kind, blocks, index, counts, xrows):
+    """K4 or K5 over lanes bound to a checked table: ``XB -> Y`` with XB
+    (L, xrows, 128), Y (L, nrb, 128)."""
+    nrb, slots = blocks.shape[:2]
+    T = _cuda.TILE
+    return _cuda.Kernel(
+        f"{kind}_mv_lanes", f"fos_{kind}_mv_lanes", blocks.device,
+        (*_table_slots(blocks, index, counts), nrb, slots),
+        ins=(((xrows, T), _F32),), outs=((nrb, T),),
+        keep=(blocks, index, counts), lanes=True, aligned=True)
 
 
 def _mv_kernel(kind, blocks, index, counts, xrows):
@@ -380,6 +435,16 @@ def bell_mv_plain(cols, blocks, xb):
     return torch.matmul(blocks, xb[cols.long()].unsqueeze(-1)).squeeze(-1).sum(1)
 
 
+def band_mv_lanes_plain(cs, blocks, XB):
+    """Plain K4 over lanes: XB (L, rows, bn) -> Y (L, nrb, bm)."""
+    return torch.stack([band_mv_plain(cs, blocks, xb) for xb in XB])
+
+
+def bell_mv_lanes_plain(cols, blocks, XB):
+    """Plain K5 over lanes: XB (L, ncb, bn) -> Y (L, nrb, bm)."""
+    return torch.stack([bell_mv_plain(cols, blocks, xb) for xb in XB])
+
+
 def band_mv(cs, blocks, xb):
     """K4: ``y = A x`` over a banded tile table.  ``cs`` must keep every
     window inside ``xb`` (the operators check it when they are built); the
@@ -441,9 +506,15 @@ def _check_index(name, idx, shape, hi, inclusive=False):
 
 
 class _TileOp:
-    """What the two layouts share: shape, device, padding of vectors."""
+    """What the two layouts share: shape, device, padding of vectors, and
+    the products, which take one vector or a lane axis (``(..., k)``: the
+    leading axes are lanes, sent to a lane kernel in one call)."""
 
     bm = bn = 128
+    #: ``mv_pair`` takes (L, k) vectors in one call (:mod:`hsde_ops`)
+    pair_lanes = True
+    #: so do ``mv`` and ``rmv``
+    mv_lanes = True
 
     @property
     def shape(self):
@@ -463,9 +534,17 @@ class _TileOp:
         return _pad8(math.ceil(self.n / self.bn))
 
     def _pad(self, v, nblocks, width):
-        out = v.new_zeros(nblocks * width)
-        out[: v.shape[0]] = v
-        return out.reshape(nblocks, width)
+        """``v`` (..., k) zero-padded to (..., nblocks, width): one buffer
+        for every lane."""
+        lead = v.shape[:-1]
+        out = v.new_zeros(lead + (nblocks * width,))
+        out[..., : v.shape[-1]] = v
+        return out.reshape(lead + (nblocks, width))
+
+    @staticmethod
+    def _cut(y, lead, k):
+        """A product's (..., blocks, width) output as (..., k) vectors."""
+        return y.reshape(lead + (-1,))[..., :k]
 
     def _no_transpose_table(self):
         name = type(self).__name__
@@ -474,30 +553,51 @@ class _TileOp:
             f"table): use mv_pair for A'z, or rebuild with {name}.create(A, "
             "transpose_table=True) for standalone rmv")
 
+    def _product(self, single, lanes, v, rows, width, k):
+        """One product of ``v`` (k,) through ``single``, or of (..., k)
+        lanes through ``lanes`` in one call.  One vector keeps the single
+        kernel: the lane kernels at one lane take 1.08-1.25x its time on
+        the card (PERF.md)."""
+        vb = self._pad(v, rows, width)
+        lead = v.shape[:-1]
+        if not lead:
+            return single(vb).reshape(-1)[:k]
+        return self._cut(lanes(vb.reshape((-1, rows, width))), lead, k)
+
     def mv(self, x):
-        """A @ x over the A table (K4/K5).  A banded x carries S zero
-        blocks at its end so that every window stays in range."""
-        xb = self._pad(x, self._xrows, self.bn)
-        return self._mv(xb).reshape(-1)[: self.m]
+        """A @ x over the A table (K4/K5; over lanes, their lane kernels).
+        A banded x carries S zero blocks at its end so that every window
+        stays in range."""
+        return self._product(self._mv, self._mv_lanes, x, self._xrows,
+                             self.bn, self.m)
 
     def rmv(self, y):
-        """A' @ y over the A' table (K4/K5)."""
+        """A' @ y over the A' table (K4/K5; over lanes, their lane
+        kernels)."""
         if self._rmv is None:
             raise self._no_transpose_table()
-        yb = self._pad(y, self._yrows_t, self.bm)
-        return self._rmv(yb).reshape(-1)[: self.n]
+        return self._product(self._rmv, self._rmv_lanes, y, self._yrows_t,
+                             self.bm, self.n)
 
     def mv_pair(self, x, z):
-        """(A @ x, A' @ z) from one read of the A table (K2/K3)."""
+        """(A @ x, A' @ z) from one read of the A table (K2/K3; over
+        lanes, their lane kernels: one read for every lane)."""
+        nrb = self.blocks.shape[0]
         xb = self._pad(x, self._xrows, self.bn)
-        zb = self._pad(z, self.blocks.shape[0], self.bm)
-        y1, y2 = self._pair(xb, zb)
-        return y1.reshape(-1)[: self.m], y2.reshape(-1)[: self.n]
+        zb = self._pad(z, nrb, self.bm)
+        lead = x.shape[:-1]
+        if not lead:
+            y1, y2 = self._pair(xb, zb)
+            return y1.reshape(-1)[: self.m], y2.reshape(-1)[: self.n]
+        y1, y2 = self._pair_lanes(xb.reshape((-1, self._xrows, self.bn)),
+                                  zb.reshape((-1, nrb, self.bm)))
+        return self._cut(y1, lead, self.m), self._cut(y2, lead, self.n)
 
     def _bind(self):
         """Bind the products to the tables once they are on their device:
-        on the card the kernels (tables checked here, the pair's partials
-        allocated here), on the CPU the plain versions."""
+        on the card the kernels and their lane kernels (tables checked
+        here, the pair's partials allocated here, the lane pair's at the
+        first call with each lane count), on the CPU the plain versions."""
         kind = self.kind
         nrb, slots = self.blocks.shape[:2]
         index = self.cs if kind == "band" else self.cols
@@ -507,23 +607,32 @@ class _TileOp:
         t = self.transposed()
         self._yrows_t = nrb + (t[0].shape[1] if t and kind == "band" else 0)
         if self.device.type == "cpu":
-            plain_pair, plain_mv = (
-                (band_mv_pair_plain, band_mv_plain) if kind == "band"
-                else (bell_mv_pair_plain, bell_mv_plain))
-            self._pair = functools.partial(plain_pair, index, self.blocks)
-            self._mv = functools.partial(plain_mv, index, self.blocks)
-            self._rmv = (None if t is None
-                         else functools.partial(plain_mv, t[1], t[0]))
+            plain = ((band_mv_pair_plain, band_mv_plain,
+                      band_mv_pair_lanes_plain, band_mv_lanes_plain)
+                     if kind == "band" else
+                     (bell_mv_pair_plain, bell_mv_plain,
+                      bell_mv_pair_lanes_plain, bell_mv_lanes_plain))
+            self._pair, self._mv, self._pair_lanes, self._mv_lanes = (
+                functools.partial(f, index, self.blocks) for f in plain)
+            self._rmv = self._rmv_lanes = None
+            if t is not None:
+                self._rmv = functools.partial(plain[1], t[1], t[0])
+                self._rmv_lanes = functools.partial(plain[3], t[1], t[0])
             return
         name = f"{kind}_mv_pair"
         tables = (dict(cs=self.cs) if kind == "band" else
                   dict(cols=self.cols, counts=self.counts))
         _check_table(name, self.blocks, aligned=True, inv_ptr=self.inv_ptr,
                      inv_idx=self.inv_idx, **tables)
-        self._pair = _pair_kernel(kind, self.blocks, index, counts,
-                                  (self.inv_ptr, self.inv_idx), ncb_out)
+        inverse = (self.inv_ptr, self.inv_idx)
+        self._pair = _pair_kernel(kind, self.blocks, index, counts, inverse,
+                                  ncb_out)
+        self._pair_lanes = _pair_lanes_kernel(kind, self.blocks, index,
+                                              counts, inverse, ncb_out)
         self._mv = _mv_kernel(kind, self.blocks, index, counts, ncb_out)
-        self._rmv = None
+        self._mv_lanes = _mv_lanes_kernel(kind, self.blocks, index, counts,
+                                          ncb_out)
+        self._rmv = self._rmv_lanes = None
         if t is not None:
             blocks_t, index_t, counts_t = t
             tables_t = (dict(cs=index_t) if kind == "band" else
@@ -531,6 +640,8 @@ class _TileOp:
             _check_table(f"{kind}_mv", blocks_t, aligned=True, **tables_t)
             self._rmv = _mv_kernel(kind, blocks_t, index_t, counts_t,
                                    self._yrows_t)
+            self._rmv_lanes = _mv_lanes_kernel(kind, blocks_t, index_t,
+                                               counts_t, self._yrows_t)
 
     def _transposed(self, blocks, col_of_slot, valid):
         """A' tiles of the A table given on the host (see

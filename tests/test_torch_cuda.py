@@ -264,6 +264,103 @@ def test_tile_mv_kernels(cuda, case, kind):
                (tse.bell_mv_plain(op.cols_t, op.blocks_t, yb),))
 
 
+#: the products' names: (single kernel, lane kernel, lane kernel's sum)
+TILE_LANE_KERNELS = {
+    ("band", "mv_pair"): ("band_mv_pair", "band_mv_pair_lanes",
+                          "band_mv_pair_lanes_sum"),
+    ("bell", "mv_pair"): ("bell_mv_pair", "bell_mv_pair_lanes",
+                          "bell_mv_pair_lanes_sum"),
+    ("band", "mv"): ("band_mv", "band_mv_lanes", None),
+    ("bell", "mv"): ("bell_mv", "bell_mv_lanes", None),
+}
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 31])
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("kind", ["band", "bell"])
+def test_tile_lanes_bit_equal_to_single(cuda, case, kind, lanes):
+    """K2-K5 over lanes (``mv_pair``, ``mv``, ``rmv`` on (L, k) vectors,
+    the lanes rows of a larger state as q_mul's slices): one launch of the
+    lane kernel (and of its sum) per call, counted on the device, and no
+    single call; lane b bit-equal to the single kernel on lane b's
+    vectors; within tolerance of the plain lane versions on the same
+    padded inputs; a repeat bit-equal."""
+    A, op = _ops(case, kind, cuda)
+    m, n = A.shape
+    g = torch.Generator(device="cpu").manual_seed(lanes * 31 + m)
+    state = torch.randn(lanes, n + m + 1, generator=g).to(cuda)
+    X, Z = state[:, :n], state[:, n:n + m]
+    plain_pair, plain_mv = ((tse.band_mv_pair_lanes_plain,
+                             tse.band_mv_lanes_plain) if kind == "band" else
+                            (tse.bell_mv_pair_lanes_plain,
+                             tse.bell_mv_lanes_plain))
+    index = op.cs if kind == "band" else op.cols
+    t = op.transposed()
+    calls = (
+        ("mv_pair", lambda: op.mv_pair(X, Z),
+         lambda b: op.mv_pair(X[b], Z[b]),
+         lambda: plain_pair(index, op.blocks,
+                            op._pad(X, op._xrows, 128),
+                            op._pad(Z, op.blocks.shape[0], 128)), (m, n)),
+        ("mv", lambda: (op.mv(X),), lambda b: (op.mv(X[b]),),
+         lambda: (plain_mv(index, op.blocks, op._pad(X, op._xrows, 128)),),
+         (m,)),
+        ("mv", lambda: (op.rmv(Z),), lambda b: (op.rmv(Z[b]),),
+         lambda: (plain_mv(t[1], t[0], op._pad(Z, op._yrows_t, 128)),),
+         (n,)))
+    for product, lane_call, single, plain, cut in calls:
+        one, lane_kernel, lane_sum = TILE_LANE_KERNELS[(kind, product)]
+        _cuda.device_launch_counts(reset=True)
+        got = lane_call()
+        counts = _cuda.device_launch_counts(reset=True)
+        assert counts[lane_kernel] == 1 and counts[one] == 0, counts
+        if lane_sum is not None:
+            assert counts[lane_sum] == 1, counts
+        for b in range(lanes):
+            for g1, s1 in zip(got, single(b)):
+                assert torch.equal(g1[b], s1), (product, b)
+        want = plain()
+        _close([g.cpu() for g in got],
+               [w.reshape(lanes, -1)[:, :k].cpu()
+                for w, k in zip(want, cut)])
+        again = lane_call()
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_tile_lanes_raise_on_inputs_they_do_not_take(cuda):
+    """The lane kernels' bound route raises on what it does not take; a
+    lane call on the card never drops to the plain version or to single
+    calls."""
+    for kind, case in (("band", "band_1000x1200"),
+                       ("bell", "scattered_700x900")):
+        _, op = _ops(case, kind, cuda)
+        nrb = op.blocks.shape[0]
+        XB = torch.zeros(3, op._xrows, 128, device=cuda)
+        ZB = torch.zeros(3, nrb, 128, device=cuda)
+        for fn, args in ((op._pair_lanes, (XB, ZB)), (op._mv_lanes, (XB,))):
+            with pytest.raises(TypeError, match="float32"):
+                fn(*(a.double() for a in args))
+            with pytest.raises(ValueError, match="device"):
+                fn(*(a.cpu() for a in args))
+            with pytest.raises(ValueError, match="shape"):
+                fn(*(a[:, 1:] for a in args))
+            with pytest.raises(ValueError, match="lanes"):
+                fn(*(a[:0] for a in args))
+            shifted = torch.zeros(XB.numel() + 1, device=cuda)[1:]
+            with pytest.raises(ValueError, match="aligned"):
+                fn(shifted.view_as(XB), *args[1:])
+            with pytest.raises(ValueError, match="contiguous"):
+                fn(torch.zeros(3, op._xrows, 256, device=cuda)[..., ::2],
+                   *args[1:])
+        with pytest.raises(ValueError, match="shape"):
+            op._pair_lanes(XB, ZB[:2])
+        with pytest.raises(ValueError, match="device"):
+            op.mv_pair(torch.zeros(3, op.n), torch.zeros(3, op.m,
+                                                         device=cuda))
+        with pytest.raises(ValueError, match="device"):
+            op.mv(torch.zeros(3, op.n))
+
+
 def test_probe_kernels_bit_equal(cuda):
     from fos_tpu_torch.tools import launch_probe as lp
 
