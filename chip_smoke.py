@@ -3786,7 +3786,9 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
           "ptxas": [ln.strip() for ln in report.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+                    if "registers" in ln or "spill" in ln
+                    or "Compiling entry" in ln],
+          "pair_lanes_blocks_per_sm": _cuda.pair_lanes_blocks_per_sm()})
     # conditional nodes are built by csrc/graph.cu: torch's own graph class
     # is searched for a conditional-node capture of its own
     driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version",

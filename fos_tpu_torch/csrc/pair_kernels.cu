@@ -64,17 +64,23 @@
 //
 // K2, K3 over lanes (the line search's 31 candidate steps through the
 // HSDE projection's CG, a vmap over the pallas_call in the JAX package):
-// the same grid, one block per stored tile, which loads its tile into
-// registers once (each warp its 16 rows, as tile_products) and runs every
-// lane's x and z through it, then the same ordered sums with a lane axis
-// in their grid.  Per lane the arithmetic is tile_products' and
-// tile_pair_sum's: the row dots' warp sums are taken 16 at a time
-// (trade_halves, 16 shuffles where 16 butterflies take 80, the same adds)
-// and the column totals kPairRound lanes per shared-memory round, in warp
-// order, so lane b is bit-equal to a single call on lane b's vectors.
-// At L lanes the work is 4 L flops per tile entry over the tile's 4
-// bytes: past ~20 lanes the f32 rate, not the table's bytes, bounds it.
-//
+// at L lanes the work is 4 L flops per tile entry over the tile's 4 bytes,
+// so past ~20 lanes the f32 rate, not the table's bytes, bounds it, and
+// what counts is the instructions issued beside the FMAs.  One block per
+// row block walks its tiles in slot order: each tile comes into shared
+// memory by bulk copy while the block works on the one before, then into
+// registers (16 rows x 8 columns a thread), and every lane's x and z,
+// staged in shared memory by cp.async, run through it two lanes a pass.
+// A thread holds two of the single kernel's warp lanes, so the row sums'
+// first tree level is a local add and the rest 15 shuffles for 16 rows.
+// y1's sum over the slots stays on chip; only y2's partials go to memory,
+// summed by a programmatic dependent launch.  Lane b keeps every add of a
+// single call on lane b's vectors, so it has its bits (the design, in
+// full, above tile_pair_lanes).  The first port of the lanes (one block
+// per tile, lanes loaded from L2 in the loop, y1 and y2 partials in
+// memory) and a block of 256 threads holding 16 x 4 a thread (four warps
+// a scheduler, not two) measured slower (PERF.md).
+
 // The TPU kernels' VMEM constants (8-tile slabs, 8-row-block batches, the
 // 512x512 dense padding) do not apply here.
 
@@ -375,17 +381,17 @@ dense_pair_lane_sum(const float* __restrict__ part, long long lane_part,
   (is_y ? y + (size_t)b * M : z + (size_t)b * N)[o] = total;
 }
 
-// Launch kernel k, grid x kThreads, as a programmatic dependent of the
-// kernel before it on st.
+// Launch kernel k, grid x block, as a programmatic dependent of the kernel
+// before it on st.
 template <class... Params, class... Args>
-cudaError_t launch_dependent(void (*k)(Params...), dim3 grid,
+cudaError_t launch_dependent(void (*k)(Params...), dim3 grid, int block,
                              cudaStream_t st, Args... args) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(block);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = st;
   cfg.attrs = attr;
@@ -409,7 +415,8 @@ int dense_pair_launch(const float* A, int M, int N, int lanes,
                                                           part);
     e = cudaGetLastError();
     if (e == cudaSuccess)
-      e = launch_dependent(dense_pair_sum, dim3(yblocks + zblocks), st,
+      e = launch_dependent(dense_pair_sum, dim3(yblocks + zblocks),
+                           kThreads, st,
                            (const float*)part, M, N, nti, ntj, y, z,
                            yblocks);
   } else {
@@ -421,7 +428,7 @@ int dense_pair_launch(const float* A, int M, int N, int lanes,
       e = launch_dependent(dense_pair_lane_sum,
                            dim3((unsigned)((outputs + kThreads - 1) /
                                            kThreads)),
-                           st, (const float*)part, lane_part, lanes, M, N,
+                           kThreads, st, (const float*)part, lane_part, lanes, M, N,
                            nti, ntj, y, z);
   }
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
@@ -568,114 +575,330 @@ int tile_pair_launch(const float* blocks, Cols cols, int nrb, int slots,
   return (int)cudaGetLastError();
 }
 
-// K2/K3 over lanes: the grid and tiles of tile_pair.  Lane b's x tiles
-// are at xb + b ldx, its z rows at zb + b ldz (16-byte aligned, ld a
-// multiple of 4), its partials at part + b lane_part (y1part, then y2part
-// at half of lane_part, each laid out as tile_pair's).
-constexpr int kPairRound = 4;  // lanes per shared-memory round of columns
+// K2/K3 over lanes.  One block of kLaneThreads threads per row block r
+// walks the row block's stored tiles in slot order, and for each tile runs
+// every lane's x and z through it:
+//
+// * the tiles come into shared memory by bulk copies (the tensor memory
+//   accelerator, completing on an mbarrier), one tile ahead: a thread
+//   copies its part of tile s into registers, and the block asks for tile
+//   s + 1 while it runs the lanes through tile s, so a tile's load
+//   overlaps the previous tile's arithmetic;
+// * the lanes' x tiles and z rows are staged in shared memory by cp.async,
+//   kPairRound lanes at a time, one round ahead of the round that reads
+//   them; the lane loop reads registers and shared memory only;
+// * thread (g, l) (row group g = tid / 16 of 16 rows, l = tid % 16) holds
+//   the group's 16 rows at the 8 columns l + 16 k: the columns of two
+//   lanes of the single kernel's warp, l and l + 16, so the first level of
+//   the single kernel's xor tree (16) is one local add, and the other four
+//   (8, 4, 2, 1) trade halves inside the half-warp: 15 shuffles for the
+//   group's 16 rows, after which thread (g, l) holds row 16 g + l = tid;
+// * two lanes go through the tile per pass (kLanePass), so that one lane's
+//   shuffles can issue between the other's FMAs;
+// * a row's sum over the slots stays on chip (y1acc), in slot order, and
+//   the last slot writes y1; only the column totals leave the SM, one
+//   partial per stored tile, kPairRound lanes per shared-memory exchange;
+// * the second kernel sums y2's partials over the inverse list, launched
+//   as a programmatic dependent of the first.
+//
+// Shared rows are padded where the two half-warps of a warp (row groups
+// 2w and 2w + 1) would meet the same banks: the tile's row groups and the
+// column exchange's rows lie 16 floats further apart than their length.
+//
+// Per lane the arithmetic is tile_pair's: row i's dot is the fmaf chain of
+// each single-kernel warp lane (columns l, l + 32, l + 64, l + 96) and its
+// xor tree 16, 8, 4, 2, 1; column c's total is the 16-row fmaf chains of
+// the 8 row groups added in group order; y1[r] is ((0 + p_0) + p_1) + ...
+// in slot order and y2[cb] the inverse list's order.  So lane b is
+// bit-equal to a single call on lane b's vectors.
+//
+// Lane b's x tiles are at xb + b ldx, its z rows at zb + b ldz (16-byte
+// aligned, ld a multiple of 4), its y2 partials at part + b lane_part
+// (laid out as tile_pair's y2part), its y1 at y1 + b nrb 128.  Any number
+// of lanes: kLaneChunk at a time, each chunk walking the slots again.
+constexpr int kLaneThreads = kTile;  // 4 warps: 8 row groups of 16 threads
+constexpr int kGroupRows = 16;
+constexpr int kGroups = kTile / kGroupRows;
+constexpr int kGroupCols = kTile / 16;  // the 8 columns a thread holds
+constexpr int kLaneChunk = 32;          // lanes whose y1 sums are on chip
+constexpr int kPairRound = 4;           // lanes per shared-memory exchange
+constexpr int kLanePass = 2;            // lanes through the tile together
+constexpr int kTileCopies = 16;         // bulk copies a tile
+constexpr int kGroupPad = kGroupRows * kTile + 16;  // a row group in smem
+constexpr int kExchangeRow = kTile + 16;
 
-template <class Cols>
-__global__ void __launch_bounds__(kThreads)
-tile_pair_lanes(const float* __restrict__ blocks, Cols cols, int lanes,
-                const float* __restrict__ xb, long long ldx,
-                const float* __restrict__ zb, long long ldz,
-                float* __restrict__ part, long long lane_part) {
-  __shared__ float zsh[kPairRound][kWarps][kTile];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  count_launch(Cols::kLaneCounter);
-  const int nslots = cols.slots();
-  const int r = blockIdx.x / nslots, s = blockIdx.x % nslots;
-  if (s >= cols.count(r)) return;  // the whole block: no barrier is skipped
-  const int row0 = warp * kRowsPerWarp;
-  const size_t t = (size_t)blockIdx.x;
-  const float* __restrict__ T =
-      blocks + t * (kTile * kTile) + (size_t)row0 * kTile;
-  float a[kRowsPerWarp][4];
+struct LaneStage {
+  float tile[kGroups * kGroupPad];          // the next tile, by bulk copy
+  float xs[2][kPairRound][kTile];           // a round's x tiles, two rounds
+  float zs[2][kPairRound][kTile];           // its z rows
+  float y1acc[kLaneChunk][kTile];           // y1's running sum, slot order
+  float zsh[kPairRound][kGroups][kExchangeRow];  // column chains of a round
+  unsigned long long bar;                   // the tile's mbarrier
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], 1;\n"
+      "fence.mbarrier_init.release.cluster;" ::"r"(smem_addr(bar))
+      : "memory");
+}
+
+// Thread 0: bring the tile at src into dst (row group g at g kGroupPad),
+// completing on bar's next phase (the block has read dst's last tile: a
+// barrier came before).
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          unsigned long long* bar) {
+  constexpr unsigned kBytes = kTile * kTile * 4;
+  constexpr unsigned kPart = kBytes / kTileCopies;
+  constexpr int kPerGroup = kTileCopies / kGroups;
+  asm volatile(
+      "fence.proxy.async.shared::cta;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(kBytes)
+      : "memory");
 #pragma unroll
-  for (int i = 0; i < kRowsPerWarp; ++i)
+  for (int j = 0; j < kTileCopies; ++j)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_addr(
+            dst + j / kPerGroup * kGroupPad + j % kPerGroup * (kPart / 4))),
+        "l"(src + j * (kPart / 4)), "r"(kPart), "r"(smem_addr(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// kN lanes through a thread's part of a tile: x from xq + n 128 + 16 k
+// (xq: the first lane's x at column l), z from zq + n 128 (the group's 16
+// rows).  dot[n]: lane n's dot of row 16 g + l; za[n][k]: lane n's chain
+// of column l + 16 k over the group's rows.
+template <int kN>
+__device__ __forceinline__ void lanes_through_tile(
+    const float (&a)[kGroupRows][kGroupCols], const float* xq,
+    const float* zq, int l, float (&dot)[kN], float (&za)[kN][kGroupCols]) {
+  float x[kN][kGroupCols], d[kN][kGroupRows];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) a[i][k] = __ldg(T + i * kTile + lane + 32 * k);
-  const float* xt = xb + (size_t)cols.col(r, s) * kTile + lane;
-  const float* zt = zb + (size_t)r * kTile + row0;
-  float* y1part = part + t * kTile + row0;
-  float* y2part = part + lane_part / 2 + t * kTile;
-  for (int q0 = 0; q0 < lanes; q0 += kPairRound) {
-#pragma unroll 1
-    for (int p = 0; p < kPairRound; ++p) {
-      const int q = q0 + p;
-      const bool live = q < lanes;
-      float xr[4], zr[kRowsPerWarp], d[kRowsPerWarp], zacc[4];
+  for (int n = 0; n < kN; ++n)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) xr[k] = live ? xt[q * ldx + 32 * k] : 0.f;
+    for (int k = 0; k < kGroupCols; ++k) {
+      x[n][k] = xq[n * kTile + 16 * k];
+      za[n][k] = 0.f;
+    }
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; i += 4) {
-        const float4 z4 =
-            live ? *reinterpret_cast<const float4*>(zt + q * ldz + i)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-        zr[i] = z4.x, zr[i + 1] = z4.y, zr[i + 2] = z4.z, zr[i + 3] = z4.w;
-      }
+  for (int i4 = 0; i4 < kGroupRows; i4 += 4) {
+    float z[kN][4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) zacc[k] = 0.f;
+    for (int n = 0; n < kN; ++n) {
+      const float4 v = *reinterpret_cast<const float4*>(zq + n * kTile + i4);
+      z[n][0] = v.x, z[n][1] = v.y, z[n][2] = v.z, z[n][3] = v.w;
+    }
 #pragma unroll
-      for (int i = 0; i < kRowsPerWarp; ++i) {
-        d[i] = 0.f;
+    for (int j = 0; j < 4; ++j) {
+      const int i = i4 + j;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          d[i] = fmaf(a[i][k], xr[k], d[i]);
-          zacc[k] = fmaf(a[i][k], zr[i], zacc[k]);
+      for (int n = 0; n < kN; ++n) {
+        // the chains of the single kernel's lanes l (even k) and l + 16
+        float e = 0.f, o = 0.f;
+#pragma unroll
+        for (int k = 0; k < kGroupCols; k += 2) {
+          e = fmaf(a[i][k], x[n][k], e);
+          o = fmaf(a[i][k + 1], x[n][k + 1], o);
         }
-      }
-      // row (lane >> 1) of the warp's 16 ends on lanes 2i and 2i + 1
-      trade_halves<8>(d, lane, 16);
-      trade_halves<4>(d, lane, 8);
-      trade_halves<2>(d, lane, 4);
-      trade_halves<1>(d, lane, 2);
-      d[0] += __shfl_xor_sync(0xffffffffu, d[0], 1);
-      if (live && (lane & 1) == 0) y1part[q * lane_part + (lane >> 1)] = d[0];
+        d[n][i] = e + o;  // the tree's level 16
 #pragma unroll
-      for (int k = 0; k < 4; ++k) zsh[p][warp][lane + 32 * k] = zacc[k];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kPairRound * kTile / kThreads; ++u) {
-      const int e = threadIdx.x + u * kThreads, p = e / kTile, c = e % kTile;
-      if (q0 + p < lanes) {
-        float sum = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) sum += zsh[p][w][c];
-        y2part[(q0 + p) * lane_part + c] = sum;
+        for (int k = 0; k < kGroupCols; ++k)
+          za[n][k] = fmaf(a[i][k], z[n][j], za[n][k]);
       }
     }
-    __syncthreads();  // before zsh is rewritten
+  }
+#pragma unroll
+  for (int n = 0; n < kN; ++n) trade_halves<8>(d[n], l, 8);
+#pragma unroll
+  for (int n = 0; n < kN; ++n) trade_halves<4>(d[n], l, 4);
+#pragma unroll
+  for (int n = 0; n < kN; ++n) trade_halves<2>(d[n], l, 2);
+#pragma unroll
+  for (int n = 0; n < kN; ++n) {
+    trade_halves<1>(d[n], l, 1);
+    dot[n] = d[n][0];
   }
 }
 
-// tile_pair_sum for lane blockIdx.y: its partials at part + lane_part y,
-// its y1 at y1 + nrb 128 y, its y2 at y2 + ncb_out 128 y.
+// Where a block is in its walk: chunk c0, slot s, round q0.
+struct LanePos {
+  int c0, s, q0;
+};
+
 template <class Cols>
-__global__ void tile_pair_lanes_sum(Cols cols, int nrb, int ncb_out,
+__global__ void __launch_bounds__(kLaneThreads, 2)
+tile_pair_lanes(const float* __restrict__ blocks, Cols cols, int lanes,
+                const float* __restrict__ xb, long long ldx,
+                const float* __restrict__ zb, long long ldz,
+                float* __restrict__ y1, float* __restrict__ part,
+                long long lane_part) {
+  extern __shared__ float4 lane_smem[];
+  LaneStage& st = *reinterpret_cast<LaneStage*>(lane_smem);
+  count_launch(Cols::kLaneCounter);
+  let_dependents_launch();
+  const int r = blockIdx.x, tid = threadIdx.x;
+  const int g = tid / 16, l = tid % 16;  // this thread's row is tid
+  const int nslots = cols.slots(), count = cols.count(r);
+  const size_t y1_lane = (size_t)gridDim.x * kTile;
+  float* __restrict__ y1r = y1 + (size_t)r * kTile + tid;
+  if (count == 0) {  // no stored tile: y1 is the sum of no slots
+    for (int q = 0; q < lanes; ++q) y1r[q * y1_lane] = 0.f;
+    return;
+  }
+  const float* __restrict__ tiles = blocks + (size_t)r * nslots * kTile * kTile;
+  // stage the x tiles and z rows of the round at p into buffer b
+  auto stage = [&](LanePos p, int b) {
+    const int n = min(kPairRound, min(kLaneChunk, lanes - p.c0) - p.q0);
+    const int q = p.c0 + p.q0;
+    const float* xs = xb + q * ldx + (size_t)cols.col(r, p.s) * kTile;
+    const float* zs = zb + q * ldz + (size_t)r * kTile;
+    for (int u = tid; u < 2 * n * (kTile / 4); u += kLaneThreads) {
+      const int z = u >= n * (kTile / 4), v = u - z * n * (kTile / 4);
+      const int lane = v / (kTile / 4), j = 4 * (v % (kTile / 4));
+      cp_async16(z ? &st.zs[b][lane][j] : &st.xs[b][lane][j],
+                 (z ? zs + lane * ldz : xs + lane * ldx) + j);
+    }
+    cp_async_commit();
+  };
+  // the round after p, or c0 == lanes past the last
+  auto next = [&](LanePos p) {
+    if (p.q0 + kPairRound < min(kLaneChunk, lanes - p.c0))
+      return LanePos{p.c0, p.s, p.q0 + kPairRound};
+    if (p.s + 1 < count) return LanePos{p.c0, p.s + 1, 0};
+    return LanePos{p.c0 + kLaneChunk, 0, 0};
+  };
+  if (tid == 0) {
+    mbar_init(&st.bar);
+    load_tile(st.tile, tiles, &st.bar);
+  }
+  stage(LanePos{0, 0, 0}, 0);
+  __syncthreads();  // the mbarrier is initialised
+  unsigned parity = 0;
+  int buf = 0;
+  for (LanePos p{0, 0, 0}; p.c0 < lanes;) {
+    // the tile of slot p.s into registers, then the next tile asked for
+    float a[kGroupRows][kGroupCols];
+    mbar_wait(&st.bar, parity);
+    parity ^= 1;
+    const float* T = st.tile + g * kGroupPad + l;
+#pragma unroll
+    for (int i = 0; i < kGroupRows; ++i)
+#pragma unroll
+      for (int k = 0; k < kGroupCols; ++k) a[i][k] = T[i * kTile + 16 * k];
+    __syncthreads();  // every thread has its part of the tile
+    const int s = p.s, c0 = p.c0, nc = min(kLaneChunk, lanes - c0);
+    const size_t t = (size_t)r * nslots + s;
+    if (tid == 0 && (s + 1 < count || c0 + kLaneChunk < lanes))
+      load_tile(st.tile, tiles + (s + 1 < count ? s + 1 : 0) *
+                                     (size_t)(kTile * kTile), &st.bar);
+    const bool first = s == 0, last = s + 1 == count;
+    for (; p.s == s && p.c0 == c0; p = next(p), buf ^= 1) {
+      const int q0 = p.q0;
+      cp_async_wait_all();
+      // the round's stage has landed everywhere, and every thread is done
+      // with the last round's exchange and the other stage buffer
+      __syncthreads();
+      const LanePos after = next(p);
+      if (after.c0 < lanes) stage(after, buf ^ 1);
+#pragma unroll 1
+      for (int h = 0; h < kPairRound && q0 + h < nc; h += kLanePass) {
+        // lanes past nc run on stale data and are not stored
+        float dot[kLanePass], za[kLanePass][kGroupCols];
+        lanes_through_tile<kLanePass>(a, st.xs[buf][h] + l,
+                                      st.zs[buf][h] + g * kGroupRows, l, dot,
+                                      za);
+#pragma unroll
+        for (int n = 0; n < kLanePass; ++n) {
+          const int q = q0 + h + n;
+          float* acc = &st.y1acc[q][tid];
+          const float v = (first ? 0.f : *acc) + dot[n];
+          if (!last)
+            *acc = v;
+          else if (q < nc)
+            y1r[(c0 + q) * y1_lane] = v;
+#pragma unroll
+          for (int k = 0; k < kGroupCols; ++k)
+            st.zsh[h + n][g][l + 16 * k] = za[n][k];
+        }
+      }
+      __syncthreads();
+      // column tid's totals, the groups in order
+#pragma unroll
+      for (int h = 0; h < kPairRound; ++h) {
+        if (q0 + h < nc) {
+          float sum = 0.f;
+#pragma unroll
+          for (int w = 0; w < kGroups; ++w) sum += st.zsh[h][w][tid];
+          part[(c0 + q0 + h) * lane_part + t * kTile + tid] = sum;
+        }
+      }
+    }
+  }
+}
+
+// y2 of lane blockIdx.y: tile_pair_sum's column-block sums over its
+// partials at part + lane_part y, into y2 + ncb_out 128 y.  A programmatic
+// dependent of tile_pair_lanes: it reads the inverse list before waiting.
+template <class Cols>
+__global__ void tile_pair_lanes_sum(int ncb_out,
                                     const float* __restrict__ part,
                                     long long lane_part,
                                     const int* __restrict__ inv_ptr,
                                     const int* __restrict__ inv_idx,
-                                    float* __restrict__ y1,
                                     float* __restrict__ y2) {
   count_launch(Cols::kLaneSumCounter);
-  const int b = blockIdx.x, c = threadIdx.x;
-  const float* y1part = part + blockIdx.y * lane_part;
-  const float* y2part = y1part + lane_part / 2;
+  const int cb = blockIdx.x, c = threadIdx.x;
+  const int e0 = inv_ptr[cb], e1 = inv_ptr[cb + 1];
+  wait_for_primary();
+  const float* __restrict__ y2part = part + blockIdx.y * lane_part + c;
   float s = 0.f;
-  if (b < nrb) {
-    const float* p = y1part + (size_t)b * cols.slots() * kTile + c;
-    const int n = cols.count(b);
-    for (int k = 0; k < n; ++k) s += p[(size_t)k * kTile];
-    y1[((size_t)blockIdx.y * nrb + b) * kTile + c] = s;
-  } else {
-    const int cb = b - nrb;
-    for (int e = inv_ptr[cb]; e < inv_ptr[cb + 1]; ++e)
-      s += y2part[(size_t)inv_idx[e] * kTile + c];
-    y2[((size_t)blockIdx.y * ncb_out + cb) * kTile + c] = s;
-  }
+  for (int e = e0; e < e1; ++e) s += y2part[(size_t)inv_idx[e] * kTile];
+  y2[((size_t)blockIdx.y * ncb_out + cb) * kTile + c] = s;
+}
+
+// Shared memory of tile_pair_lanes above the 48 KB default, set once (the
+// library's loader calls fos_pair_lanes_occupancy, so before any capture).
+template <class Cols>
+cudaError_t lane_smem_attribute() {
+  static const cudaError_t e = cudaFuncSetAttribute(
+      tile_pair_lanes<Cols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(LaneStage));
+  return e;
 }
 
 template <class Cols>
@@ -685,14 +908,29 @@ int tile_pair_lanes_launch(const float* blocks, Cols cols, int nrb,
                            const float* xb, long long ldx, const float* zb,
                            long long ldz, float* y1, float* y2,
                            cudaStream_t st) {
-  const long long lane_part = 2LL * nrb * slots * kTile;
-  tile_pair_lanes<Cols><<<nrb * slots, kThreads, 0, st>>>(
-      blocks, cols, lanes, xb, ldx, zb, ldz, part, lane_part);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = lane_smem_attribute<Cols>();
   if (e != cudaSuccess) return (int)e;
-  tile_pair_lanes_sum<Cols><<<dim3(nrb + ncb_out, lanes), kTile, 0, st>>>(
-      cols, nrb, ncb_out, part, lane_part, inv_ptr, inv_idx, y1, y2);
-  return (int)cudaGetLastError();
+  const long long lane_part = (long long)nrb * slots * kTile;
+  tile_pair_lanes<Cols><<<nrb, kLaneThreads, sizeof(LaneStage), st>>>(
+      blocks, cols, lanes, xb, ldx, zb, ldz, y1, part, lane_part);
+  e = cudaGetLastError();
+  if (e == cudaSuccess)
+    e = launch_dependent(tile_pair_lanes_sum<Cols>, dim3(ncb_out, lanes),
+                         kTile, st, ncb_out, (const float*)part, lane_part,
+                         inv_ptr, inv_idx, y2);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// Resident blocks per SM of a lane kernel (its shared memory set first).
+template <class Cols>
+int lane_blocks_per_sm(long long* out) {
+  cudaError_t e = lane_smem_attribute<Cols>();
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, tile_pair_lanes<Cols>, kLaneThreads, sizeof(LaneStage));
+  *out = n;
+  return (int)e;
 }
 
 }  // namespace
@@ -768,10 +1006,11 @@ int fos_bell_pair(const long long* slots) {
 }
 
 // K2 over L lanes.  Record: 0-6 as fos_band_pair's, 7 L (1..65535),
-// 8 part (L * 2 * nrb * S * 128 f32), 9 XB (lane b's xb, (ncb_out, 128), at
-// XB + b ldx), 10 ldx, 11 ZB (lane b's zb, (nrb, 128), at ZB + b ldz),
-// 12 ldz, 13 Y1 (L, nrb, 128), 14 Y2 (L, ncb_out, 128), 15 stream.  XB and
-// ZB 16-byte aligned, ldx and ldz multiples of 4.
+// 8 part (L * nrb * S * 128 f32: y2's partials; y1's stay on chip), 9 XB
+// (lane b's xb, (ncb_out, 128), at XB + b ldx), 10 ldx, 11 ZB (lane b's
+// zb, (nrb, 128), at ZB + b ldz), 12 ldz, 13 Y1 (L, nrb, 128), 14 Y2 (L,
+// ncb_out, 128), 15 stream.  XB and ZB 16-byte aligned, ldx and ldz
+// multiples of 4.
 int fos_band_pair_lanes(const long long* slots) {
   const Record a{slots};
   const BandCols cols{a.ptr<const int>(1), a.num(3)};
@@ -782,8 +1021,8 @@ int fos_band_pair_lanes(const long long* slots) {
       a.ptr<float>(13), a.ptr<float>(14), a.stream(15));
 }
 
-// K3 over L lanes.  Record: 0-7 as fos_bell_pair's, 8 L, 9 part (L * 2 *
-// nrb * kmax * 128 f32), 10 XB, 11 ldx, 12 ZB, 13 ldz (as
+// K3 over L lanes.  Record: 0-7 as fos_bell_pair's, 8 L, 9 part (L * nrb
+// * kmax * 128 f32), 10 XB, 11 ldx, 12 ZB, 13 ldz (as
 // fos_band_pair_lanes), 14 Y1 (L, nrb, 128), 15 Y2 (L, ncb, 128),
 // 16 stream.
 int fos_bell_pair_lanes(const long long* slots) {
@@ -794,6 +1033,15 @@ int fos_bell_pair_lanes(const long long* slots) {
       a.ptr<const int>(6), a.num(7), a.num(8), a.ptr<float>(9),
       a.ptr<const float>(10), slots[11], a.ptr<const float>(12), slots[13],
       a.ptr<float>(14), a.ptr<float>(15), a.stream(16));
+}
+
+// Record: 0 host address of 2 int64 that receive the resident blocks per
+// SM of K2's and K3's lane kernels.  Sets their shared-memory size first
+// (the loader calls it once, before any capture).
+int fos_pair_lanes_occupancy(const long long* slots) {
+  long long* out = reinterpret_cast<long long*>(slots[0]);
+  const int e = lane_blocks_per_sm<BandCols>(out);
+  return e ? e : lane_blocks_per_sm<EllCols>(out + 1);
 }
 
 }  // extern "C"

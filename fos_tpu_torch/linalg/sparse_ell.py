@@ -333,8 +333,9 @@ def _pair_kernel(kind, blocks, index, counts, inverse, ncb_out):
 def _pair_lanes_kernel(kind, blocks, index, counts, inverse, ncb_out):
     """K2 or K3 over lanes bound to a checked table (as
     :func:`_pair_kernel`): ``(XB, ZB) -> (Y1, Y2)`` with XB (L, ncb_out,
-    128), ZB (L, nrb, 128); each lane count's partials (2 nrb slots 128
-    floats a lane) are allocated at its first call."""
+    128), ZB (L, nrb, 128); each lane count's partials (y2's, nrb slots
+    128 floats a lane: y1's sum stays on chip) are allocated at its first
+    call."""
     nrb, slots = blocks.shape[:2]
     T = _cuda.TILE
     return _cuda.Kernel(
@@ -343,7 +344,7 @@ def _pair_lanes_kernel(kind, blocks, index, counts, inverse, ncb_out):
          inverse[0].data_ptr(), inverse[1].data_ptr(), ncb_out),
         ins=(((ncb_out, T), _F32), ((nrb, T), _F32)),
         outs=((nrb, T), (ncb_out, T)), keep=(blocks, index, counts, *inverse),
-        lanes=True, part=2 * nrb * slots * T, aligned=True)
+        lanes=True, part=nrb * slots * T, aligned=True)
 
 
 def _mv_lanes_kernel(kind, blocks, index, counts, xrows):

@@ -275,7 +275,12 @@ TILE_LANE_KERNELS = {
 }
 
 
-@pytest.mark.parametrize("lanes", [1, 2, 31])
+#: lane counts: one and two lanes, an odd count, the line search's 31,
+#: and the edges of K2/K3's staged chunk of 32 lanes
+TILE_LANE_COUNTS = [1, 2, 5, 31, 32, 33, 64]
+
+
+@pytest.mark.parametrize("lanes", TILE_LANE_COUNTS)
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("kind", ["band", "bell"])
 def test_tile_lanes_bit_equal_to_single(cuda, case, kind, lanes):
@@ -284,7 +289,9 @@ def test_tile_lanes_bit_equal_to_single(cuda, case, kind, lanes):
     lane kernel (and of its sum) per call, counted on the device, and no
     single call; lane b bit-equal to the single kernel on lane b's
     vectors; within tolerance of the plain lane versions on the same
-    padded inputs; a repeat bit-equal."""
+    padded inputs; a repeat bit-equal.  The blocked-ELL tables of the
+    banded cases have ragged rows (band_1200x1000: counts 0 to 5 under a
+    kmax of 5, six row blocks empty), wide_span_2048 16 slots a row."""
     A, op = _ops(case, kind, cuda)
     m, n = A.shape
     g = torch.Generator(device="cpu").manual_seed(lanes * 31 + m)
@@ -325,6 +332,36 @@ def test_tile_lanes_bit_equal_to_single(cuda, case, kind, lanes):
                 for w, k in zip(want, cut)])
         again = lane_call()
         assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+@pytest.mark.parametrize("lanes", [31, 33])
+@pytest.mark.parametrize("case", ["band_1200x1000", "wide_span_2048"])
+@pytest.mark.parametrize("kind", ["band", "bell"])
+def test_tile_pair_lanes_replayed_bit_equal(cuda, case, kind, lanes):
+    """K2/K3 over lanes captured in a CUDA graph: a replay on new vectors
+    (copied into the captured inputs) is bit-equal to the eager call on
+    them, and launches the lane kernel and its sum once each."""
+    _, op = _ops(case, kind, cuda)
+    g = torch.Generator(device="cpu").manual_seed(lanes + len(case))
+    X = torch.randn(lanes, op.n, generator=g).to(cuda)
+    Z = torch.randn(lanes, op.m, generator=g).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        op.mv_pair(X, Z)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = op.mv_pair(X, Z)
+    X.copy_(torch.randn(lanes, op.n, generator=g).to(cuda))
+    Z.copy_(torch.randn(lanes, op.m, generator=g).to(cuda))
+    _cuda.device_launch_counts(reset=True)
+    graph.replay()
+    counts = _cuda.device_launch_counts(reset=True)
+    name = f"{kind}_mv_pair_lanes"
+    assert counts[name] == counts[f"{name}_sum"] == 1, counts
+    eager = op.mv_pair(X, Z)
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
 
 
 def test_tile_lanes_raise_on_inputs_they_do_not_take(cuda):
