@@ -3788,7 +3788,8 @@ def main() -> int:
           "ptxas": [ln.strip() for ln in report.splitlines()
                     if "registers" in ln or "spill" in ln
                     or "Compiling entry" in ln],
-          "pair_lanes_blocks_per_sm": _cuda.pair_lanes_blocks_per_sm()})
+          "pair_lanes_blocks_per_sm": _cuda.pair_lanes_blocks_per_sm(),
+          "mv_lanes_blocks_per_sm": _cuda.mv_lanes_blocks_per_sm()})
     # conditional nodes are built by csrc/graph.cu: torch's own graph class
     # is searched for a conditional-node capture of its own
     driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version",

@@ -1,6 +1,7 @@
-// What the kernel sources share: the tile side, the block size, a warp sum,
-// the launch record and the launch counters.  Each .cu file compiles on its own (one nvcc each,
-// linked into one library), so everything here has internal linkage.
+// What the kernel sources share: the tile side, the block size, a warp
+// sum, asynchronous copies, the launch record and the launch counters.
+// Each .cu file compiles on its own (one nvcc each, linked into one
+// library), so everything here has internal linkage.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,6 +35,91 @@ __device__ __forceinline__ void trade_halves(float* v, int lane, int h) {
     const float keep = up ? v[i + kHalf] : v[i];
     v[i] = keep + __shfl_xor_sync(0xffffffffu, send, h);
   }
+}
+
+// Asynchronous copies into shared memory.  cp_async16 copies one thread's
+// 16 bytes (cp.async); a thread's copies complete at cp_async_wait_all
+// after cp_async_commit, or signal an mbarrier (cp_async_arrive).  Bulk
+// copies (the tensor memory accelerator) complete on an mbarrier
+// (mbar_init: the arrivals a phase takes, one by default): one thread
+// declares a phase's bytes with mbar_expect_tx, after a proxy fence (the
+// block has read what the copies overwrite), then bulk_copy moves 16-byte
+// multiples between 16-byte aligned addresses, and mbar_wait returns once
+// the phase of the given parity is complete.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned arrivals = 1) {
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], %1;\n"
+      "fence.mbarrier_init.release.cluster;" ::"r"(smem_addr(bar)),
+      "r"(arrivals)
+      : "memory");
+}
+
+// One arrival on bar's current phase.
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// An arrival on bar's current phase once this thread's cp.async copies
+// issued so far have landed (counted among the phase's arrivals).
+__device__ __forceinline__ void cp_async_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "fence.proxy.async.shared::cta;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
 }
 
 // A launch record: the int64 slots an entry point reads, in the order its

@@ -636,32 +636,6 @@ struct LaneStage {
   unsigned long long bar;                   // the tile's mbarrier
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
-  asm volatile(
-      "mbarrier.init.shared::cta.b64 [%0], 1;\n"
-      "fence.mbarrier_init.release.cluster;" ::"r"(smem_addr(bar))
-      : "memory");
-}
-
 // Thread 0: bring the tile at src into dst (row group g at g kGroupPad),
 // completing on bar's next phase (the block has read dst's last tile: a
 // barrier came before).
@@ -670,33 +644,11 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   constexpr unsigned kBytes = kTile * kTile * 4;
   constexpr unsigned kPart = kBytes / kTileCopies;
   constexpr int kPerGroup = kTileCopies / kGroups;
-  asm volatile(
-      "fence.proxy.async.shared::cta;\n"
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(kBytes)
-      : "memory");
+  mbar_expect_tx(bar, kBytes);
 #pragma unroll
   for (int j = 0; j < kTileCopies; ++j)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(smem_addr(
-            dst + j / kPerGroup * kGroupPad + j % kPerGroup * (kPart / 4))),
-        "l"(src + j * (kPart / 4)), "r"(kPart), "r"(smem_addr(bar))
-        : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred done;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n"
-      "}" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
+    bulk_copy(dst + j / kPerGroup * kGroupPad + j % kPerGroup * (kPart / 4),
+              src + j * (kPart / 4), kPart, bar);
 }
 
 // kN lanes through a thread's part of a tile: x from xq + n 128 + 16 k

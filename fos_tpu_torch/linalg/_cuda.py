@@ -175,7 +175,8 @@ ENTRY_POINTS = ("fos_dense_pair", "fos_dense_pair_lanes", "fos_band_pair",
                 "fos_graph_cond_close", "fos_stream_create", "fos_cg_continue",
                 "fos_cg_continue_lanes", "fos_count_continue", "fos_flag_continue",
                 "fos_pair_launch_counts", "fos_tile_mv_launch_counts",
-                "fos_graph_launch_counts", "fos_pair_lanes_occupancy")
+                "fos_graph_launch_counts", "fos_pair_lanes_occupancy",
+                "fos_mv_lanes_occupancy")
 
 #: the kernels counted on the device, by the entry point that reads them
 DEVICE_COUNTERS = {
@@ -211,9 +212,10 @@ def library():
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p]
         _lib = lib
-        # K2/K3's lane kernels set their shared-memory size here, before
-        # any call can be captured into a graph
+        # the lane kernels set their shared-memory size here, before any
+        # call can be captured into a graph
         pair_lanes_blocks_per_sm()
+        mv_lanes_blocks_per_sm()
     return _lib
 
 
@@ -223,6 +225,14 @@ def pair_lanes_blocks_per_sm() -> dict:
     out = (ctypes.c_longlong * 2)()
     _record_call("fos_pair_lanes_occupancy", ctypes.addressof(out))
     return {"band_mv_pair_lanes": out[0], "bell_mv_pair_lanes": out[1]}
+
+
+def mv_lanes_blocks_per_sm() -> dict:
+    """Resident blocks per SM of K4's and K5's lane kernels at 8 and 32
+    lanes a chunk (the block shapes they take up to 8 and past 8 lanes)."""
+    out = (ctypes.c_longlong * 4)()
+    _record_call("fos_mv_lanes_occupancy", ctypes.addressof(out))
+    return {"band_mv_lanes": list(out[:2]), "bell_mv_lanes": list(out[2:])}
 
 
 def check(rc: int, name: str) -> None:

@@ -347,16 +347,28 @@ def _pair_lanes_kernel(kind, blocks, index, counts, inverse, ncb_out):
         lanes=True, part=nrb * slots * T, aligned=True)
 
 
+def lane_task_order(counts):
+    """The order in which K5's lane kernel deals out a blocked-ELL table's
+    row blocks: by stored tiles, the longest first (ties in row order), so
+    that the blocks of its persistent grid, taking the rows in turn, end
+    together.  int32, on ``counts``' device."""
+    return torch.sort(counts, descending=True, stable=True)[1].to(
+        torch.int32)
+
+
 def _mv_lanes_kernel(kind, blocks, index, counts, xrows):
     """K4 or K5 over lanes bound to a checked table: ``XB -> Y`` with XB
-    (L, xrows, 128), Y (L, nrb, 128)."""
+    (L, xrows, 128), Y (L, nrb, 128); K5 also takes
+    :func:`lane_task_order` of the counts."""
     nrb, slots = blocks.shape[:2]
     T = _cuda.TILE
+    order = None if counts is None else lane_task_order(counts)
     return _cuda.Kernel(
         f"{kind}_mv_lanes", f"fos_{kind}_mv_lanes", blocks.device,
-        (*_table_slots(blocks, index, counts), nrb, slots),
+        (*_table_slots(blocks, index, counts), nrb, slots,
+         *(() if order is None else (order.data_ptr(),))),
         ins=(((xrows, T), _F32),), outs=((nrb, T),),
-        keep=(blocks, index, counts), lanes=True, aligned=True)
+        keep=(blocks, index, counts, order), lanes=True, aligned=True)
 
 
 def _mv_kernel(kind, blocks, index, counts, xrows):

@@ -276,8 +276,9 @@ TILE_LANE_KERNELS = {
 
 
 #: lane counts: one and two lanes, an odd count, the line search's 31,
-#: and the edges of K2/K3's staged chunk of 32 lanes
-TILE_LANE_COUNTS = [1, 2, 5, 31, 32, 33, 64]
+#: and the edges of the lane kernels' chunks: K4/K5 take 8 lanes a chunk
+#: up to 8, else 32 (K2/K3 32)
+TILE_LANE_COUNTS = [1, 2, 5, 7, 8, 9, 31, 32, 33, 64]
 
 
 @pytest.mark.parametrize("lanes", TILE_LANE_COUNTS)
@@ -362,6 +363,37 @@ def test_tile_pair_lanes_replayed_bit_equal(cuda, case, kind, lanes):
     assert counts[name] == counts[f"{name}_sum"] == 1, counts
     eager = op.mv_pair(X, Z)
     assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+@pytest.mark.parametrize("lanes", [5, 31, 33])
+@pytest.mark.parametrize("product", ["mv", "rmv"])
+@pytest.mark.parametrize("case", ["band_1200x1000", "wide_span_2048"])
+@pytest.mark.parametrize("kind", ["band", "bell"])
+def test_tile_mv_lanes_replayed_bit_equal(cuda, case, kind, product, lanes):
+    """K4/K5 over lanes captured in a CUDA graph (``mv`` over the A table,
+    ``rmv`` over the A' table): a replay on new vectors (copied into the
+    captured input) is bit-equal to the eager call on them, and launches
+    the lane kernel once."""
+    _, op = _ops(case, kind, cuda)
+    g = torch.Generator(device="cpu").manual_seed(lanes + 7 * len(case))
+    width = op.n if product == "mv" else op.m
+    X = torch.randn(lanes, width, generator=g).to(cuda)
+    call = getattr(op, product)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call(X)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call(X)
+    X.copy_(torch.randn(lanes, width, generator=g).to(cuda))
+    _cuda.device_launch_counts(reset=True)
+    graph.replay()
+    counts = _cuda.device_launch_counts(reset=True)
+    assert counts[f"{kind}_mv_lanes"] == 1 and counts[f"{kind}_mv"] == 0, \
+        counts
+    assert torch.equal(out, call(X))
 
 
 def test_tile_lanes_raise_on_inputs_they_do_not_take(cuda):
