@@ -150,21 +150,31 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    native``, gated loaded) against its numpy versions on phase 2's
    32768^2 tables, the pack and both format ratios, host seconds of each,
    tables bit-equal and ratios equal (gated);
-10. ``sharding``: one NCCL group of world size 1 in this process.
+10. ``sharding``: one NCCL group of world size 1 in this process, and
+   every sharded solve on the graph route (its collectives captured).
    ``sharded_ops``: ``RowShardedOp`` over phase 2's banded and scattered
    tables (K2-K5), the dense row and 2D operators over its dense A (K1),
-   every product bit-equal to the unsharded operator's.
+   every product bit-equal to the unsharded operator's, also over 31
+   lanes in one call (the local lane kernels).
    ``sharded_banded_lp`` / ``sharded_rows_dense_lp``: phase 2's banded LP
    through ``RowShardedOp`` and its dense LP through
-   ``shard_problem_rows``, on the eager route (a sharded form's, by its
-   operator's type), gated Optimal and equal in status, iterations and
-   bits to phase 5's eager solve of the unsharded form.
-   ``sharded_batched_lp_128``: batched_lp_128's instances through
-   ``shard_batched_form`` at a cut budget, statuses, iterations and
-   objectives equal to the unsharded batch.  ``pipelined_dense_lp``:
-   the dense LP with ``cg_variant="pipelined"`` (graph route), Optimal and
-   phase 2's continuation and objective gate.  ``nccl_capture_probe``: whether NCCL collectives
-   capture into a conditional node's body (printed).
+   ``shard_problem_rows``, gated Optimal and equal in status, iterations
+   and bits to phase 5's solve of the unsharded form, and to their own
+   eager route at 300 iterations; seconds beside the unsharded graph
+   route's.  ``sharded_batched_lp_128``: batched_lp_128's instances
+   through ``shard_batched_form`` at a cut budget (the vote captured),
+   equal to the unsharded batch and to the split batch's eager route.
+   ``pipelined_dense_lp``: the dense LP with ``cg_variant="pipelined"``,
+   Optimal and phase 2's continuation and objective gate, then its
+   row-sharded form against the unsharded one.
+   ``sharded_linesearch_banded_lp``: LineSearch(DR) through
+   ``RowShardedOp`` at 300 iterations, bit-equal to the unsharded line
+   search, one K2 lane call, gather and all-reduce a probe pass.
+   ``sharded_linesearch_batched_lp_128``: LineSearch(DR) on
+   ``shard_batched_form_rows`` over batched_lp_128's instances, bit-equal
+   to the unsharded batch.  ``nccl_capture_probe``: NCCL collectives in a
+   conditional node's body (printed); ``nccl_collective_us``: a captured
+   collective's device time against its eager host time.
 
 Each kernel counts its launches on the device (``_cuda.
 device_launch_counts``), graph replays included: the counts are zeroed
@@ -180,7 +190,7 @@ gated > 0 for ``cg_continue_lanes``; phase 8's, ``launches_phase8``,
 gated > 0 for K1, with ``launches_diff_batched_lp_wrapped`` the wrapped
 batch's part; phase 9's,
 ``launches_phase9``, gated > 0 for K1, K2 and K3; phase 10's,
-``launches_phase10``, gated > 0 for K1-K5).  The line
+``launches_phase10``, gated > 0 for K1-K5 and K2 over lanes).  The line
 before the kernels line gives each phase's seconds.  The wrappers' host
 counts (``_cuda.LAUNCHES``) count the calls that launched or captured a
 kernel (``captured_calls``): a replay calls no wrapper.
@@ -3436,16 +3446,33 @@ def front_end_phase(dev, A1, b1, c1, opt1, dense_ref, band, unscaled_iters,
 # ------------------------------------------------------------- phase 10
 # sharding over torch.distributed on one NCCL group of world size 1 (one
 # card cannot hold an NCCL group of two ranks; tests/test_torch_sharding.py
-# holds the ranks' behaviour over gloo on the CPU).  A sharded form runs
-# the eager route (its collectives are host calls), so each solve is held
-# to the unsharded solve on the eager route (phase 5's, which runs the
-# same forms).  Only the sharded calls' launches are counted: the counts
-# are zeroed just before each and read just after, and a reference's are
-# discarded.  The batched cell's cut budget: the eager route runs
-# batched_lp_128 at 70-100 ms an iteration (PR 11's runs: 6.8 / 10.6 s for
-# 100 iterations), five chunks of ten, a vote after each
+# holds the ranks' behaviour over gloo on the CPU).  A sharded form over
+# NCCL groups runs the graph route: its collectives (the products' gathers
+# and all-reduces, the split batch's vote) are captured into the chunk's
+# graph.  Each sharded solve is held to the unsharded solve (phase 5's
+# eager solve, whose bits phase 5 gates equal to its graph route) and to
+# its own eager route, the plain version, which runs at a cut depth
+# (SHARDED_EAGER_ITERS: the eager route pays ~0.2 ms of host time a
+# collective, 12.68 / 9.44 s for the banded and dense LPs) and is compared
+# with the graph route at that depth.  Only the sharded graph
+# runs' launches are counted: the counts are zeroed just before each and
+# read just after, and a reference's are discarded.  The batched cells'
+# cut budget: five chunks of ten, a vote after each (the eager route runs
+# batched_lp_128 at 60-100 ms an iteration)
 SHARDED_BATCH_ITERS = 50
 SHARDED_BATCH_CHECKI = 10
+SHARDED_EAGER_ITERS = 300
+#: the sharded LPs' seconds when sharded forms ran the eager route (NVIDIA
+#: H100 80GB HBM3, 700 W), printed beside the graph route's
+SHARDED_EAGER_S = {"sharded_banded_lp": 12.68,
+                        "sharded_rows_dense_lp": 9.44,
+                        "sharded_batched_lp_128": 2.80}
+#: the sharded line searches: the banded LP at LineSearch(DR)'s default
+#: interval (three line-search steps), the batch at an interval of 20
+SHARDED_LS_ITERS = 300
+SHARDED_BATCH_LS_INTERVAL = 20
+#: passes of a WHILE node timing one collective replayed from a graph
+COLLECTIVE_PASSES = 400
 KERNELS_K1_K5 = ("fused_matvec", "band_mv_pair", "bell_mv_pair", "band_mv",
                  "bell_mv")
 
@@ -3459,7 +3486,10 @@ def sharded_ops(dev, mesh, ops, A1, totals):
     tables (A and A' tables), and the dense row and 2D operators over its
     dense A: every product bit-equal to the unsharded operator's, and each
     sharded product launching the kernel its local table runs (K4/K5 for
-    mv/rmv, K2/K3 for mv_pair, K1 for the dense blocks)."""
+    mv/rmv, K2/K3 for mv_pair, K1 for the dense blocks); then each product
+    over the line search's 31 lanes in one call, bit-equal to the
+    unsharded operator's lane call (itself bit-equal to single calls,
+    phase 1) and launching the local table's lane kernel."""
     import torch
     from fos_tpu_torch.linalg.dense_pair import PaddedDenseOp
     from fos_tpu_torch.parallel import RowShardedOp, make_mesh
@@ -3468,7 +3498,7 @@ def sharded_ops(dev, mesh, ops, A1, totals):
 
     rng = np.random.default_rng(41)
 
-    def vec(k):
+    def vec(*k):
         return torch.as_tensor(rng.standard_normal(k, dtype=np.float32),
                                device=dev)
 
@@ -3493,78 +3523,112 @@ def sharded_ops(dev, mesh, ops, A1, totals):
         torch.cuda.synchronize()
         create_s = time.perf_counter() - t0
         m, n = op.shape
-        x, y, z = vec(n), vec(m), vec(m)
-        args = {"mv": (x,), "rmv": (y,), "mv_pair": (x, z)}
-        got, launches, secs = {}, {}, 0.0
-        for k in needs:
-            discard_counts()
-            t0 = time.perf_counter()
-            got[k] = _pairs(getattr(sh, k)(*args[k]))
-            torch.cuda.synchronize()
-            secs += time.perf_counter() - t0
-            counts = counted(totals)
-            launches[k] = {kern: counts[kern] for kern in KERNELS_K1_K5}
-        want = {k: _pairs(getattr(op, k)(*args[k])) for k in needs}
-        discard_counts()
-        equal = {k: all(torch.equal(a, b) for a, b in zip(got[k], want[k]))
-                 for k in needs}
         row = {"phase": "sharded_ops", "operator": name,
                "class": type(sh).__name__, "shape": [m, n],
                "route": "cuda kernels per shard, NCCL world size 1",
-               "create_seconds": create_s, "seconds": secs,
-               "bit_equal": equal, "launches": launches}
+               "create_seconds": create_s}
+        for lanes in ((), (LINESEARCH_LANES,)):
+            x, y, z = vec(*lanes, n), vec(*lanes, m), vec(*lanes, m)
+            args = {"mv": (x,), "rmv": (y,), "mv_pair": (x, z)}
+            kern = {k: f"{v}_lanes" if lanes else v for k, v in needs.items()}
+            watch = LANE_KERNELS if lanes else KERNELS_K1_K5
+            got, launches, secs = {}, {}, 0.0
+            for k in needs:
+                discard_counts()
+                t0 = time.perf_counter()
+                got[k] = _pairs(getattr(sh, k)(*args[k]))
+                torch.cuda.synchronize()
+                secs += time.perf_counter() - t0
+                counts = counted(totals)
+                launches[k] = {kk: counts[kk] for kk in watch}
+            want = {k: _pairs(getattr(op, k)(*args[k])) for k in needs}
+            discard_counts()
+            equal = {k: all(torch.equal(a, b)
+                            for a, b in zip(got[k], want[k]))
+                     for k in needs}
+            key = f"lanes_{lanes[0]}_" if lanes else ""
+            row.update({f"{key}seconds": secs, f"{key}bit_equal": equal,
+                        f"{key}launches": launches})
+            if not all(equal.values()) or not all(
+                    launches[k][kern[k]] > 0 for k in needs):
+                emit(row)
+                raise AssertionError(f"sharded_ops: {row}")
         emit(row)
-        if not all(equal.values()) or not all(
-                launches[k][kern] > 0 for k, kern in needs.items()):
-            raise AssertionError(f"sharded_ops: {row}")
 
 
-def sharded_solve(name, eager, form_s, opt, kernel, totals, **opts):
-    """One sharded LP solve (``engine.run``: the eager route, chosen by the
-    sharded operator's type) against phase 5's solve of the same LP on the
-    eager route (``eager``: its ``run_routes`` result and line): status,
-    iterations and bits equal, Optimal within phase 2's objective gate
-    where ``opt`` is given, and ``kernel`` launched by the solve."""
+def sharded_solve(name, form_s, ref, ref_graph_s, opt, kernel, totals,
+                  alg=None, **opts):
+    """One sharded LP solve on the graph route (``engine.run``: the first
+    call captures, the second replays and is timed) against ``ref``, the
+    unsharded solve of the same LP (a ``RunResult``) whose graph route took
+    ``ref_graph_s``: status, iterations and bits equal, Optimal within
+    phase 2's objective gate where ``opt`` is given, ``kernel`` launched by
+    the sharded runs.  Then the sharded form's eager route (the plain
+    version) and its graph route at SHARDED_EAGER_ITERS: status,
+    iterations and bits equal.  ``alg``: DR unless given."""
     import torch
     from fos_tpu_torch import DR, Status
     from fos_tpu_torch.problems.hsde import populate_solution
     from fos_tpu_torch.solvers import engine
 
-    plain, plain_row = eager
+    alg = DR() if alg is None else alg
     discard_counts()
-    sh, sh_s = timed_solve(lambda: engine.run(form_s, DR(), **opts))
+    first, first_s = timed_solve(lambda: engine.run(form_s, alg, **opts))
+    sh, sh_s = timed_solve(lambda: engine.run(form_s, alg, **opts))
     launches = counted(totals)
+    cut = dict(opts, max_iters=min(SHARDED_EAGER_ITERS, opts["max_iters"]))
+    cut_g, cut_g_s = timed_solve(lambda: engine.run(form_s, alg, **cut))
+    counted(totals)
+    cut_e, cut_e_s = timed_solve(lambda: engine._run_eager(form_s, alg,
+                                                           **cut))
+    discard_counts()   # the plain version: a reference
     obj = populate_solution(form_s, sh.guess, sh.status, sh.iters).objval
-    discard_counts()
     rel = None if opt is None else abs(obj - opt) / abs(opt)
-    row = {"phase": name, "route": form_s.route,
+    row = {"phase": name, "route": form_s.route, "alg": type(alg).__name__,
            "operator": type(form_s.A).__name__,
            "status": Status.name(sh.status), "iters": sh.iters,
-           "seconds": sh_s, "iters_per_s": sh.iters / sh_s, "obj": obj,
-           "rel_obj_err": rel,
-           "unsharded": {"route": "eager (phase 5)",
-                         "status": Status.name(plain.status),
-                         "iters": plain.iters,
-                         "seconds": plain_row["seconds"]},
-           "bit_equal": bool(torch.equal(sh.guess, plain.guess)),
-           "launches": {k: launches[k] for k in KERNELS_K1_K5}}
+           "seconds": sh_s, "first_call_seconds": first_s,
+           "iters_per_s": sh.iters / sh_s, "obj": obj, "rel_obj_err": rel,
+           "unsharded": {"route": "graph", "status": Status.name(ref.status),
+                         "iters": ref.iters, "seconds": ref_graph_s},
+           "over_unsharded_graph": sh_s / ref_graph_s,
+           "eager_route_seconds_before": SHARDED_EAGER_S.get(name),
+           "bit_equal": bool(torch.equal(sh.guess, ref.guess)),
+           "first_call_bit_equal": bool(torch.equal(first.guess, sh.guess)),
+           "eager_cut": {"iters": cut["max_iters"],
+                         "status": [Status.name(cut_e.status),
+                                    Status.name(cut_g.status)],
+                         "iters_done": [cut_e.iters, cut_g.iters],
+                         "seconds": [cut_e_s, cut_g_s],
+                         "bit_equal": bool(torch.equal(cut_e.guess,
+                                                       cut_g.guess))},
+           "launches": {k: launches[k] for k in (*KERNELS_K1_K5,
+                                                  *LANE_KERNELS)}}
     emit(row)
-    if (form_s.route != "eager" or sh.status != Status.OPTIMAL
-            or sh.status != plain.status or sh.iters != plain.iters
-            or not row["bit_equal"] or (rel is not None and rel > GATE_OBJ)
-            or not launches[kernel]):
+    if (form_s.route != "graph" or sh.status != ref.status
+            or sh.iters != ref.iters or not row["bit_equal"]
+            or not row["first_call_bit_equal"]
+            or (opt is not None and (sh.status != Status.OPTIMAL
+                                     or rel > GATE_OBJ))
+            or cut_e.status != cut_g.status or cut_e.iters != cut_g.iters
+            or not row["eager_cut"]["bit_equal"] or not launches[kernel]):
         raise AssertionError(f"{name}: {row}")
+    return row
 
 
 def sharded_batched_lp(dev, mesh, totals):
     """sharded_batched_lp_128: batched_lp_128's instances split over the
-    mesh's batch axis (one vote per check, five checks) at a cut budget,
-    against the unsharded batch (graph route): statuses, iterations and
-    objectives equal.  The split batch's instances are dense (B, m, n)
-    stacks in ``torch.bmm``, so it launches none of K1-K5."""
+    mesh's batch axis (one vote per check, five checks) at a cut budget on
+    the graph route (the vote captured in the chunk loop's condition),
+    against the unsharded batch (graph route) and the split batch's eager
+    route: statuses, iterations and bits equal.  Each graph route's second
+    call is timed (the first captures).  The split batch's instances are
+    dense (B, m, n) stacks in ``torch.bmm``, so it launches none of
+    K1-K5."""
     import torch
     from fos_tpu_torch import DR, build_batched_form, nonneg, solve_batched
     from fos_tpu_torch.parallel import shard_batched_form
+    from fos_tpu_torch.parallel.batched import _solve_batched_eager
 
     B, seed = BATCHED_LP_CELLS[0][:2]
     A, b, c = batched_lp(B, seed)
@@ -3573,43 +3637,64 @@ def sharded_batched_lp(dev, mesh, totals):
     form = build_batched_form(A, b, c, nonneg(m), nonneg(n), device=dev)
     opts = dict(max_iters=SHARDED_BATCH_ITERS, eps=GATE_EPS,
                 checki=SHARDED_BATCH_CHECKI)
+    solve_batched(DR(), form, **opts)
     plain, plain_s = timed_solve(lambda: solve_batched(DR(), form, **opts))
     sform = shard_batched_form(form, mesh)
     discard_counts()
+    _, first_s = timed_solve(lambda: solve_batched(DR(), sform, **opts))
     sh, sh_s = timed_solve(lambda: solve_batched(DR(), sform, **opts))
     launches = counted(totals)
+    eager, eager_s = timed_solve(lambda: _solve_batched_eager(DR(), sform,
+                                                              **opts))
+    discard_counts()
 
     def objectives(res):
         g = res.guess.double().cpu().numpy()
         return np.einsum("bn,bn->b", c.astype(np.float64),
                          g[:, :n] / g[:, l - 1:l])
 
+    def same(a, b):
+        return all(bool(torch.equal(getattr(a, k), getattr(b, k)))
+                   for k in ("status", "iters", "guess"))
+
     row = {"phase": "sharded_batched_lp_128", "instances": B,
            "budget": SHARDED_BATCH_ITERS, "checki": SHARDED_BATCH_CHECKI,
            "route": sform.route,
            "statuses": np.bincount(sh.status.cpu().numpy(),
                                    minlength=4).tolist(),
-           "seconds": sh_s,
+           "seconds": sh_s, "first_call_seconds": first_s,
+           "eager_seconds": eager_s,
            "unsharded": {"route": form.route, "seconds": plain_s},
+           "over_unsharded_graph": sh_s / plain_s,
+           "eager_route_seconds_before": SHARDED_EAGER_S[
+               "sharded_batched_lp_128"],
            "status_equal": bool(torch.equal(sh.status, plain.status)),
            "iters_equal": bool(torch.equal(sh.iters, plain.iters)),
            "objectives_equal": bool(np.array_equal(objectives(sh),
                                                    objectives(plain))),
            "bit_equal": bool(torch.equal(sh.guess, plain.guess)),
+           "eager_equal": same(sh, eager),
            "launches": {k: launches[k] for k in KERNELS_K1_K5}}
     emit(row)
-    if not (row["status_equal"] and row["iters_equal"]
-            and row["objectives_equal"]):
+    if not (row["route"] == "graph" and row["status_equal"]
+            and row["iters_equal"] and row["objectives_equal"]
+            and row["bit_equal"] and row["eager_equal"]):
         raise AssertionError(f"sharded_batched_lp_128: {row}")
 
 
-def pipelined_dense_lp(dev, A1, b1, c1, opt1, totals):
+def pipelined_dense_lp(dev, A1, b1, c1, opt1, totals, mesh):
     """pipelined_dense_lp: phase 2's dense LP with ``cg_variant=
     "pipelined"`` (Chronopoulos-Gear CG, K1 through ``pallas=True``) on
     the graph route, to Optimal at eps 1e-5, then phase 2's continuation
-    to eps 1e-6 and its objective gate."""
+    to eps 1e-6 and its objective gate; then the same form row-sharded
+    (``shard_problem_rows``) on the graph route against the unsharded
+    form's graph route (:func:`sharded_solve`)."""
     import torch
     from fos_tpu_torch import DR, nonneg, solve
+    from fos_tpu_torch.parallel import shard_problem_rows
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+    from fos_tpu_torch.solvers import engine
 
     n = A1.shape[0]
     kw = dict(alg=DR(), dtype=torch.float32, pallas=True, device=dev,
@@ -3632,6 +3717,221 @@ def pipelined_dense_lp(dev, A1, b1, c1, opt1, totals):
     if (sol.status != "Optimal" or cont.status != "Optimal"
             or rel > GATE_OBJ):
         raise AssertionError(f"pipelined_dense_lp: {row}")
+
+    def form():
+        return HSDEForm.build(conic_problem(
+            A1, b1, c1, nonneg(n), nonneg(n), device=dev,
+            dtype=torch.float32), pallas=True, cg_variant="pipelined")
+
+    opts = dict(eps=GATE_EPS, max_iters=10000, checki=100, verbose=0)
+    plain_form = form()
+    engine.run(plain_form, DR(), **opts)
+    plain, plain_s = timed_solve(lambda: engine.run(plain_form, DR(),
+                                                    **opts))
+    discard_counts()   # the reference's launches
+    sharded_solve("pipelined_dense_lp_sharded",
+                  shard_problem_rows(form(), mesh), plain, plain_s, None,
+                  "fused_matvec", totals, **opts)
+
+
+def _collectives_counted():
+    """Counts of ``torch.distributed``'s all_gather and all_reduce calls
+    made inside the block (host calls: the eager route's collectives)."""
+    import torch.distributed as dist
+
+    counts = collections.Counter()
+    raw = {k: getattr(dist, k) for k in ("all_gather", "all_reduce")}
+
+    def wrap(name):
+        def call(*a, **k):
+            counts[name] += 1
+            return raw[name](*a, **k)
+        return call
+
+    @contextlib.contextmanager
+    def block():
+        for k in raw:
+            setattr(dist, k, wrap(k))
+        try:
+            yield counts
+        finally:
+            for k, fn in raw.items():
+                setattr(dist, k, fn)
+
+    return block()
+
+
+def sharded_linesearch_banded_lp(dev, mesh, band, lp, totals):
+    """sharded_linesearch_banded_lp: LineSearch(DR) at its default
+    interval on phase 2's banded LP through RowShardedOp, SHARDED_LS_ITERS
+    iterations on the graph route, bit-equal to the unsharded
+    LineSearch(DR) (``wrappers_tile_lp``'s solve) at the same budget, with
+    the same status and iterations, K2 over lanes launched.  Then one
+    line-search step's probe projection run eagerly (``probe_step``):
+    every probe pass is one K2 lane call, one all-gather and one
+    all-reduce (``1 + 2 unroll passes`` of each, no single K2 call), and
+    the probes are bit-equal to the same projection through single calls
+    per lane (``SingleVectorOp``: 31 K2 calls and 31 collectives each way
+    a pass; a reference, its launches discarded)."""
+    import torch
+    from fos_tpu_torch import DR, LineSearchWrapper, Status, nonneg
+    from fos_tpu_torch.parallel import RowShardedOp
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.solvers import engine
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    b, c, _ = lp
+    m, n = band.shape
+
+    def form(op):
+        return HSDEForm.build(conic_problem(
+            op, b, c, nonneg(m), nonneg(n), device=dev, dtype=torch.float32))
+
+    alg = LineSearchWrapper(DR())
+    opts = dict(eps=GATE_EPS, max_iters=SHARDED_LS_ITERS, checki=100,
+                verbose=0)
+    plain, plain_s = timed_solve(lambda: engine.run(form(band), alg, **opts))
+    discard_counts()
+    sform = form(RowShardedOp.create(band, mesh, "model"))
+    sh, sh_s = timed_solve(lambda: engine.run(sform, alg, **opts))
+    launches = counted(totals)
+    # one line-search step's probes, eagerly
+    st, s1, cands = probe_step(sform, alg, alg.lsinterval)
+    discard_counts()
+    with _collectives_counted() as coll:
+        _, probes = sform.sets.s1.project(cands, s1)
+        torch.cuda.synchronize()
+    probe_counts = counted(collections.Counter())
+    unroll = sform.sets.s1.cg_unroll
+    passes = int(-(-probes.last_iters.max() // unroll))
+    implied = 1 + 2 * unroll * passes
+    _, _, bit_equal = probe_projection(sform.sets, s1, cands)
+    discard_counts()
+    row = {"phase": "sharded_linesearch_banded_lp", "route": sform.route,
+           "lsinterval": alg.lsinterval, "budget": SHARDED_LS_ITERS,
+           "status": Status.name(sh.status), "iters": sh.iters,
+           "seconds": sh_s,
+           "unsharded": {"status": Status.name(plain.status),
+                         "iters": plain.iters, "seconds": plain_s},
+           "bit_equal": bool(torch.equal(sh.guess, plain.guess)),
+           "launches": {k: launches[k] for k in ("band_mv_pair",
+                                                  "band_mv_pair_lanes",
+                                                  "band_mv_pair_lanes_sum")},
+           "probe_step": {"probe_cg_iters_max": int(probes.last_iters.max()),
+                          "passes_implied": implied,
+                          "band_mv_pair_lanes": probe_counts[
+                              "band_mv_pair_lanes"],
+                          "band_mv_pair": probe_counts["band_mv_pair"],
+                          "all_gather": coll["all_gather"],
+                          "all_reduce": coll["all_reduce"],
+                          "bit_equal_to_single_calls": bit_equal}}
+    emit(row)
+    p = row["probe_step"]
+    if (sform.route != "graph" or sh.status != plain.status
+            or sh.iters != plain.iters or not row["bit_equal"]
+            or not launches["band_mv_pair_lanes"] or p["band_mv_pair"]
+            or not (implied == p["band_mv_pair_lanes"] == p["all_gather"]
+                    == p["all_reduce"]) or not bit_equal):
+        raise AssertionError(f"sharded_linesearch_banded_lp: {row}")
+
+
+def sharded_linesearch_batched_lp(dev, mesh, totals):
+    """sharded_linesearch_batched_lp_128: LineSearch(DR) (an interval of
+    SHARDED_BATCH_LS_INTERVAL) on batched_lp_128's instances through
+    ``shard_batched_form_rows`` (instances over the batch axis, each A's
+    rows over the model axis: the probes (128, 31, k) through
+    BatchedRowShardedDense), SHARDED_BATCH_ITERS iterations on the graph
+    route, against the unsharded batched line search: statuses,
+    iterations and bits equal."""
+    import torch
+    from fos_tpu_torch import (DR, LineSearchWrapper, build_batched_form,
+                               nonneg, solve_batched)
+    from fos_tpu_torch.parallel import shard_batched_form_rows
+
+    B, seed = BATCHED_LP_CELLS[0][:2]
+    A, b, c = batched_lp(B, seed)
+    m, n = BATCHED_LP_SHAPE
+    form = build_batched_form(A, b, c, nonneg(m), nonneg(n), device=dev)
+    alg = LineSearchWrapper(DR(), lsinterval=SHARDED_BATCH_LS_INTERVAL)
+    opts = dict(max_iters=SHARDED_BATCH_ITERS, eps=GATE_EPS,
+                checki=SHARDED_BATCH_CHECKI)
+    plain, plain_s = timed_solve(lambda: solve_batched(alg, form, **opts))
+    sform = shard_batched_form_rows(form, mesh)
+    discard_counts()
+    sh, sh_s = timed_solve(lambda: solve_batched(alg, sform, **opts))
+    launches = counted(totals)
+    row = {"phase": "sharded_linesearch_batched_lp_128", "instances": B,
+           "route": sform.route, "operator": type(sform.A).__name__,
+           "lsinterval": alg.lsinterval, "budget": SHARDED_BATCH_ITERS,
+           "checki": SHARDED_BATCH_CHECKI,
+           "statuses": np.bincount(sh.status.cpu().numpy(),
+                                   minlength=4).tolist(),
+           "seconds_with_capture": sh_s,
+           "unsharded": {"route": form.route,
+                         "seconds_with_capture": plain_s},
+           "probe_calls": int(sh.state.s1_state.call_idx.max()),
+           "bit_equal": all(bool(torch.equal(getattr(sh, k),
+                                             getattr(plain, k)))
+                            for k in ("status", "iters", "guess")),
+           "cg_continue_lanes": launches["cg_continue_lanes"]}
+    emit(row)
+    if not (row["route"] == "graph" and row["bit_equal"]):
+        raise AssertionError(f"sharded_linesearch_batched_lp_128: {row}")
+
+
+def nccl_collective_us(dev):
+    """nccl_collective_us: the device time of one collective on the graph
+    route, at the sharded LPs' vector sizes (32768: the banded LP's y;
+    1000: the dense LP's): COLLECTIVE_PASSES passes of a WHILE node, each
+    an all-reduce (or a gather, ``sharding.gather``) of one vector,
+    replayed from a captured graph and timed by CUDA events, less the same
+    loop with a copy in place of the collective (the pass's own cost),
+    over the passes; beside the host time of the same collective called
+    eagerly (wall time of COLLECTIVE_PASSES calls and a synchronise)."""
+    import torch
+    import torch.distributed as dist
+    from fos_tpu_torch.linalg import control
+    from fos_tpu_torch.parallel.sharding import all_reduce, connect, gather
+    from fos_tpu_torch.solvers import graphs
+
+    group = dist.group.WORLD
+    connect([group], torch.zeros(1, device=dev))
+    bodies = {"copy": lambda v: v.clone(),
+              "all_reduce": lambda v: all_reduce(v.clone(), group),
+              "all_gather": lambda v: gather(v, [group])}
+    row = {"phase": "nccl_collective_us", "passes": COLLECTIVE_PASSES}
+    for size in (32768, 1000):
+        x0 = torch.ones(size, dtype=torch.float32, device=dev)
+        per = {}
+        for name, body in bodies.items():
+            cap = graphs.Captured(lambda x, body=body: (control.fori_loop(
+                COLLECTIVE_PASSES, lambda k, v: body(v), x),), (x0,))
+            try:
+                cap(x0)
+                torch.cuda.synchronize()
+                with graphs.replay_spans() as spans:
+                    for _ in range(5):
+                        cap(x0)
+                    torch.cuda.synchronize()
+                per[name] = min(a.elapsed_time(b) for a, b in spans) * 1e3
+            finally:
+                cap.release()
+        eager = {}
+        for name in ("all_reduce", "all_gather"):
+            body = bodies[name]
+            body(x0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(COLLECTIVE_PASSES):
+                body(x0)
+            torch.cuda.synchronize()
+            eager[name] = (time.perf_counter() - t0) * 1e6 / COLLECTIVE_PASSES
+        row[str(size)] = {
+            "graph_us": {k: (per[k] - per["copy"]) / COLLECTIVE_PASSES
+                         for k in ("all_reduce", "all_gather")},
+            "pass_with_copy_us": per["copy"] / COLLECTIVE_PASSES,
+            "eager_call_us": eager}
+    emit(row)
 
 
 def nccl_capture_probe(dev):
@@ -3677,12 +3977,13 @@ def nccl_capture_probe(dev):
         raise AssertionError(f"nccl_capture_probe: {row}")
 
 
-def sharding_phase(dev, band, ell, lps, A1, b1, c1, opt1, eager):
+def sharding_phase(dev, band, ell, lps, A1, b1, c1, opt1, ref):
     """Phase 10 (this slice's path): sharding on one NCCL group of world
     size 1, in this process.  ``lps`` are phase 2's banded LP's (b, c,
-    optimum), ``eager`` phase 5's eager solves of the banded and dense LPs
-    (``run_routes``' results by path).  Returns the device's launch counts
-    over the phase."""
+    optimum), ``ref`` phase 5's solves of the banded and dense LPs by path
+    (``run_routes``' eager result and line: the eager route's bits, which
+    phase 5 gates equal to its graph route's, and the graph route's
+    seconds).  Returns the device's launch counts over the phase."""
     import os
 
     import torch
@@ -3706,6 +4007,7 @@ def sharding_phase(dev, band, ell, lps, A1, b1, c1, opt1, eager):
         mesh = make_mesh((1, 1), ("batch", "model"), device=dev)
         emit({"phase": "sharding_group", "backend": dist.get_backend(),
               "world_size": dist.get_world_size(),
+              "nccl": ".".join(map(str, torch.cuda.nccl.version())),
               "mesh": {"shape": list(mesh.mesh.shape),
                        "names": list(mesh.mesh_dim_names)}})
 
@@ -3714,6 +4016,12 @@ def sharding_phase(dev, band, ell, lps, A1, b1, c1, opt1, eager):
                 A, b, c, nonneg(A.shape[0]), nonneg(A.shape[1]), device=dev,
                 dtype=torch.float32), **kw)
 
+        def against_phase5(name, path, form_s, opt, kernel):
+            eager, out = ref[path]
+            return sharded_solve(name, form_s, eager,
+                                 out["graph"]["seconds"], opt, kernel,
+                                 totals, **opts)
+
         b_band, c_band, opt_band = lps
         # phase 5's routes: eps, budget and check interval
         opts = dict(eps=GATE_EPS, max_iters=10000, checki=100, verbose=0)
@@ -3721,19 +4029,25 @@ def sharding_phase(dev, band, ell, lps, A1, b1, c1, opt1, eager):
             ("sharded_ops", lambda: sharded_ops(
                 dev, mesh, (("banded", band), ("scattered", ell)), A1,
                 totals)),
-            ("sharded_banded_lp", lambda: sharded_solve(
-                "sharded_banded_lp", eager["banded_lp"],
+            ("sharded_banded_lp", lambda: against_phase5(
+                "sharded_banded_lp", "banded_lp",
                 lp_form(RowShardedOp.create(band, mesh, "model"), b_band,
-                        c_band), opt_band, "band_mv_pair", totals, **opts)),
-            ("sharded_rows_dense_lp", lambda: sharded_solve(
-                "sharded_rows_dense_lp", eager["dense_lp"],
+                        c_band), opt_band, "band_mv_pair")),
+            ("sharded_rows_dense_lp", lambda: against_phase5(
+                "sharded_rows_dense_lp", "dense_lp",
                 shard_problem_rows(lp_form(A1, b1, c1, pallas=True), mesh),
-                None, "fused_matvec", totals, **opts)),
+                None, "fused_matvec")),
             ("sharded_batched_lp_128", lambda: sharded_batched_lp(
                 dev, mesh, totals)),
             ("pipelined_dense_lp", lambda: pipelined_dense_lp(
-                dev, A1, b1, c1, opt1, totals)),
-            ("nccl_capture_probe", lambda: nccl_capture_probe(dev)))
+                dev, A1, b1, c1, opt1, totals, mesh)),
+            ("sharded_linesearch_banded_lp",
+             lambda: sharded_linesearch_banded_lp(dev, mesh, band, lps,
+                                                  totals)),
+            ("sharded_linesearch_batched_lp_128",
+             lambda: sharded_linesearch_batched_lp(dev, mesh, totals)),
+            ("nccl_capture_probe", lambda: nccl_capture_probe(dev)),
+            ("nccl_collective_us", lambda: nccl_collective_us(dev)))
         for _, cell in cells:
             cell()
             clock.append(time.perf_counter())
@@ -4294,7 +4608,7 @@ def main() -> int:
     for name, make_form, eps, iters in paths:
         out, eager = run_routes(name, make_form, initial, eps, iters)
         if name in ("dense_lp", "banded_lp"):
-            eager_lps[name] = (eager, out["eager"])
+            eager_lps[name] = (eager, out)
     for name, make_form, eps, _ in paths:
         # eps = 0 keeps the feasibility solves running all PROFILE_ITERS
         profile_routes(name, make_form, eps if "lp" in name else 0.0)
@@ -4405,9 +4719,10 @@ def main() -> int:
                                   A1, b1, c1, opt1, eager_lps)
     for name in kernels:
         kernels[name]["launches_phase10"] = shard_counts[name]
-    if not all(shard_counts[k] for k in KERNELS_K1_K5):
-        raise AssertionError(f"phase 10 did not launch K1-K5: "
-                             f"{dict(shard_counts)}")
+    if not all(shard_counts[k] for k in (*KERNELS_K1_K5,
+                                         "band_mv_pair_lanes")):
+        raise AssertionError(f"phase 10 did not launch K1-K5 and K2 over "
+                             f"lanes: {dict(shard_counts)}")
 
     clock.append(("end", time.perf_counter()))
     emit({"phase": "timing", "seconds": {

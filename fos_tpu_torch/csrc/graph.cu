@@ -17,6 +17,8 @@
 //                         captured so far, its body then captured on another
 //                         stream (cudaStreamBeginCaptureToGraph);
 //   fos_graph_cond_close  the end of the body's capture;
+//   fos_graph_capture_abort  the end of a capture (a graph's or a body's)
+//                         abandoned after an error, never instantiated;
 //   fos_stream_create     a stream of the library's own to capture on.
 // Condition kernels, one thread each, read device scalars and set the
 // handle: the value a WHILE node tests before each pass of its body, or
@@ -175,6 +177,20 @@ int fos_graph_cond_close(const long long* slots) {
   const Record a{slots};
   cudaGraph_t body;
   return (int)cudaStreamEndCapture(a.stream(0), &body);
+}
+
+// Record: 0 stream (capturing).  Ends the capture after an error and
+// returns its error (an invalidated capture's), which it also clears from
+// the runtime's last error, so that the next launch does not report it.
+// What the capture made is left undestroyed: cudaGraphDestroy of a graph
+// whose conditional node lost its body's capture segfaults (CUDA 12.8,
+// H100), and a failed capture is rare.
+int fos_graph_capture_abort(const long long* slots) {
+  const Record a{slots};
+  cudaGraph_t graph = nullptr;
+  cudaError_t e = cudaStreamEndCapture(a.stream(0), &graph);
+  (void)cudaGetLastError();
+  return (int)e;
 }
 
 // Record: 0 host address of a cudaStream_t that receives a new

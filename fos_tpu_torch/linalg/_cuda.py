@@ -172,7 +172,8 @@ ENTRY_POINTS = ("fos_dense_pair", "fos_dense_pair_lanes", "fos_band_pair",
                 "fos_band_pair_lanes", "fos_bell_pair_lanes",
                 "fos_band_mv_lanes", "fos_bell_mv_lanes", "fos_probe_tiny",
                 "fos_probe_prefetch", "fos_graph_handle", "fos_graph_cond_open",
-                "fos_graph_cond_close", "fos_stream_create", "fos_cg_continue",
+                "fos_graph_cond_close", "fos_graph_capture_abort",
+                "fos_stream_create", "fos_cg_continue",
                 "fos_cg_continue_lanes", "fos_count_continue", "fos_flag_continue",
                 "fos_pair_launch_counts", "fos_tile_mv_launch_counts",
                 "fos_graph_launch_counts", "fos_pair_lanes_occupancy",
@@ -448,6 +449,15 @@ def cond_open(stream: int, body_stream: int, handle: int, kind: int) -> None:
 def cond_close(body_stream: int) -> None:
     """End the capture of a conditional node's body."""
     _record_call("fos_graph_cond_close", body_stream)
+
+
+def capture_abort(stream: int) -> int:
+    """End ``stream``'s capture (a graph's or a conditional body's) after
+    an error, without instantiating what it captured; returns the CUDA
+    error code (an invalidated capture's, or 0), cleared from the
+    runtime's last error."""
+    rec = (ctypes.c_longlong * 1)(stream)
+    return library().fos_graph_capture_abort(ctypes.addressof(rec))
 
 
 def stream_create() -> int:

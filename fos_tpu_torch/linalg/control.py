@@ -237,8 +237,7 @@ class _Captured:
                 if loop:
                     test().launch(handle)
         except BaseException:
-            with contextlib.suppress(RuntimeError):
-                _cuda.cond_close(body.cuda_stream)
+            _cuda.capture_abort(body.cuda_stream)
             raise
         else:
             _cuda.cond_close(body.cuda_stream)

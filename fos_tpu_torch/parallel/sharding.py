@@ -24,12 +24,25 @@ operator makes the collectives itself:
   :func:`fos_tpu_torch.parallel.batched.solve_batched` returns the whole
   batch on every rank.
 
+Every product takes the line search's lane axis in one call (``(L, k)``
+vectors, and ``(B, P, k)`` for a batch's candidates): the local kernels'
+lane versions, then one collective per direction and axis, as for one
+vector (the JAX package's ``vmap`` over ``shard_map``).  A lane's bits are
+a single call's wherever the collectives' arithmetic does not depend on
+the buffer's length: the gathers always, an all-reduce over one or two
+ranks (a sum of two is the same either way round); over more ranks a
+ring all-reduce orders each element's additions by its offset in the
+buffer, so a lane agrees with a single call to rounding.
+
 The iterate, b, c and the scaling vectors stay replicated: every rank runs
 the same solver steps on the same data, and the reductions give every rank
 the same bits (a ring all-reduce hands each rank the same sums), so the
-ranks take the same branches.  A sharded form runs the eager route on the
-card, a choice made by its operator's type (:attr:`sharded`): the
-collectives are host calls there, not captured into the solver's graphs.
+ranks take the same branches.  On the card a sharded form whose groups
+are NCCL runs the graph route (``HSDEForm.graph_route``): the collectives
+are captured into the solver's CUDA graphs, inside their conditional
+nodes, which stay in lockstep across ranks because every loop's condition
+is computed from replicated or all-reduced values (CG's residual, the
+split batch's vote).
 
 The process group comes from ``torchrun``'s environment or from a default
 group the caller initialised; the mesh uses NCCL on the card and gloo on
@@ -46,7 +59,7 @@ import torch
 import torch.distributed as dist
 
 from fos_tpu_torch.config import as_tensor, default_device
-from fos_tpu_torch.linalg import control
+from fos_tpu_torch.linalg import control, hsde_ops
 from fos_tpu_torch.linalg.dense_pair import PaddedDenseOp
 
 # ------------------------------------------------------------------ meshes
@@ -105,6 +118,8 @@ class _Axes:
             self.index = self.index * s + mesh.get_local_rank(a)
         self.product = (self.groups[0] if len(dims) == 1
                         else _product_group(mesh, dims))
+        #: every group a product over these axes uses
+        self.used = (*self.groups, self.product)
 
 
 def _product_group(mesh, dims):
@@ -137,9 +152,22 @@ def gather(t, groups, dim=-1):
 
 
 def all_reduce(t, group):
-    """``t`` summed over ``group`` (one all-reduce, in place)."""
+    """``t`` summed over ``group`` (one all-reduce, in place on ``t`` or on
+    its contiguous copy: a collective reduces a tensor's storage in
+    order)."""
+    t = t.contiguous()
     dist.all_reduce(t, group=group)
     return t
+
+
+def connect(groups, like) -> None:
+    """One small all-reduce on each of ``groups``, eagerly, before a
+    capture: NCCL makes a group's communicator at its first collective,
+    which must not fall inside a CUDA-graph capture.  Every rank prepares
+    the same captures in the same order, so the ranks stay in step."""
+    one = torch.zeros(1, dtype=like.dtype, device=like.device)
+    for g in dict.fromkeys(groups):
+        dist.all_reduce(one, group=g)
 
 
 def _rows(v, k, per, dim=-1):
@@ -170,10 +198,16 @@ class RowShardedOp:
     * ``mv_pair``: K2/K3 on the local A table (the local rows of z), then
       the gathers of y1 and one all-reduce of the partial A'z over every
       axis of ``axis``.
+
+    Each takes ``(L, k)`` vectors in one call: the local table's lane
+    kernels (K2-K5 over lanes), then the same collectives over ``(L, .)``.
     """
 
-    #: its collectives run on the host: solves run the eager route
+    #: its products make collectives (:mod:`fos_tpu_torch.parallel`)
     sharded = True
+    #: ``mv_pair`` and ``mv`` / ``rmv`` take (L, k) vectors
+    #: (:mod:`fos_tpu_torch.linalg.hsde_ops`)
+    pair_lanes = mv_lanes = True
 
     def __init__(self, local, local_t, m, n, axes: _Axes):
         self.local = local        # this rank's block rows of A
@@ -206,19 +240,21 @@ class RowShardedOp:
     shape = property(lambda self: (self.m, self.n))
     dtype = property(lambda self: self.local.dtype)
     device = property(lambda self: self.local.device)
+    #: the process groups its products use
+    groups = property(lambda self: self.axes.used)
 
     def mv(self, x):
-        return gather(self.local.mv(x), self.axes.groups)[: self.m]
+        return gather(self.local.mv(x), self.axes.groups)[..., : self.m]
 
     def rmv(self, y):
         if self.local_t is None:
             raise self.local._no_transpose_table()
-        return gather(self.local_t.mv(y), self.axes.groups)[: self.n]
+        return gather(self.local_t.mv(y), self.axes.groups)[..., : self.n]
 
     def mv_pair(self, x, z):
         y1, y2 = self.local.mv_pair(
             x, _rows(z, self.axes.index, self.local.m))
-        return (gather(y1, self.axes.groups)[: self.m],
+        return (gather(y1, self.axes.groups)[..., : self.m],
                 all_reduce(y2, self.axes.product))
 
     def todense(self):
@@ -242,10 +278,12 @@ def _dense(A):
 class DenseRowShardedOp:
     """A dense A whose rows are split over one mesh axis: each rank holds
     rows ``[k p, (k + 1) p)`` of A zero-padded to a multiple of the axis
-    size.  ``mv_pair`` runs the local block's pair (K1), gathers y1 and
-    all-reduces the partial A'z: one all-gather and one all-reduce."""
+    size.  ``mv_pair`` runs the local block's pair (K1; over ``(L, k)``
+    lanes, K1's lane kernel), gathers y1 and all-reduces the partial A'z:
+    one all-gather and one all-reduce."""
 
     sharded = True
+    pair_lanes = True
 
     def __init__(self, block, m, n, axes: _Axes):
         self.block = PaddedDenseOp.create(block)   # K1 on the card
@@ -263,11 +301,12 @@ class DenseRowShardedOp:
     shape = property(lambda self: (self.m, self.n))
     dtype = property(lambda self: self.block.dtype)
     device = property(lambda self: self.block.device)
+    groups = property(lambda self: self.axes.used)
 
     def mv_pair(self, x, z):
         y1, y2 = self.block.mv_pair(x, _rows(z, self.axes.index,
                                              self.block.m))
-        return (gather(y1, self.axes.groups)[: self.m],
+        return (gather(y1, self.axes.groups)[..., : self.m],
                 all_reduce(y2, self.axes.product))
 
     def todense(self):
@@ -281,9 +320,11 @@ class Dense2DShardedOp:
     rank holds block ``(i, j)`` of A zero-padded to multiples of R and C.
     ``mv_pair`` runs the block's pair (K1) on x's j-th and z's i-th slice,
     then all-reduces y1 over ``c`` and gathers it over ``r``, and
-    all-reduces y2 over ``r`` and gathers it over ``c``."""
+    all-reduces y2 over ``r`` and gathers it over ``c``; over ``(L, k)``
+    lanes, K1's lane kernel and the same collectives."""
 
     sharded = True
+    pair_lanes = True
 
     def __init__(self, block, m, n, row: _Axes, col: _Axes):
         self.block = PaddedDenseOp.create(block)   # K1 on the card
@@ -302,13 +343,14 @@ class Dense2DShardedOp:
     shape = property(lambda self: (self.m, self.n))
     dtype = property(lambda self: self.block.dtype)
     device = property(lambda self: self.block.device)
+    groups = property(lambda self: self.row.used + self.col.used)
 
     def mv_pair(self, x, z):
         y1, y2 = self.block.mv_pair(_rows(x, self.col.index, self.block.n),
                                     _rows(z, self.row.index, self.block.m))
         y1 = gather(all_reduce(y1, self.col.product), self.row.groups)
         y2 = gather(all_reduce(y2, self.row.product), self.col.groups)
-        return y1[: self.m], y2[: self.n]
+        return y1[..., : self.m], y2[..., : self.n]
 
     def todense(self):
         """The whole A on every rank (a gather over each axis; a direct
@@ -352,7 +394,9 @@ class BatchShard(NamedTuple):
     def vote(self, status):
         """The chunk loop's status: one all-reduce over the batch's group
         of whether any local instance continues, so every rank runs the
-        same number of chunks."""
+        same number of chunks.  On the device, with no host read: captured,
+        it sets the chunk loop's condition (the WHILE node's
+        ``count_continue``) on every rank from the same reduced value."""
         from fos_tpu_torch.solvers.status import Status
 
         live = (status == Status.CONTINUE).any().to(torch.int32).reshape(1)
@@ -381,11 +425,16 @@ class BatchShard(NamedTuple):
 
 class BatchedRowShardedDense:
     """Each instance's dense A (a ``(B, m, n)`` stack) split by rows over
-    one mesh axis; ``mv_pair`` takes the lane axis in one call (one
-    ``torch.bmm`` each way), gathers y1 and all-reduces the partial A'z."""
+    one mesh axis.  ``mv_pair`` takes the lanes in one call, as the
+    unsharded batched A does (:mod:`fos_tpu_torch.linalg.hsde_ops`): the
+    instances' vectors ``(B, k)`` (one ``torch.bmm`` each way) or each
+    instance's candidates ``(B, P, k)`` (a batched line search's probes:
+    one ``torch.matmul`` each way), one ``torch.matmul`` for a block that
+    every instance shares through a stride-0 batch axis; then it gathers
+    y1 and all-reduces the partial A'z."""
 
     sharded = True
-    #: ``mv_pair`` takes (B, k) vectors (:mod:`fos_tpu_torch.linalg.hsde_ops`)
+    #: ``mv_pair`` takes (B, k) and (B, P, k) vectors
     pair_lanes = True
 
     def __init__(self, block, m, n, axes: _Axes):
@@ -396,11 +445,12 @@ class BatchedRowShardedDense:
     shape = property(lambda self: (self.block.shape[0], self.m, self.n))
     dtype = property(lambda self: self.block.dtype)
     device = property(lambda self: self.block.device)
+    groups = property(lambda self: self.axes.used)
 
     def mv_pair(self, x, z):
         z_loc = _rows(z, self.axes.index, self.block.shape[1])
-        y1 = torch.bmm(self.block, x[..., None])[..., 0]
-        y2 = torch.bmm(self.block.transpose(1, 2), z_loc[..., None])[..., 0]
+        y1 = hsde_ops.mv(self.block, x)
+        y2 = hsde_ops.rmv(self.block, z_loc)
         return (gather(y1, self.axes.groups)[..., : self.m],
                 all_reduce(y2, self.axes.product))
 
@@ -433,6 +483,11 @@ def shard_batched_form_rows(form, mesh, batch_axis: str = "batch",
                          "a dense (B, m, n) A")
     axes = _Axes(mesh, model_axis)
     B, m, n = A.shape
-    block = _rows(A, axes.index, -(-m // axes.size), dim=1).contiguous()
+    per = -(-m // axes.size)
+    if A.stride(0) == 0:   # one matrix shared by every instance stays one
+        block = _rows(A[0], axes.index, per, dim=0).contiguous().expand(
+            B, per, n)
+    else:
+        block = _rows(A, axes.index, per, dim=1).contiguous()
     return local.with_operator(BatchedRowShardedDense(block, m, n, axes))
 

@@ -20,6 +20,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fos_tpu_torch.config import eps_of
 from fos_tpu_torch.cones.project import resolve_psd_method
@@ -258,13 +259,33 @@ class HSDEForm:
                 else self.batch_shard.vote(status))
 
     @property
+    def groups(self) -> tuple:
+        """The process groups of a sharded solve's collectives (its
+        operator's and the split batch's vote), or ``()``."""
+        groups = tuple(getattr(self.A, "groups", ()))
+        if self.batch_shard is not None:
+            groups += (self.batch_shard.group,)
+        return groups
+
+    @property
     def graph_route(self) -> bool:
         """Whether the engine may run this form as captured CUDA graphs:
         not with PSD blocks projected by ``torch.linalg.eigh``, whose
-        capture the card refuses (the stream capture is invalidated), and
-        not across ranks, whose collectives are host calls.  Decided when
-        the form is built, never by a failed capture."""
-        return self.psd_method != "eigh" and not self.sharded
+        capture the card refuses (the stream capture is invalidated), and,
+        across ranks, only when every group is NCCL (its collectives are
+        captured with the chunk; a gloo group's are host calls).  Decided
+        when the form is built, never by a failed capture.
+
+        Captured, each rank replays its own graph, and a collective inside
+        a conditional node's body runs once per pass of that node on every
+        rank only if every rank takes the same number of passes: the ranks
+        stay in lockstep because every loop condition is computed from
+        values that are replicated or all-reduced, so every rank holds the
+        same bits (CG's residual, the split batch's vote)."""
+        if self.psd_method == "eigh":
+            return False
+        return not self.sharded or all(
+            dist.get_backend(g) == "nccl" for g in self.groups)
 
     @property
     def route(self) -> str:
@@ -283,9 +304,15 @@ class HSDEForm:
 
     def prepare(self, like):
         """Copy what the step and the check copy from the host on first use
-        (the cone projections' tables) before a CUDA graph is captured."""
+        (the cone projections' tables), and connect a sharded solve's
+        groups (:func:`fos_tpu_torch.parallel.sharding.connect`), before a
+        CUDA graph is captured."""
         from fos_tpu_torch.cones.project import prepare
 
+        if self.sharded:
+            from fos_tpu_torch.parallel.sharding import connect
+
+            connect(self.groups, like)
         self.sets.s2.prepare(like)
         if self.strict_certificates and self.K2_spec is not None:
             prepare(self.K2_spec.dual(), like)

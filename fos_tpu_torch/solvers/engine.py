@@ -261,8 +261,10 @@ def _run(form, alg, eager, initx, init_duration, resume_state, options):
 
 def _graphable(form) -> bool:
     """A form that cannot be captured (``graph_route`` False: PSD blocks
-    projected by eigh) runs eagerly on the card too, a choice made when the
-    form was built."""
+    projected by eigh, a sharded solve over groups that are not NCCL) runs
+    eagerly on the card too, a choice made when the form was built.  A
+    sharded form over NCCL groups is captured with its collectives inside
+    the chunk; its capture, like any other, raises when it fails."""
     return getattr(form, "graph_route", True)
 
 

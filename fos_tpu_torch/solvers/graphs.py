@@ -20,7 +20,8 @@ CG's data-dependent stops included, with no host work between kernels.
 * Capture runs on a stream of the library's own, in a private memory pool;
   the bodies of conditional nodes capture on other streams (one per
   nesting level), whose allocations go to a second private pool of the
-  same graph.  A failed capture raises: nothing carries on eagerly.
+  same graph.  A failed capture raises: nothing carries on eagerly, and
+  nothing it captured is instantiated (:meth:`Captured._abandon`).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import contextlib
 
 import torch
 
-from fos_tpu_torch.linalg import control
+from fos_tpu_torch.linalg import _cuda, control
 
 #: nesting levels whose streams are warmed (cuBLAS handle, workspace) before
 #: a first capture: the chunk loop, the step loop, CG, and a branch in a step
@@ -109,7 +110,8 @@ class Captured:
         stream = control.side_stream(device, 0)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            self.graph.capture_begin(pool=torch.cuda.graph_pool_handle())
+            pool = torch.cuda.graph_pool_handle()
+            self.graph.capture_begin(pool=pool)
             _route_bodies(device, self.body_pool)
             try:
                 out = fn(*self.args)
@@ -117,14 +119,26 @@ class Captured:
                     control.assign(self.args[0], out[0])
                     out = (self.args[0], *out[1:])
             except BaseException:
-                torch._C._cuda_endAllocateToPool(device.index, self.body_pool)
-                with contextlib.suppress(RuntimeError):
-                    self.graph.capture_end()
+                self._abandon(stream, pool)
                 raise
             torch._C._cuda_endAllocateToPool(device.index, self.body_pool)
             self.graph.capture_end()
         torch.cuda.current_stream(device).wait_stream(stream)
         self.out = out
+
+    def _abandon(self, stream, pool) -> None:
+        """After an error in ``fn``: end the capture without instantiating
+        what it made (a graph whose conditional node lost its body's
+        capture segfaults when instantiated or destroyed), free
+        both pools and drop the graph object, which never ended its
+        capture."""
+        index = self.device.index
+        torch._C._cuda_endAllocateToPool(index, self.body_pool)
+        _cuda.capture_abort(stream.cuda_stream)
+        torch._C._cuda_endAllocateToPool(index, pool)
+        torch._C._cuda_releasePool(index, pool)
+        torch._C._cuda_releasePool(index, self.body_pool)
+        self.graph = self.args = None
 
     def __call__(self, *args):
         if signature(args) != self.signature:
@@ -146,7 +160,8 @@ class Captured:
         return self.out
 
     def release(self) -> None:
-        """Free the graph and its memory pools."""
+        """Free the graph and its memory pools (an abandoned capture freed
+        its own)."""
         if self.graph is None:
             return
         self.graph.reset()
@@ -154,8 +169,10 @@ class Captured:
         torch._C._cuda_releasePool(self.device.index, self.body_pool)
 
     def __del__(self):
-        with contextlib.suppress(Exception):
+        try:
             self.release()
+        except Exception:   # noqa: BLE001 - a finaliser, at exit too
+            pass
 
 
 def cached(owner, key, make) -> Captured:

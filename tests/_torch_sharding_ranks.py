@@ -50,6 +50,47 @@ class Counted:
             setattr(dist, name, fn)
 
 
+class Lockstep:
+    """What a rank's solve did inside ``with``, for the lockstep check:
+    each S1 projection's CG iterations (one per lane), and the numbers of
+    checks (chunks) and votes."""
+
+    def __enter__(self):
+        from fos_tpu_torch.linalg.affine import HSDEAffineProjector
+        from fos_tpu_torch.parallel.sharding import BatchShard
+        from fos_tpu_torch.problems.hsde import HSDEForm
+
+        self.rec = {"cg": [], "checks": 0, "votes": 0}
+        self.raw = [(HSDEAffineProjector, "project"), (HSDEForm, "check"),
+                    (BatchShard, "vote")]
+        self.raw = [(cls, name, getattr(cls, name)) for cls, name in self.raw]
+        rec = self.rec
+        (_, _, project), (_, _, check), (_, _, vote) = self.raw
+
+        def projected(proj, z, cg):
+            out, st = project(proj, z, cg)
+            rec["cg"].append(tuple(np.atleast_1d(host(st.last_iters))
+                                   .reshape(-1).tolist()))
+            return out, st
+
+        def checked(form, *a, **k):
+            rec["checks"] += 1
+            return check(form, *a, **k)
+
+        def voted(shard, status):
+            rec["votes"] += 1
+            return vote(shard, status)
+
+        HSDEAffineProjector.project = projected
+        HSDEForm.check = checked
+        BatchShard.vote = voted
+        return rec
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.raw:
+            setattr(cls, name, fn)
+
+
 def host(t):
     return t.detach().cpu().numpy().copy()
 
@@ -289,6 +330,159 @@ def hybrid_validation(inp):
             "A_shape": tuple(sh.A.shape)}
 
 
+def _lane_calls(op, calls, L, rng, dtype):
+    """Each of ``calls`` (``mv``, ``rmv``, ``mv_pair``) on ``(L, k)`` lanes
+    against a single call per lane: whether every output is bit-equal, the
+    largest difference relative to the output's largest entry, the
+    collectives of the lane call, and the lane call's outputs."""
+    m, n = op.shape
+    X, Y, Z = (torch.as_tensor(rng.standard_normal((L, k)).astype(dtype))
+               for k in (n, m, m))
+    args = {"mv": (X,), "rmv": (Y,), "mv_pair": (X, Z)}
+    out = {}
+    for name in calls:
+        with Counted() as counts:
+            got = getattr(op, name)(*args[name])
+        got = got if isinstance(got, tuple) else (got,)
+        ones = [getattr(op, name)(*(a[j] for a in args[name]))
+                for j in range(L)]
+        ones = [o if isinstance(o, tuple) else (o,) for o in ones]
+        want = [torch.stack([o[i] for o in ones]) for i in range(len(got))]
+        out[name] = {
+            "bit_equal": [bool(torch.equal(g, w)) for g, w in zip(got, want)],
+            "rel_diff": [float((g - w).abs().max() / w.abs().max())
+                         for g, w in zip(got, want)],
+            "counts": dict(counts), "lanes": [host(g) for g in got]}
+    return out
+
+
+def sharded_lanes(inp):
+    """The sharded operators on (L, k) lanes, L = 1, 3, 31: RowShardedOp
+    over both layouts on the 1x4 mesh (block rows 4 ways), over the 2x2
+    mesh's model axis (2 ways) and over its ("batch", "model") product (4
+    ways, hierarchical); DenseRowShardedOp on both meshes;
+    Dense2DShardedOp on the 2x2 mesh; and hsde_ops' products of the
+    line search's 31 probes, one collective each way."""
+    import scipy.sparse as sp
+
+    from fos_tpu_torch.linalg import hsde_ops
+    from fos_tpu_torch.linalg.sparse_ell import BandedBlockOp, BlockedEllOp
+    from fos_tpu_torch.parallel import RowShardedOp, make_mesh
+    from fos_tpu_torch.parallel.sharding import (Dense2DShardedOp,
+                                                 DenseRowShardedOp)
+
+    flat = make_mesh((1, 4), ("batch", "model"), device="cpu")
+    square = make_mesh((2, 2), ("batch", "model"), device="cpu")
+    A = sp.csr_matrix(inp["A"])
+    D = torch.as_tensor(inp["dense"])
+    ops = []
+    for cls in (BandedBlockOp, BlockedEllOp):
+        op = cls.create(A, transpose_table=True, device="cpu")
+        for mesh, axis, key in ((flat, "model", "flat"),
+                                (square, "model", "model2"),
+                                (square, ("batch", "model"), "product")):
+            ops.append((f"{cls.__name__}_{key}",
+                        RowShardedOp.create(op, mesh, axis),
+                        ("mv", "rmv", "mv_pair"), np.float32))
+    ops += [("DenseRow_flat", DenseRowShardedOp.create(D, flat, "model"),
+             ("mv_pair",), np.float64),
+            ("DenseRow_model2", DenseRowShardedOp.create(D, square, "model"),
+             ("mv_pair",), np.float64),
+            ("Dense2D", Dense2DShardedOp.create(D, square,
+                                                ("batch", "model")),
+             ("mv_pair",), np.float64)]
+    out = {}
+    rng = np.random.default_rng(inp["seed"])
+    for name, op, calls, dtype in ops:
+        out[name] = {L: _lane_calls(op, calls, L, rng, dtype)
+                     for L in (1, 3, 31)}
+    sh = ops[0][1]
+    m, n = sh.shape
+    X = torch.as_tensor(rng.standard_normal((31, n)).astype(np.float32))
+    Z = torch.as_tensor(rng.standard_normal((31, m)).astype(np.float32))
+    for name, call in (("hsde_mv_pair", lambda: hsde_ops.mv_pair(sh, X, Z)),
+                       ("hsde_mv", lambda: hsde_ops.mv(sh, X)),
+                       ("hsde_rmv", lambda: hsde_ops.rmv(sh, Z))):
+        with Counted() as counts:
+            call()
+        out[name] = dict(counts)
+    return out
+
+
+def _lockstep_solve(run):
+    """``run()``'s result and this rank's lockstep record, kept apart from
+    the result (``per_rank``: the ranks of a split batch differ in it)."""
+    with Lockstep() as rec:
+        res = run()
+    return res, rec
+
+
+def sparse_linesearch(inp):
+    """LineSearch(DR) with CG on a banded LP through RowShardedOp over the
+    1x4 mesh: the 31 probes through the local table's lane kernels, one
+    gather and one all-reduce a probe pass."""
+    import scipy.sparse as sp
+
+    from fos_tpu_torch import DR, LineSearchWrapper, nonneg
+    from fos_tpu_torch.linalg.sparse_ell import BandedBlockOp
+    from fos_tpu_torch.parallel import RowShardedOp, make_mesh
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+    from fos_tpu_torch.solvers.engine import fused_solve
+
+    mesh = make_mesh((1, 4), ("batch", "model"), device="cpu")
+    A = sp.csr_matrix(inp["A"])
+    b, c = (torch.as_tensor(v) for v in inp["bc"])
+    m, n = A.shape
+    op = RowShardedOp.create(BandedBlockOp.create(A, device="cpu"), mesh,
+                             "model")
+    form = HSDEForm.build(conic_problem(op, b, c, nonneg(m), nonneg(n)))
+    alg = LineSearchWrapper(DR(), lsinterval=inp["lsinterval"])
+    r, rec = _lockstep_solve(lambda: fused_solve(
+        alg, form, form.initial_value(form.dtype), **inp["run"]))
+    return {"status": int(r.status), "iters": int(r.iters),
+            "guess": host(r.guess), "route": form.route,
+            "calls": int(r.state.s1_state.call_idx), "lockstep": rec}
+
+
+def hybrid_linesearch(inp):
+    """LineSearch(DR) and LineSearch(AP) with CG on the hybrid rows form:
+    make_hybrid_mesh(2, 2) (instances over the outer axis, each A's rows
+    over the inner: the probes (B, 31, k) through BatchedRowShardedDense)
+    and make_hybrid_mesh(4, 1) (one instance a rank, the rows axis one
+    rank wide); then each batch solved whole in this process alone."""
+    from fos_tpu_torch import AP, DR, LineSearchWrapper, nonneg
+    from fos_tpu_torch.parallel import (build_batched_form, make_hybrid_mesh,
+                                        shard_batched_form_rows,
+                                        solve_batched)
+
+    A, b, c = inp["lp"]
+    m, n = A.shape[1:]
+    form = build_batched_form(A, b, c, nonneg(m), nonneg(n), device="cpu")
+
+    def result(r):
+        return {"status": host(r.status), "iters": host(r.iters),
+                "guess": host(r.guess),
+                "calls": host(r.state.s1_state.call_idx)}
+
+    out, per_rank = {}, {}
+    meshes = {"2x2": make_hybrid_mesh(2, 2, device="cpu"),
+              "4x1": make_hybrid_mesh(4, 1, device="cpu")}
+    for key, inner in (("linesearch_dr", DR()), ("linesearch_ap", AP())):
+        alg = LineSearchWrapper(inner, lsinterval=inp["lsinterval"])
+        out[key] = {}
+        for layout in (("2x2", "4x1") if key == "linesearch_dr"
+                       else ("2x2",)):
+            sh = shard_batched_form_rows(form, meshes[layout])
+            r, rec = _lockstep_solve(
+                lambda: solve_batched(alg, sh, **inp["run"]))
+            out[key][layout] = result(r)
+            per_rank[f"{key}_{layout}"] = rec
+        out[key]["whole"] = result(solve_batched(alg, form, **inp["run"]))
+    out["per_rank"] = {"rank": dist.get_rank(), **per_rank}
+    return out
+
+
 def cg_counts(inp):
     """Standard and pipelined CG on a diagonal system whose vectors are
     split 4 ways: all-reduces per iteration, and the gathered solution."""
@@ -321,8 +515,8 @@ def cg_counts(inp):
 CASES = {f.__name__: f for f in (
     sparse_flat, sparse_hierarchical, rows_single, square_rows, single_2d,
     rows_2d_equal, batched_sharded, batched_linesearch, hybrid_rows,
-    hybrid_validation,
-    cg_counts)}
+    hybrid_validation, cg_counts, sharded_lanes, sparse_linesearch,
+    hybrid_linesearch)}
 
 
 def main(rank, world, workdir):

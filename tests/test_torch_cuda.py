@@ -1264,8 +1264,9 @@ def nccl_mesh(cuda, tmp_path_factory):
 @pytest.mark.parametrize("kind", ["band", "bell"])
 def test_row_sharded_op_nccl_bit_equal(cuda, nccl_mesh, kind):
     """RowShardedOp over a world-size-1 NCCL group: mv, rmv (K4/K5) and
-    mv_pair (K2/K3) bit-equal to the unsharded operator, and a sharded form
-    runs the eager route."""
+    mv_pair (K2/K3) bit-equal to the unsharded operator, also over 31
+    lanes in one call (K2-K5 over lanes), and a sharded form over NCCL
+    groups runs the graph route."""
     from fos_tpu_torch import nonneg
     from fos_tpu_torch.parallel import RowShardedOp
     from fos_tpu_torch.problems.conic import conic_problem
@@ -1282,8 +1283,204 @@ def test_row_sharded_op_nccl_bit_equal(cuda, nccl_mesh, kind):
     assert torch.equal(sh.rmv(y), op.rmv(y))
     for a, b in zip(sh.mv_pair(x, y), op.mv_pair(x, y)):
         assert torch.equal(a, b)
+    X, Y = (torch.randn(31, k, generator=g).to(cuda) for k in (1300, 1500))
+    _cuda.device_launch_counts(reset=True)
+    assert torch.equal(sh.mv(X), op.mv(X))
+    assert torch.equal(sh.rmv(Y), op.rmv(Y))
+    for a, b in zip(sh.mv_pair(X, Y), op.mv_pair(X, Y)):
+        assert torch.equal(a, b)
+    counts = _cuda.device_launch_counts(reset=True)
+    assert counts[f"{kind}_mv_lanes"] == 4
+    assert counts[f"{kind}_mv_pair_lanes"] == 2
+    assert counts[f"{kind}_mv"] == counts[f"{kind}_mv_pair"] == 0
     b = torch.ones(1500, device=cuda)
     c = torch.ones(1300, device=cuda)
     form = HSDEForm.build(conic_problem(sh, b, c, nonneg(1500),
                                         nonneg(1300)))
-    assert form.route == "eager"
+    assert form.route == "graph"
+
+
+def _certificate_lp(m, n, seed):
+    """An LP with an optimal certificate (tests/test_parallel.py's
+    recipe), f32 numpy."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n))
+    xm = rng.random(n) < 0.5
+    x0 = np.abs(rng.standard_normal(n)) * xm
+    r0 = np.abs(rng.standard_normal(n)) * ~xm
+    ym = rng.random(m) < 0.5
+    y0 = np.abs(rng.standard_normal(m)) * ym
+    s0 = np.abs(rng.standard_normal(m)) * ~ym
+    return tuple(v.astype(np.float32)
+                 for v in (A, A @ x0 + s0, r0 - A.T @ y0))
+
+
+def _sharded_lp_forms(kind, cuda, mesh):
+    """(unsharded form, sharded form) of a small LP: a dense A through
+    ``shard_problem_rows`` (K1 per shard) or a banded A through
+    RowShardedOp (K2 per shard)."""
+    from fos_tpu_torch import nonneg
+    from fos_tpu_torch.parallel import RowShardedOp, shard_problem_rows
+    from fos_tpu_torch.problems.conic import conic_problem
+    from fos_tpu_torch.problems.hsde import HSDEForm
+
+    if kind == "dense_rows":
+        A, b, c = _certificate_lp(120, 180, 3)
+        op = A
+    else:
+        A = sp.diags([np.ones(1024 - 130) * -0.98, np.ones(1024),
+                      np.ones(1024 - 130) * 0.99], offsets=[-130, 0, 130],
+                     shape=(1024, 1024), format="csr").astype(np.float32)
+        rng = np.random.default_rng(1)
+        b = (A @ np.abs(rng.standard_normal(1024))
+             + np.abs(rng.standard_normal(1024))).astype(np.float32)
+        c = (np.abs(rng.standard_normal(1024)) + 0.1).astype(np.float32)
+        op = tse.BandedBlockOp.create(A, device=cuda)
+    m, n = A.shape
+
+    def form(a, **kw):
+        return HSDEForm.build(conic_problem(a, b, c, nonneg(m), nonneg(n),
+                                            device=cuda,
+                                            dtype=torch.float32), **kw)
+
+    if kind == "dense_rows":
+        plain = form(op, pallas=True)
+        return plain, shard_problem_rows(form(op, pallas=True), mesh)
+    return form(op), form(RowShardedOp.create(op, mesh, "model"))
+
+
+@pytest.mark.parametrize("kind", ["dense_rows", "banded_rows"])
+def test_sharded_lp_graph_route_bit_equal(cuda, nccl_mesh, kind):
+    """A row-sharded dense LP and a RowShardedOp banded LP over the NCCL
+    group report the graph route, and ``run`` (its collectives captured in
+    the chunks) is bit-equal to the form's eager route and to the unsharded
+    solve, in status and iterations too; so is ``fused_solve`` (one
+    graph)."""
+    from fos_tpu_torch import DR
+    from fos_tpu_torch.solvers import engine
+
+    plain, sharded = _sharded_lp_forms(kind, cuda, nccl_mesh)
+    assert sharded.route == "graph" and plain.route == "graph"
+    opts = dict(max_iters=300, eps=1e-5, checki=100, verbose=0)
+    got = engine.run(sharded, DR(), **opts)
+    for want in (engine._run_eager(sharded, DR(), **opts),
+                 engine.run(plain, DR(), **opts)):
+        assert (got.status, got.iters) == (want.status, want.iters)
+        assert torch.equal(got.guess, want.guess)
+    x0 = sharded.initial_value(sharded.dtype)
+    del opts["verbose"]
+    fused = engine.fused_solve(DR(), sharded, x0, **opts)
+    eager = engine._fused_solve_eager(DR(), sharded, x0, **opts)
+    for k in ("status", "iters", "guess"):
+        assert torch.equal(getattr(fused, k), getattr(eager, k)), k
+
+
+def _batch(cuda, B=8, m=16, n=24):
+    from fos_tpu_torch import build_batched_form, nonneg
+
+    A, b, c = zip(*(_certificate_lp(m, n, 10 + i) for i in range(B)))
+    return build_batched_form(np.stack(A), np.stack(b), np.stack(c),
+                              nonneg(m), nonneg(n), device=cuda)
+
+
+def test_split_batch_fused_graph_equals_eager(cuda, nccl_mesh):
+    """``fused_solve`` on a batch split over the NCCL group's batch axis
+    (the vote captured in the chunk loop's condition): the graph route
+    bit-equal to its eager plain version and to the unsharded batch."""
+    from fos_tpu_torch import DR
+    from fos_tpu_torch.parallel import shard_batched_form
+    from fos_tpu_torch.parallel.batched import _start
+    from fos_tpu_torch.solvers import engine
+
+    form = _batch(cuda)
+    split = shard_batched_form(form, nccl_mesh)
+    assert split.route == "graph"
+    opts = dict(max_iters=300, eps=1e-5, checki=50)
+    x0 = _start(split, None)
+    got = engine.fused_solve(DR(), split, x0, **opts)
+    for want in (engine._fused_solve_eager(DR(), split, x0, **opts),
+                 engine.fused_solve(DR(), form, x0, **opts)):
+        for k in ("status", "iters", "guess"):
+            assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+def test_hybrid_linesearch_graph_bit_equal(cuda, nccl_mesh):
+    """LineSearch(DR) with CG on ``shard_batched_form_rows`` (the probes
+    (B, 31, k) through the row-sharded batched operator) on the graph
+    route: bit-equal to the unsharded batched line search and to its own
+    eager route."""
+    from fos_tpu_torch import DR, LineSearchWrapper, solve_batched
+    from fos_tpu_torch.parallel import shard_batched_form_rows
+    from fos_tpu_torch.parallel.batched import _solve_batched_eager
+
+    form = _batch(cuda)
+    hybrid = shard_batched_form_rows(form, nccl_mesh)
+    assert hybrid.route == "graph"
+    alg = LineSearchWrapper(DR(), lsinterval=20)
+    opts = dict(max_iters=100, eps=1e-4, checki=50)
+    got = solve_batched(alg, hybrid, **opts)
+    for want in (solve_batched(alg, form, **opts),
+                 _solve_batched_eager(alg, hybrid, **opts)):
+        for k in ("status", "iters", "guess"):
+            assert torch.equal(getattr(got, k), getattr(want, k)), k
+
+
+_CAPTURE_FAILURE = """
+import json, sys
+import torch
+import torch.distributed as dist
+from fos_tpu_torch import DR
+from fos_tpu_torch.parallel import make_mesh
+from fos_tpu_torch.solvers import engine
+from test_torch_cuda import _sharded_lp_forms
+
+dist.init_process_group("nccl", store=dist.FileStore(sys.argv[1], 1),
+                        rank=0, world_size=1)
+cuda = torch.device("cuda", 0)
+_, sharded = _sharded_lp_forms("banded_rows", cuda,
+                               make_mesh((1, 1), device=cuda))
+op, calls = sharded.A, []
+pair = op.mv_pair
+
+def reading(x, z):
+    capturing = torch.cuda.is_current_stream_capturing()
+    calls.append(capturing)
+    if capturing:
+        float(x.sum())   # a host read: the capture fails here
+    return pair(x, z)
+
+op.mv_pair = reading
+try:
+    engine.run(sharded, DR(), max_iters=200, eps=1e-5, checki=100,
+               verbose=0)
+    raised = None
+except RuntimeError as e:
+    raised = str(e)[:300]
+print(json.dumps({"route": sharded.route, "raised": raised,
+                  "calls": calls}), flush=True)
+"""
+
+
+def test_sharded_capture_failure_raises(cuda, tmp_path):
+    """A sharded NCCL form whose capture fails (a host read inside the
+    captured chunk) raises from ``run``, and nothing runs after the failed
+    capture, so nothing fell back to the eager route.  In a process of its
+    own with a group of its own: a failed capture is not left behind in
+    this one."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(here), here, os.environ.get("PYTHONPATH", "")]))
+    res = subprocess.run([sys.executable, "-c", _CAPTURE_FAILURE,
+                          str(tmp_path / "store")], capture_output=True,
+                         text=True, env=env, timeout=600)
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    assert lines, (res.returncode, res.stdout[-2000:], res.stderr[-2000:])
+    got = json.loads(lines[-1])
+    calls = got["calls"]
+    assert got["route"] == "graph" and got["raised"], got
+    assert calls and calls[-1] and calls.count(True) == 1, got

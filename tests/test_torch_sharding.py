@@ -42,6 +42,11 @@ from fos_tpu_torch.linalg import cg as tcg
 import _torch_sharding_ranks as ranks
 
 WORLD = 4
+#: the line searches' runs (from scratch, the CG form): the banded LP is
+#: Optimal at its last check in both packages, and some of the batch's
+#: instances stop at the first check, some at the second, some run on
+LS_SPARSE_RUN = dict(max_iters=100, eps=1e-4, checki=50)
+LS_BATCH_RUN = dict(max_iters=100, eps=1e-3, checki=50)
 
 
 def _lp_batch(rng, B=4, m=24, n=40):
@@ -77,6 +82,12 @@ def _inputs():
     x0 = np.abs(r2.standard_normal(1024)).astype(np.float32)
     b1 = (A1 @ x0 + np.abs(r2.standard_normal(1024))).astype(np.float32)
     c1 = (np.abs(r2.standard_normal(1024)) + 0.1).astype(np.float32)
+    # the line search's banded LP: A1's bands at 512^2, a block row a rank
+    As = _banded(512, 512, (-130, 0, 130), (-129.0, 1.0, 131.0)) / 131.0
+    r3 = np.random.default_rng(1)
+    xs = np.abs(r3.standard_normal(512)).astype(np.float32)
+    bs = (As @ xs + np.abs(r3.standard_normal(512))).astype(np.float32)
+    cs = (np.abs(r3.standard_normal(512)) + 0.1).astype(np.float32)
     Ah = sp.diags([np.ones(832) * 2.0, -np.ones(832 - 140)], offsets=[0, 140],
                   shape=(1024, 832), format="csr").astype(np.float32)
 
@@ -111,6 +122,12 @@ def _inputs():
                                               B=2, m=16, n=16)},
         "cg_counts": {"d": np.linspace(1.0, 4.0, 512),
                       "b": np.ones(512)},
+        "sharded_lanes": {"A": A1.toarray(), "dense": rows[0], "seed": 11},
+        "sparse_linesearch": {"A": As.toarray(), "bc": (bs, cs),
+                              "lsinterval": 20, "run": LS_SPARSE_RUN},
+        "hybrid_linesearch": {"lp": _lp_batch(np.random.default_rng(9), B=4,
+                                              m=8, n=12),
+                              "lsinterval": 20, "run": LS_BATCH_RUN},
     }
 
 
@@ -159,6 +176,20 @@ def _references(inp):
         ref[name] = _jax_single(*inp[name]["lp"], iters, eps)
     ref["batched_sharded"] = _jax_batched(*inp["batched_sharded"]["lp"])
     ref["hybrid_rows"] = _jax_batched(*inp["hybrid_rows"]["lp"])
+    ls = inp["sparse_linesearch"]
+    ms, ns = ls["A"].shape
+    ref["sparse_linesearch"] = fos_tpu.solve(
+        ls["A"], *ls["bc"], jnonneg(ms), jnonneg(ns),
+        alg=fos_tpu.LineSearchWrapper(DR(), lsinterval=ls["lsinterval"]),
+        verbose=0, dtype=jnp.float32, **ls["run"])
+    hl = inp["hybrid_linesearch"]
+    A, b, c = hl["lp"]
+    jf = jbuild_batched(A, b, c, jnonneg(A.shape[1]), jnonneg(A.shape[2]))
+    for key, inner in (("linesearch_dr", DR()),
+                       ("linesearch_ap", fos_tpu.AP())):
+        ref[f"hybrid_{key}"] = jsolve_batched(
+            fos_tpu.LineSearchWrapper(inner, lsinterval=hl["lsinterval"]), jf,
+            **hl["run"])
     return ref
 
 
@@ -200,7 +231,7 @@ def _case(run, name):
 def _assert_same_bits(a, b, where):
     if isinstance(a, dict):
         for k in a:
-            if k != "seconds":
+            if k not in ("seconds", "per_rank"):   # per_rank: each its own
                 _assert_same_bits(a[k], b[k], f"{where}.{k}")
     elif isinstance(a, (list, tuple)):
         for i, (u, v) in enumerate(zip(a, b)):
@@ -440,6 +471,165 @@ def test_hybrid_mesh_validation(run):
     assert res["block"] == (1, 8, 16)
     assert res["A_shape"] == (1, 16, 16)
     assert res["b"] == (1, 16) and res["c"] == (1, 16)
+
+
+# ---------------------------------------------------- the line search's lanes
+#: the operators of ``sharded_lanes``: (products, collectives of each
+#: product, whether the all-reduce sums over at most two ranks)
+LANE_OPS = {
+    **{f"{kind}_{layout}": (("mv", "rmv", "mv_pair"), gathers, two)
+       for kind in ("BandedBlockOp", "BlockedEllOp")
+       for layout, gathers, two in (("flat", 1, False), ("model2", 1, True),
+                                    ("product", 2, False))},
+    "DenseRow_flat": (("mv_pair",), 1, False),
+    "DenseRow_model2": (("mv_pair",), 1, True),
+    "Dense2D": (("mv_pair",), 2, True),
+}
+
+
+@pytest.mark.parametrize("name", list(LANE_OPS))
+def test_sharded_operator_lanes(run, name):
+    """Each sharded operator's products on (L, k) lanes (L = 1, 3, 31) in
+    one call: every lane bit-equal to a single call on that lane, on every
+    rank, and the single call's collectives (one per direction and axis).
+    The gathers move bits; an all-reduce over one or two ranks sums two
+    values, the same either way round, so A'z keeps its bits there too.
+    Over four ranks gloo's ring orders each element's three additions by
+    its offset in the buffer (an (L, k) buffer puts a lane's entries at
+    other offsets than a (k,) one), so there a lane's A'z is held to a
+    single call's within 2 f32 (or 4 f64) units of rounding of the
+    output's largest entry."""
+    calls, gathers, two = LANE_OPS[name]
+    res = _case(run, "sharded_lanes")[name]
+    Dense2D = name == "Dense2D"
+    for L, by_call in res.items():
+        for call in calls:
+            r = by_call[call]
+            want = ({"all_gather": 2, "all_reduce": 2} if Dense2D else
+                    {"all_gather": gathers, "all_reduce": 1}
+                    if call == "mv_pair" else {"all_gather": gathers})
+            assert r["counts"] == want, (L, call, r["counts"])
+            assert r["lanes"][0].shape[0] == L
+            summed = call == "mv_pair" and (Dense2D or not two)
+            exact = r["bit_equal"] if not summed else r["bit_equal"][:1]
+            assert all(exact), (L, call, r["bit_equal"], r["rel_diff"])
+            ulp = np.finfo(r["lanes"][-1].dtype).eps
+            assert max(r["rel_diff"]) <= (4 if ulp < 1e-10 else 2) * ulp, (
+                L, call, r["rel_diff"])
+
+
+def test_probes_go_to_sharded_operator_in_one_call(run):
+    """hsde_ops sends the 31 probes' products to RowShardedOp whole: one
+    gather (and for the pair one all-reduce), where lane by lane there
+    were 31 of each."""
+    res = _case(run, "sharded_lanes")
+    assert res["hsde_mv_pair"] == {"all_gather": 1, "all_reduce": 1}
+    assert res["hsde_mv"] == res["hsde_rmv"] == {"all_gather": 1}
+
+
+def test_row_sharded_linesearch_matches_jax(run):
+    """LineSearch(DR) with CG on a 512^2 banded LP (one block row a rank)
+    through RowShardedOp over the 1x4 mesh against the JAX package's
+    unsharded LineSearch(DR) solve
+    of the same f32 data: the same status and iteration count, the
+    objective within 1e-4 (1 + |f|), the probes' S1 calls counted."""
+    inp, _, ref = run
+    res = _case(run, "sparse_linesearch")
+    jr = ref["sparse_linesearch"]
+    A = inp["sparse_linesearch"]["A"]
+    c = inp["sparse_linesearch"]["bc"][1].astype(np.float64)
+    m, n = A.shape
+    assert res["route"] == "cpu"
+    assert (res["status"] == Status.OPTIMAL) == jr.optimal and jr.optimal
+    assert res["iters"] == jr.iters
+    obj = float(c @ _x(res["guess"], n, m))
+    assert abs(obj - jr.objval) <= 1e-4 * (1 + abs(jr.objval))
+    assert res["calls"] > res["iters"]   # 31 probe calls per line search
+
+
+def _hybrid(run, key, layout):
+    return _case(run, "hybrid_linesearch")[key][layout]
+
+
+@pytest.mark.parametrize("key", ["linesearch_dr", "linesearch_ap"])
+def test_hybrid_linesearch_matches_jax(run, key):
+    """LineSearch(DR) and LineSearch(AP) with CG on the hybrid rows form
+    (make_hybrid_mesh(2, 2): the probes (B, 31, k) through the row-sharded
+    batched operator, which raised before it took them) from scratch,
+    against the JAX package's batched LineSearch solve of the same data:
+    statuses and counts equal, guesses at 1e-5 (as
+    tests/test_torch_batched_wrappers.py holds the CG form from scratch);
+    some instances stop at a check, the others run on."""
+    _, _, ref = run
+    res = _hybrid(run, key, "2x2")
+    jr = ref[f"hybrid_{key}"]
+    np.testing.assert_array_equal(res["status"], np.asarray(jr.status))
+    np.testing.assert_array_equal(res["iters"], np.asarray(jr.iters))
+    np.testing.assert_allclose(res["guess"], np.asarray(jr.guess), rtol=0,
+                               atol=1e-5)
+    assert 0 < int((res["status"] == Status.OPTIMAL).sum()) < 4
+    np.testing.assert_array_equal(res["calls"],
+                                  np.asarray(jr.state.s1_state.call_idx))
+
+
+@pytest.mark.parametrize("key,layout,bits", [
+    ("linesearch_dr", "4x1", True), ("linesearch_dr", "2x2", False),
+    ("linesearch_ap", "2x2", False)])
+def test_hybrid_linesearch_against_whole_batch(run, key, layout, bits):
+    """The split line search against the port's own batched line search of
+    the whole batch in one process.  With one rank on the rows axis (4x1)
+    the split, the vote and the gathers change no bit: bit-equal.  With
+    two (2x2) each A'z is two half sums added, where the whole batch's
+    matmul sums all rows at once, and the CG form's early projections,
+    which stop at a loose tolerance, carry that rounding into the iterates
+    (tests/test_torch_batched.py's module docstring; 7.7e-8 here):
+    statuses, counts and S1 calls equal, guesses at 1e-6."""
+    res = _hybrid(run, key, layout)
+    whole = _hybrid(run, key, "whole")
+    for k in ("status", "iters", "calls"):
+        np.testing.assert_array_equal(res[k], whole[k], err_msg=k)
+    if bits:
+        np.testing.assert_array_equal(res["guess"], whole["guess"])
+    else:
+        np.testing.assert_allclose(res["guess"], whole["guess"], rtol=0,
+                                   atol=1e-6)
+
+
+def test_lockstep_row_sharded_solve(run):
+    """The invariant a captured sharded solve relies on (a collective in a
+    conditional node's body runs on every rank of its group only if every
+    rank takes the same passes): in the row-sharded line search every rank
+    records the same CG iterations for every projection (the probes' per
+    lane) and the same number of checks (``_case``: all ranks' bits)."""
+    rec = _case(run, "sparse_linesearch")["lockstep"]
+    assert rec["checks"] > 0 and rec["votes"] == 0
+    assert any(len(it) == 31 for it in rec["cg"])   # the probes' lanes
+    assert all(max(it) > 0 for it in rec["cg"])
+
+
+@pytest.mark.parametrize("solve", ["linesearch_dr_2x2", "linesearch_dr_4x1",
+                                   "linesearch_ap_2x2"])
+def test_lockstep_split_batch(run, solve):
+    """The same invariant for a split batch: every rank makes the same
+    number of checks and votes (the chunk loop stops on the vote, an
+    all-reduce), and the ranks that share instances (one rows group,
+    whose products are collectives inside CG's loop) record the same CG
+    iterations per projection.  Ranks with other instances run CG loops
+    with no collective in them, and their counts differ."""
+    _, out, _ = run
+    _case(run, "hybrid_linesearch")
+    recs = [o["hybrid_linesearch"]["per_rank"] for o in out]
+    assert [r["rank"] for r in recs] == list(range(WORLD))
+    inner = 2 if solve.endswith("2x2") else 1
+    per = [r[solve] for r in recs]
+    assert per[0]["votes"] > 0 and per[0]["checks"] > 0
+    for p in per[1:]:
+        assert (p["checks"], p["votes"]) == (per[0]["checks"],
+                                             per[0]["votes"])
+    for r in range(WORLD):
+        assert per[r]["cg"] == per[r - r % inner]["cg"], r
+    if inner == 1:   # one instance a rank: the instances' CG differ
+        assert any(p["cg"] != per[0]["cg"] for p in per[1:])
 
 
 # ---------------------------------------------------------------------- CG
