@@ -23,7 +23,14 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
    and two edge shapes for 1, 2 and 31 lanes (each lane bit-equal to a
    single call, one launch of each lane kernel) and, at 31 lanes, its
    time replayed from a graph against 31 single calls' (gated at 1/5)
-   beside the lane-batched cuBLAS pair; K2/K3 (the pairs);
+   beside the lane-batched cuBLAS pair; C1 (CG's step) and C2 (q_mul's
+   rank-1 epilogue) at the shapes the paths give them (the dense LP's,
+   the tile LPs', the feasibility S1's, batched_lp_128's lanes and the
+   dense line search's 31 probes): against their plain versions (the
+   PyTorch sequences they replace; C2's dot entry to 2e-5 of the sum of
+   its terms' magnitudes), bits repeating, each lane bit-equal to a
+   single call, device, call and graph-replay times beside the plain
+   sequence's; K2/K3 (the pairs);
    K4/K5 over the A tables (``mv``) and the A' tables (``rmv``), against a
    block-sparse ``torch.sparse_bsr_tensor`` matvec; K2-K5 over lanes
    (``tile_lane_cells``: phase 2's tables, K4/K5 also the A' tables, 1, 2
@@ -190,7 +197,11 @@ gated > 0 for ``cg_continue_lanes``; phase 8's, ``launches_phase8``,
 gated > 0 for K1, with ``launches_diff_batched_lp_wrapped`` the wrapped
 batch's part; phase 9's,
 ``launches_phase9``, gated > 0 for K1, K2 and K3; phase 10's,
-``launches_phase10``, gated > 0 for K1-K5 and K2 over lanes).  The line
+``launches_phase10``, gated > 0 for K1-K5 and K2 over lanes).  C1 and C2
+(``cg_step``, ``q_rank1``) are gated > 0 in every phase that runs a CG
+(2, 5 (``launches_phase5``, its three routes), 6-10 and the wrapped
+batch and diff cells; phase 3, which runs no q_mul, C1 alone); their
+``launches`` are phases 2 and 3's.  The line
 before the kernels line gives each phase's seconds.  The wrappers' host
 counts (``_cuda.LAUNCHES``) count the calls that launched or captured a
 kernel (``captured_calls``): a replay calls no wrapper.
@@ -530,18 +541,21 @@ def profile_solve(run, top=6):
                                   e.count] for e in events[:top]]}
 
 
-def compare(name, kernel, plain):
-    """Kernel vs plain on the same inputs: errors, agreement, times."""
+def compare(name, kernel, plain, scales=None):
+    """Kernel vs plain on the same inputs: errors, agreement, times.
+    ``scales(want)``: each output's tolerance scale where it is not
+    |plain| (a cancelling dot's: the sum of its terms' magnitudes)."""
     import torch
 
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     abs_err, rel_err = 0.0, 0.0
-    for g, w in zip(got, want):
+    for i, (g, w) in enumerate(zip(got, want)):
         d = (g - w).abs()
         abs_err = max(abs_err, float(d.max()))
         rel_err = max(rel_err, float(d.max() / w.abs().max().clamp_min(1e-30)))
-        if not bool((d <= ATOL + RTOL * w.abs()).all()):
+        scale = w.abs() if scales is None else scales(want)[i]
+        if not bool((d <= ATOL + RTOL * scale).all()):
             raise AssertionError(f"{name}: kernel disagrees with plain "
                                  f"(max abs err {abs_err})")
     again = kernel()
@@ -875,6 +889,199 @@ def tile_lane_cells(dev, band, ell, yardsticks):
 
 
 # ------------------------------------------------------------ graph route
+# C1 (CG's step) and C2 (q_mul's rank-1 epilogue), csrc/cg_step.cu: the
+# shapes the paths give them, (name, lanes, k or (n, m), C1's mode): the
+# dense LP's HSDE (l = 2001), the 32768^2 tile LPs' (65537), the
+# feasibility S1's I + AA' (32768), batched_lp_128's instances (128 x 161,
+# per-instance b, c) and the dense LP's line-search probes (31 x 2001)
+CG_STEP_CELLS = (("dense_lp", (), 2001, "tracked"),
+                 ("tile_lp", (), 65537, "tracked"),
+                 ("feasibility", (), 32768, "plus"),
+                 ("batched_lp_128", (128,), 161, "tracked"),
+                 ("dense_probes", (LINESEARCH_LANES,), 2001, "tracked"))
+Q_RANK1_CELLS = (("dense_lp", (), (), 1000, 1000),
+                 ("tile_lp", (), (), 32768, 32768),
+                 ("batched_lp_128", (128,), (128,), 96, 64),
+                 ("dense_probes", (LINESEARCH_LANES,), (), 1000, 1000))
+CG_STEP_MAX_ITERS = 1000
+CG_KERNELS = ("cg_step", "q_rank1")
+# the XLA fusions the kernels take the place of (no Pallas kernel)
+CG_STEP_REPLACES = "fos_tpu/linalg/cg.py:181-195"
+Q_RANK1_REPLACES = "fos_tpu/linalg/hsde_ops.py:77-91"
+
+
+def _cg_step_inputs(dev, lanes, k, kind, seed):
+    """C1's operands at one cell's shape, random f32 state (``rn`` = r.r),
+    nothing converged."""
+    import torch
+    from fos_tpu_torch.linalg import cg_step
+
+    rng = np.random.default_rng(seed)
+    shape = tuple(lanes) + (k,)
+
+    def vec():
+        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32),
+                               device=dev)
+
+    tracked = kind == "tracked"
+    x, r, p = vec(), vec(), vec()
+    Qx, Qp = (vec(), vec()) if tracked else (None, None)
+    # w: a positive diagonal's product (negated for the tracked p - w), so
+    # that Ap comes from an SPD operator, as CG's does, and den = Ap.p has
+    # no cancellation (with a random w two f32 sum orders of den part by
+    # ~2e-5 of it at k = 65537)
+    d = torch.as_tensor(rng.uniform(0.0, 2.0, shape).astype(np.float32),
+                        device=dev)
+    w = (-d if tracked else d) * p
+    rn = (r.double() * r.double()).sum(-1).float()
+    return dict(x=x, Qx=Qx, r=r, p=p, rn=rn,
+                it=torch.zeros(rn.shape, dtype=torch.int32, device=dev),
+                tol2=torch.full((), 1e-6, device=dev), w=w, Qp=Qp,
+                mode=cg_step.P_MINUS_W if tracked else cg_step.P_PLUS_W)
+
+
+def _cg_step_run(inp):
+    """(the new state of one step of C1 from a copy of ``inp``'s state, the
+    step object bound to that copy)."""
+    from fos_tpu_torch.linalg import cg_step
+
+    st = [None if inp[key] is None else inp[key].clone()
+          for key in ("x", "Qx", "r", "p", "rn", "it")]
+    step = cg_step.CGStep(st[0], st[2], st[3], st[4], st[5], inp["tol2"],
+                          CG_STEP_MAX_ITERS, Qx=st[1], mode=inp["mode"])
+    step(inp["w"], inp["Qp"], first=True)
+    return [t for t in st if t is not None], step
+
+
+def _gate_cg_kernels(where, counts, names):
+    """Raise unless each of ``names`` (C1, C2) launched in ``counts`` (a
+    phase's or a cell's device launch counts)."""
+    missing = [k for k in names if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"{where} runs CG but never launched {missing}:"
+                             f" {dict(counts)}")
+
+
+def cg_kernel_cells(dev):
+    """Phase 1's rows of C1 and C2: each cell's kernel against its plain
+    version (the PyTorch sequence it replaces) on the same inputs, bits
+    repeating, each lane bit-equal to a single call; the step's device,
+    call and graph-replay times beside the plain sequence's and the bound
+    (bytes; in practice a launch).  Returns the kernels line's entries
+    (the dense LP's shape)."""
+    import torch
+    from fos_tpu_torch.linalg import _cuda, cg_step, hsde_ops
+    from fos_tpu_torch.linalg.cg import step_plain
+    from fos_tpu_torch.linalg.lanes import lead as lanes_lead
+
+    entries = {}
+    for name, lanes, k, kind in CG_STEP_CELLS:
+        inp = _cg_step_inputs(dev, lanes, k, kind, len(name) + k)
+        L = max(1, inp["rn"].numel())
+        go = ((inp["rn"] > inp["tol2"]) & (inp["it"] < CG_STEP_MAX_ITERS)
+              if lanes else None)
+        res = compare(
+            f"cg_step.{name}", lambda: _cg_step_run(inp)[0],
+            lambda: [t for t in step_plain(
+                inp["x"], inp["r"], inp["p"], inp["rn"], inp["it"],
+                inp["tol2"], inp["w"], inp["mode"], inp["Qx"], inp["Qp"], go)
+                if t is not None])
+        # the step alone, in place on its own copy of the state (compare's
+        # kernel call also copies the state first)
+        _, timed = _cg_step_run(inp)
+
+        def step():
+            timed(inp["w"], inp["Qp"], first=True)
+
+        def plain():
+            return step_plain(inp["x"], inp["r"], inp["p"], inp["rn"],
+                              inp["it"], inp["tol2"], inp["w"], inp["mode"],
+                              inp["Qx"], inp["Qp"], go)
+
+        res.update(ms=median_ms(step), device_ms=device_ms(step),
+                   copying_call_ms=res["ms"])
+        res["graph_us"], _ = graph_us(step)
+        res["plain_graph_us"], _ = graph_us(plain)
+        vectors = 10 if kind == "tracked" else 7   # in x r p w (Qx Qp), out
+        res.update(bound(4 * L * (vectors * k + 4), 13 * L * k),
+                   library_ms=None,
+                   library="none (the plain version is the PyTorch "
+                           "sequence the kernel replaces)",
+                   geometry=cg_step.geometry(k), lanes=list(lanes), k=k,
+                   kind=kind)
+        if lanes:
+            rows = [t.reshape(L, -1) for t in _cg_step_run(inp)[0]]
+            res["lanes_bit_equal_to_single"] = all(
+                all(torch.equal(row[b], one.reshape(-1)) for row, one in zip(
+                    rows, _cg_step_run({key: (
+                        v.reshape(L, *v.shape[len(lanes):])[b]
+                        if isinstance(v, torch.Tensor) and v.dim() >= len(
+                            lanes) and key != "tol2" else v)
+                        for key, v in inp.items()})[0]))
+                for b in sorted({0, L // 2, L - 1}))
+        emit({"phase": "kernel", "name": "cg_step", "cell": name, **res})
+        if not res["deterministic"] or not res.get(
+                "lanes_bit_equal_to_single", True):
+            raise AssertionError(f"cg_step at {name}: {res}")
+        if name == "dense_lp":
+            entries["cg_step"] = {"source": "fos_tpu_torch/csrc/cg_step.cu",
+                                  "replaces": CG_STEP_REPLACES,
+                                  "shape": [k], **res}
+    for name, lanes, inst, n, m in Q_RANK1_CELLS:
+        rng = np.random.default_rng(n + m + len(lanes))
+
+        def arr(shape):
+            return torch.as_tensor(rng.standard_normal(shape,
+                                                       dtype=np.float32),
+                                   device=dev)
+
+        z = arr(lanes + (n + m + 1,))
+        az, atz = arr(lanes + (m,)), arr(lanes + (n,))
+        b, c = arr(inst + (m,)), arr(inst + (n,))
+        args = (az, atz, z, b, c, -torch.cat([c, b], -1))
+        def scales(want):
+            # the dot -[c; b] . z[:n+m]: the sum of its terms' magnitudes
+            s = want[0].abs()
+            s[..., -1] = (lanes_lead(args[5], z).abs()
+                          * z[..., : n + m].abs()).sum(-1)
+            return [s]
+
+        res = compare(f"q_rank1.{name}", lambda: (cg_step.q_rank1(*args),),
+                      lambda: (hsde_ops.q_rank1_plain(*args),), scales)
+        res["graph_us"], _ = graph_us(lambda: cg_step.q_rank1(*args))
+        res["plain_graph_us"], _ = graph_us(
+            lambda: hsde_ops.q_rank1_plain(*args))
+        L = max(1, z[..., 0].numel())
+        D = max(1, b[..., 0].numel())
+        # z, A z1, A'z2 per lane, b, c, -[c; b] per instance, out per lane
+        nbytes = 4 * (L * (2 * (n + m + 1) + n + m) + D * 2 * (n + m))
+        res.update(bound(nbytes, 4 * L * (n + m)), library_ms=None,
+                   library="none (the plain version is the PyTorch "
+                           "sequence the kernel replaces)",
+                   geometry=cg_step.geometry(n + m), lanes=list(lanes),
+                   n=n, m=m)
+        if lanes:
+            out = cg_step.q_rank1(*args).reshape(L, -1)
+            per = L // D
+            res["lanes_bit_equal_to_single"] = all(
+                torch.equal(out[j], cg_step.q_rank1(
+                    az.reshape(L, m)[j], atz.reshape(L, n)[j],
+                    z.reshape(L, -1)[j],
+                    *(t.reshape(-1, t.shape[-1])[j // per] if inst else t
+                      for t in args[3:])))
+                for j in sorted({0, L // 2, L - 1}))
+        emit({"phase": "kernel", "name": "q_rank1", "cell": name, **res})
+        if not res["deterministic"] or not res.get(
+                "lanes_bit_equal_to_single", True):
+            raise AssertionError(f"q_rank1 at {name}: {res}")
+        if name == "dense_lp":
+            entries["q_rank1"] = {"source": "fos_tpu_torch/csrc/cg_step.cu",
+                                  "replaces": Q_RANK1_REPLACES,
+                                  "shape": [n, m], **res}
+    _cuda.device_launch_counts(reset=True)
+    return entries
+
+
 def _if_taken(dev, make_cond):
     """A graph whose IF node the condition ``make_cond()`` sets; its body
     writes 1 to the returned flag."""
@@ -1981,6 +2188,8 @@ def linesearch_pair_count(form, interval, totals, kernel):
            "lanes_sum_graph": n_graph[f"{lane}_sum"],
            "single_calls_replaced": lanes * implied_lanes,
            "cg_continue_lanes_graph": n_graph["cg_continue_lanes"],
+           "cg_step_graph": n_graph["cg_step"],
+           "q_rank1_graph": n_graph["q_rank1"],
            "bit_equal": bool(torch.equal(replayed.x, eager.x))}
     if kernel == "fused_matvec":
         out["single_sum_graph"] = n_graph["fused_matvec_sum"]
@@ -1989,7 +2198,8 @@ def linesearch_pair_count(form, interval, totals, kernel):
             == out.get("single_sum_graph", implied)) or not (
                 implied_lanes == out["lanes_eager"] == out["lanes_graph"]
                 == out["lanes_sum_graph"]) \
-            or not out["bit_equal"] or not probes_bit_equal:
+            or not out["bit_equal"] or not probes_bit_equal \
+            or not (out["cg_step_graph"] and out["q_rank1_graph"]):
         raise AssertionError(f"LineSearch boundary step: {kernel} {out}")
     g.release()
 
@@ -4327,6 +4537,9 @@ def main() -> int:
     # K2-K5 over lanes (the lane kernels' phase-1 rows)
     kernels.update(tile_lane_cells(dev, band, ell, yardsticks))
 
+    # CG's step and q_mul's epilogue (csrc/cg_step.cu)
+    kernels.update(cg_kernel_cells(dev))
+
     # the condition kernels of the graph route (csrc/graph.cu)
     for name, res in condition_kernels(dev).items():
         emit({"phase": "kernel", "name": name, **res})
@@ -4341,6 +4554,13 @@ def main() -> int:
         counts = _cuda.device_launch_counts(reset=True)
         totals.update(counts)
         return counts
+
+    def cg_launches(counts, key, cg=CG_KERNELS):
+        """A solve's line entries: its pair or product kernel's launches
+        and C1's / C2's (``cg``), which must have launched."""
+        _gate_cg_kernels(f"the solve counted as {key}", counts, cg)
+        return {f"{key}_launches": counts[key],
+                **{f"{k}_launches": counts[k] for k in cg}}
 
     _cuda.reset_launch_counts()
     _cuda.device_launch_counts(reset=True)
@@ -4357,7 +4577,7 @@ def main() -> int:
           "iters_per_s": sol.iters / secs, "obj": sol.objval,
           "obj_certificate": opt1, "rel_obj_err": rel,
           "iters_reference": REFERENCE_ITERS.get("dense_lp"),
-          "fused_matvec_launches": launched(conic_counts)["fused_matvec"]})
+          **cg_launches(launched(conic_counts), "fused_matvec")})
     if sol.status != "Optimal":
         raise AssertionError(f"dense LP at eps={GATE_EPS}: {sol.status}")
     # At eps=1e-5 the check (the reference's normalise-twice residuals)
@@ -4374,7 +4594,7 @@ def main() -> int:
           "seconds": secs, "iters_per_s": sol.iters / secs,
           "obj": sol.objval, "obj_certificate": opt1, "rel_obj_err": rel,
           "iters_reference": REFERENCE_ITERS.get("dense_lp_continued"),
-          "fused_matvec_launches": launched(conic_counts)["fused_matvec"]})
+          **cg_launches(launched(conic_counts), "fused_matvec")})
     if sol.status != "Optimal" or rel > GATE_OBJ:
         raise AssertionError(f"dense LP: {sol.status}, rel obj err {rel}")
 
@@ -4386,7 +4606,7 @@ def main() -> int:
           "iters": sol.iters, "seconds": secs, "iters_per_s": sol.iters / secs,
           "finite": finite,
           "iters_reference": REFERENCE_ITERS.get("dense_scaling"),
-          "fused_matvec_launches": launched(conic_counts)["fused_matvec"]})
+          **cg_launches(launched(conic_counts), "fused_matvec")})
     if not finite:
         raise AssertionError("scaling run produced non-finite values")
 
@@ -4403,7 +4623,7 @@ def main() -> int:
               "iters_per_s": sol.iters / secs, "obj": sol.objval,
               "obj_certificate": opt, "rel_obj_err": rel,
               "iters_reference": REFERENCE_ITERS.get(phase),
-              f"{key}_launches": launched(conic_counts)[key]})
+              **cg_launches(launched(conic_counts), key)})
         if sol.status != "Optimal" or rel > GATE_OBJ:
             raise AssertionError(f"{phase}: {sol.status}, rel obj err {rel}")
         lp_iters[f"equilibrated_{phase}"] = sol.iters
@@ -4412,6 +4632,10 @@ def main() -> int:
     for name in ("fused_matvec", "band_mv_pair", "bell_mv_pair"):
         kernels[name]["launches"] = conic_counts[name]
         kernels[name]["captured_calls"] = captured[name]
+    # C1 and C2: every conic solve's CG (the feasibility path adds C1's)
+    for name in CG_KERNELS:
+        kernels[name]["captured_calls"] = captured[name]
+    _gate_cg_kernels("phase 2", conic_counts, CG_KERNELS)
     # K1 is its tile kernel and its ordered sum: one of each per call
     kernels["fused_matvec"]["sum_launches"] = conic_counts["fused_matvec_sum"]
     tiles, sums = conic_counts["fused_matvec"], conic_counts["fused_matvec_sum"]
@@ -4444,14 +4668,16 @@ def main() -> int:
         gate = FEAS_RESID * (1.0 + float(np.abs(b).max()))
         cg = sol.state.s1_state
         projections = int(cg.call_idx) - 1
-        count = launched(feas_counts)[key]
+        solve_counts = launched(feas_counts)
+        count = solve_counts[key]
         emit({"phase": phase, "shape": [m, n], "table": list(op.blocks.shape),
               "table_t": list(op.blocks_t.shape), "eps": eps,
               "status": sol.status, "iters": sol.iters, "seconds": secs,
               "iters_per_s": sol.iters / secs,
               "cg_iters_per_projection": int(cg.total_iters) / projections,
               "inside_box_and_s_nonneg": inside, "resid_inf": resid,
-              "resid_gate": gate, f"{key}_launches": count})
+              "resid_gate": gate,
+              **cg_launches(solve_counts, key, CG_KERNELS[:1])})
         if sol.status != "Optimal" or not inside or resid > gate:
             raise AssertionError(f"{phase}: {sol.status}, inside {inside}, "
                                  f"residual {resid} (gate {gate})")
@@ -4496,6 +4722,11 @@ def main() -> int:
     for name in ("band_mv", "bell_mv"):
         kernels[name]["launches"] = feas_counts[name]
         kernels[name]["captured_calls"] = captured[name]
+    # the feasibility S1's CG on I + AA' runs C1 (q_mul does not run here)
+    _gate_cg_kernels("phase 3", feas_counts, ("cg_step",))
+    for name in CG_KERNELS:
+        kernels[name]["launches"] = conic_counts[name] + feas_counts[name]
+        kernels[name]["captured_calls"] += captured[name]
     for name in ("cg_continue", "count_continue", "flag_continue"):
         kernels[name]["launches"] = conic_counts[name] + feas_counts[name]
 
@@ -4596,6 +4827,7 @@ def main() -> int:
         return form.initial_value(form.dtype)
 
     eps_feas = FEAS_EPS_FLOORS * (m + n) * eps_f32
+    _cuda.device_launch_counts(reset=True)
     paths = (
         ("dense_lp", conic_form(A1, b1, c1, True), GATE_EPS, 10000),
         ("banded_lp", conic_form(band, b_band, c_band, False), GATE_EPS,
@@ -4609,6 +4841,8 @@ def main() -> int:
         out, eager = run_routes(name, make_form, initial, eps, iters)
         if name in ("dense_lp", "banded_lp"):
             eager_lps[name] = (eager, out)
+    # the three routes' launches (profile_routes reads its own runs')
+    graph_counts = _cuda.device_launch_counts(reset=True)
     for name, make_form, eps, _ in paths:
         # eps = 0 keeps the feasibility solves running all PROFILE_ITERS
         profile_routes(name, make_form, eps if "lp" in name else 0.0)
@@ -4641,6 +4875,9 @@ def main() -> int:
             raise AssertionError(f"tier ({np.dtype(dtype).name}): the graph "
                                  f"route differs from the eager route in "
                                  f"{bad}")
+    for name in kernels:
+        kernels[name]["launches_phase5"] = graph_counts.get(name, 0)
+    _gate_cg_kernels("phase 5", graph_counts, CG_KERNELS)
 
     clock.append(("phase6", time.perf_counter()))
     # --- phase 6: the cones, equilibration and the direct mode (this
@@ -4654,6 +4891,7 @@ def main() -> int:
     if not all(cone_counts[k] for k in ("fused_matvec", "band_mv_pair",
                                         "bell_mv_pair")):
         raise AssertionError(f"phase 6 did not launch K1-K3: {cone_counts}")
+    _gate_cg_kernels("phase 6", cone_counts, CG_KERNELS)
 
     clock.append(("phase7", time.perf_counter()))
     # --- phase 7: refine, the wrappers and the batched solve (this slice's
@@ -4682,6 +4920,8 @@ def main() -> int:
                      "bell_mv_pair_lanes")):
         raise AssertionError(f"K1-K3 over lanes on phase 7's path: "
                              f"{dict(slice_counts)}")
+    _gate_cg_kernels("phase 7", slice_counts, CG_KERNELS)
+    _gate_cg_kernels("batched_wrappers_lp_128", wrapped_counts, CG_KERNELS)
 
     clock.append(("phase8", time.perf_counter()))
     # --- phase 8: implicit differentiation (this slice's path), with the
@@ -4696,6 +4936,9 @@ def main() -> int:
     if not diff_counts["fused_matvec"]:
         raise AssertionError(f"phase 8 did not launch K1: "
                              f"{dict(diff_counts)}")
+    # the forward solves and the backward's inner CGs and CGLS
+    _gate_cg_kernels("phase 8", diff_counts, CG_KERNELS)
+    _gate_cg_kernels("diff_batched_lp_wrapped", diff_wrapped, CG_KERNELS)
 
     clock.append(("phase9", time.perf_counter()))
     # --- phase 9: the front end (this slice's path), with the device's
@@ -4711,6 +4954,7 @@ def main() -> int:
                                          "bell_mv_pair")):
         raise AssertionError(f"phase 9 did not launch K1, K2 and K3: "
                              f"{dict(front_counts)}")
+    _gate_cg_kernels("phase 9", front_counts, CG_KERNELS)
 
     clock.append(("phase10", time.perf_counter()))
     # --- phase 10: sharding (this slice's path) on one NCCL group of world
@@ -4723,6 +4967,7 @@ def main() -> int:
                                          "band_mv_pair_lanes")):
         raise AssertionError(f"phase 10 did not launch K1-K5 and K2 over "
                              f"lanes: {dict(shard_counts)}")
+    _gate_cg_kernels("phase 10", shard_counts, CG_KERNELS)
 
     clock.append(("end", time.perf_counter()))
     emit({"phase": "timing", "seconds": {
@@ -4735,7 +4980,8 @@ def main() -> int:
             "shape", "max_rel_err", "deterministic", "launches_cones_path",
             "launches_phase7", "launches_batched_wrappers_lp_128",
             "launches_phase8", "launches_diff_batched_lp_wrapped",
-            "launches_phase9", "launches_phase10", "backward_ms",
+            "launches_phase5", "launches_phase9", "launches_phase10",
+            "backward_ms",
             "library_device_ms", "graph_us",
             "lanes_over_singles", "device_over_mul")
     emit({"kernels": [{k: e.get(k) for k in keys}

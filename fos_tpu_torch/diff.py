@@ -69,7 +69,7 @@ from fos_tpu_torch.config import as_tensor, default_device
 from fos_tpu_torch.cones.project import project as cone_project
 from fos_tpu_torch.cones.spec import ConeSpec
 from fos_tpu_torch.linalg import hsde_ops, lanes
-from fos_tpu_torch.linalg.cg import conjugate_gradient
+from fos_tpu_torch.linalg.cg import PlusProduct, conjugate_gradient
 from fos_tpu_torch.problems.hsde import hsde_cone_spec
 from fos_tpu_torch.solvers.base import GAP, GAPA, _relax
 
@@ -174,8 +174,10 @@ class _Data:
         ``||r||`` (the tolerance of ``jax.scipy.sparse.linalg.cg``), one
         system per lane; autograd never sees the iterations."""
         with torch.no_grad():
+            # (I + Q'Q) t = t - Q(Q t): Q(Q t) to CG's step kernel
             res = conjugate_gradient(
-                lambda t: self.normal(theta, t), r, torch.zeros_like(r),
+                PlusProduct(lambda t: self.q(theta, self.q(theta, t)), -1),
+                r, torch.zeros_like(r),
                 tol=self.cg_tol * lanes.vnorm(r), max_iters=self.cg_maxiter)
         self.solves += 1
         self.iters = self.iters + lanes.common_count(res.iters)

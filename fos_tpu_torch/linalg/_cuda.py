@@ -24,7 +24,10 @@ The launch route, the same for every kernel wrapper (:class:`Kernel`):
   allocates only its outputs;
 * a lane kernel (K1-K5 over the line search's candidate steps) takes the
   same route with a lane axis: the record carries the call's lane count
-  and each vector's lane stride.
+  and each vector's lane stride;
+* CG's step kernels (``csrc/cg_step.cu``, f32 and f64) fill records of
+  their own in :mod:`fos_tpu_torch.linalg.cg_step`: a CG solve binds its
+  carried tensors once and a step writes only its products' pointers.
 
 A bound kernel, its record and its scratch serve one host thread and one
 stream at a time, which is how the port runs.  The free wrapper functions,
@@ -70,7 +73,7 @@ LAUNCHES = {"fused_matvec": 0, "fused_matvec_lanes": 0, "band_mv_pair": 0,
             "bell_mv_pair": 0, "band_mv": 0, "bell_mv": 0,
             "band_mv_pair_lanes": 0, "bell_mv_pair_lanes": 0,
             "band_mv_lanes": 0, "bell_mv_lanes": 0, "probe_tiny": 0,
-            "probe_prefetch": 0}
+            "probe_prefetch": 0, "cg_step": 0, "q_rank1": 0}
 
 #: tile side the kernels are compiled for (checked when the library loads)
 TILE = 128
@@ -177,7 +180,8 @@ ENTRY_POINTS = ("fos_dense_pair", "fos_dense_pair_lanes", "fos_band_pair",
                 "fos_cg_continue_lanes", "fos_count_continue", "fos_flag_continue",
                 "fos_pair_launch_counts", "fos_tile_mv_launch_counts",
                 "fos_graph_launch_counts", "fos_pair_lanes_occupancy",
-                "fos_mv_lanes_occupancy")
+                "fos_mv_lanes_occupancy", "fos_cg_step", "fos_q_rank1",
+                "fos_cg_geometry", "fos_cg_step_launch_counts")
 
 #: the kernels counted on the device, by the entry point that reads them
 DEVICE_COUNTERS = {
@@ -190,6 +194,8 @@ DEVICE_COUNTERS = {
                                   "bell_mv_lanes"),
     "fos_graph_launch_counts": ("cg_continue", "count_continue",
                                 "flag_continue", "cg_continue_lanes"),
+    "fos_cg_step_launch_counts": ("cg_step", "cg_step_sum", "q_rank1",
+                                  "q_rank1_sum"),
 }
 
 

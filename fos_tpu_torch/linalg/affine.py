@@ -27,7 +27,8 @@ import torch
 
 from fos_tpu_torch.config import as_dtype, as_tensor, default_device, eps_of
 from fos_tpu_torch.linalg import hsde_ops, lanes
-from fos_tpu_torch.linalg.cg import (CGState, conjugate_gradient,
+from fos_tpu_torch.linalg.cg import (CGState, PlusProduct,
+                                     conjugate_gradient,
                                      conjugate_gradient_pipelined,
                                      conjugate_gradient_tracked,
                                      decreasing_tolerance)
@@ -404,8 +405,11 @@ class AffinePlusLinearProjector:
                 tol = decreasing_tolerance(cg.call_idx, floor, x.dtype)
             else:
                 tol = floor
+            # I + AA' (hsde_ops.kkt_normal_mul), its product A(A'lam)
+            # handed to CG's step kernel on the card
             res = conjugate_gradient(
-                lambda lam: hsde_ops.kkt_normal_mul(self.A, lam), rhs, warm,
+                PlusProduct(lambda lam: hsde_ops.mv(
+                    self.A, hsde_ops.rmv(self.A, lam))), rhs, warm,
                 tol=tol, max_iters=self.cg_max_iters, unroll=self.CG_UNROLL)
             lam = res.x
             total = (None if cg.total_iters is None

@@ -25,6 +25,21 @@ group with one all-reduce, so each rank computes the same scalars and
 takes the same steps.  Standard CG makes 1 + 2 all-reduces per iteration,
 the pipelined variant 1 + 1 (in the JAX package GSPMD inserted these
 collectives for sharded vectors).
+
+On the card (CUDA tensors) standard and tracked CG run each iteration's
+vector work as one launch of the hand-written step kernel C1
+(:class:`fos_tpu_torch.linalg.cg_step.CGStep`), which updates the loop's
+own tensors in place (``control.while_loop(in_place=True)``): the
+operator's product of ``p`` is the only other work of an iteration.  An
+operator given as :class:`PlusProduct` (``v + w(v)`` or ``v - w(v)``)
+hands the kernel ``w(p)`` and the kernel forms ``Ap``.  A lane-axis solve
+keeps its group mask inside the kernel (frozen lanes untouched), and the
+eager loop reads the kernel's stopping flag instead of computing the test.
+With ``group`` the step runs split at its two reductions, an all-reduce
+between the launches.  ``compensated`` CG (its error-free dots) and the
+pipelined variant stay on the PyTorch route below on every device;
+:func:`_cg_step` and the tracked update are the plain versions the CPU
+runs.
 """
 
 from __future__ import annotations
@@ -34,7 +49,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 import torch.distributed as dist
 
-from fos_tpu_torch.linalg import control, lanes
+from fos_tpu_torch.linalg import cg_step, control, lanes
 
 
 class CGResult(NamedTuple):
@@ -115,6 +130,67 @@ def _cg_step(dot, Ap, p, x, r, rn, it, tol2):
     return alpha, x, r, p, torch.where(live, rn_new, rn), it + live
 
 
+class PlusProduct(NamedTuple):
+    """The operator ``v + w(v)`` (``sign`` 1) or ``v - w(v)`` (``sign``
+    -1) for a product ``w``: ``I + AA'`` (the feasibility S1), ``I +
+    Q'Q`` (``diff``'s normal solve).  Called, it is the plain operator; on
+    the card CG hands ``w(p)`` to the step kernel, which forms ``Ap``."""
+
+    w: Callable[[torch.Tensor], torch.Tensor]
+    sign: int = 1
+
+    def __call__(self, v):
+        return v + self.w(v) if self.sign > 0 else v - self.w(v)
+
+
+def _on_card(t, compensated: bool) -> bool:
+    """Whether CG takes the step kernel: vectors it takes (CUDA), plain
+    dots."""
+    return cg_step.takes(t) and not compensated
+
+
+def _owned(v, like):
+    """A contiguous copy of ``v`` with ``like``'s lane axes: a carried
+    tensor the step kernel may update in place."""
+    return v.expand(like.shape).clone(memory_format=torch.contiguous_format)
+
+
+def _card_loop(step, products, carry, rn_at, it_at, tol2, max_iters, unroll):
+    """CG's loop on the card: each iteration the operator's products of
+    the carry (``products``) and one launch of ``step``, the carry updated
+    in place; the eager loop tests the step's flag."""
+    cond = (control.CGContinue if carry[rn_at].dim() == 0
+            else control.CGContinueLanes)
+
+    def body(c):
+        for j in range(unroll):
+            step(*map(cg_step.unit_rows, products(c)), first=j == 0)
+        return c
+
+    return control.while_loop(
+        lambda c: cond(c[rn_at], tol2, c[it_at], max_iters, step.next),
+        body, carry, in_place=True)
+
+
+def step_plain(x, r, p, rn, it, tol2, w, mode=cg_step.AP_IS_W, Qx=None,
+               Qp=None, go=None):
+    """C1's plain version on C1's operands: ``Ap`` from ``p`` and the
+    product ``w`` by ``mode``, :func:`_cg_step`, the tracked update of
+    ``Qx`` (when given) and, with ``go`` (a lane-axis solve's group mask),
+    the lanes that failed the group's test kept as they were; returns new
+    ``(x, Qx, r, p, rn, it)``."""
+    Ap = (w if mode == cg_step.AP_IS_W
+          else p + w if mode == cg_step.P_PLUS_W else p - w)
+    alpha, x1, r1, p1, rn1, it1 = _cg_step(lanes.vdot, Ap, p, x, r, rn, it,
+                                           tol2)
+    Qx1 = None if Qx is None else Qx + lanes.per_lane(alpha, Qp) * Qp
+    new = (x1, Qx1, r1, p1, rn1, it1)
+    if go is None:
+        return new
+    return tuple(None if a is None else lanes.select(go, a, b)
+                 for a, b in zip(new, (x, Qx, r, p, rn, it)))
+
+
 def _loop(group, carry, rn_at, it_at, tol2, max_iters):
     """CG's outer loop over groups: one system stops on its test; with
     lanes a group's result is kept for the lanes live at its start, and the
@@ -176,10 +252,21 @@ def conjugate_gradient(
     ranks that hold the vectors' shards (module docstring)."""
     dot = _dot_fn(compensated, group)
     r = b - matvec(x0)
-    x0 = _like_lanes(x0, r)
     rn = dot(r, r)
     tol2 = _tol2(tol, b)
     it = torch.zeros(rn.shape, dtype=torch.int32, device=b.device)
+    if _on_card(r, compensated):
+        w, mode = matvec, cg_step.AP_IS_W
+        if isinstance(matvec, PlusProduct):
+            w = matvec.w
+            mode = cg_step.P_PLUS_W if matvec.sign > 0 else cg_step.P_MINUS_W
+        carry = (_owned(x0, r), _owned(r, r), _owned(r, r), rn, it)
+        step = cg_step.CGStep(*carry[:3], rn, it, tol2, max_iters, mode=mode,
+                              group=group)
+        x, _, _, rn, it = _card_loop(step, lambda c: (w(c[2]),), carry, 3, 4,
+                                     tol2, max_iters, unroll)
+        return CGResult(x=x, iters=it, rnorm=torch.sqrt(rn))
+    x0 = _like_lanes(x0, r)
 
     def group(c):
         x, r, p, rn, it = c
@@ -223,6 +310,20 @@ def conjugate_gradient_tracked(
     rn = dot(r0, r0)
     tol2 = _tol2(tol, r0)
     it = torch.zeros(rn.shape, dtype=torch.int32, device=r0.device)
+    if _on_card(r0, compensated):
+        carry = (_owned(x0, r0), _owned(Qx0, r0), _owned(r0, r0),
+                 _owned(r0, r0), rn, it)
+        x, Qx, r, p = carry[:4]
+        step = cg_step.CGStep(x, r, p, rn, it, tol2, max_iters, Qx=Qx,
+                              mode=cg_step.P_MINUS_W, group=group)
+
+        def products(c):
+            Qp = q_fn(c[3])
+            return q_fn(Qp), Qp
+
+        x, Qx, _, _, rn, it = _card_loop(step, products, carry, 4, 5, tol2,
+                                         max_iters, unroll)
+        return CGTrackedResult(x=x, Qx=Qx, iters=it, rnorm=torch.sqrt(rn))
 
     def group(c):
         x, Qx, r, p, rn, it = c

@@ -86,14 +86,19 @@ def _first(tree) -> torch.Tensor:
 
 # ------------------------------------------------------------ conditions
 class CGContinue(NamedTuple):
-    """CG's stopping test ``(rn > tol2) & (it < max_iters)``."""
+    """CG's stopping test ``(rn > tol2) & (it < max_iters)``; ``flag``, where
+    given, holds that test already (CG's step kernel writes it), and the
+    plain version reads it instead of computing it."""
 
     rn: torch.Tensor
     tol2: torch.Tensor
     it: torch.Tensor
     max_iters: int
+    flag: Any = None
 
     def plain(self) -> bool:
+        if self.flag is not None:
+            return bool(self.flag)
         return bool((self.rn > self.tol2) & (self.it < self.max_iters))
 
     def launch(self, handle: int) -> None:
@@ -104,14 +109,18 @@ class CGContinueLanes(NamedTuple):
     """CG's stopping test over lanes: any lane with ``(rn > tol2) & (it <
     max_iters)``; ``rn`` and ``it`` have one entry per lane (lanes that
     nest, ``(B, P)``, are handed to the kernel as one run of ``B P``),
-    ``tol2`` one per lane or one for all."""
+    ``tol2`` one per lane or one for all; ``flag`` as for
+    :class:`CGContinue`, one per lane."""
 
     rn: torch.Tensor
     tol2: torch.Tensor
     it: torch.Tensor
     max_iters: int
+    flag: Any = None
 
     def plain(self) -> bool:
+        if self.flag is not None:
+            return bool(self.flag.any())
         return bool(((self.rn > self.tol2) & (self.it < self.max_iters)).any())
 
     def launch(self, handle: int) -> None:
@@ -254,17 +263,19 @@ class _Captured:
 
 
 # ------------------------------------------------------- loops, branches
-def while_loop(cond, body, carry):
+def while_loop(cond, body, carry, in_place: bool = False):
     """``while cond(carry): carry = body(carry)``; ``cond`` returns a
     condition (:class:`CGContinue`, :class:`CGContinueLanes`,
-    :class:`Count`, :class:`Flag`)."""
+    :class:`Count`, :class:`Flag`).  ``in_place``: the body updates the
+    carry's tensors in place and returns them, and the caller owns them, so
+    the captured route uses them as its buffers (no copies)."""
     first = _first(carry)
     route = _route(first)
     if route is None:
         while cond(carry).plain():
             carry = body(carry)
         return carry
-    bufs = tree_map(torch.clone, carry)
+    bufs = carry if in_place else tree_map(torch.clone, carry)
     route.while_(first, lambda: cond(bufs), lambda: assign(bufs, body(bufs)))
     return bufs
 

@@ -1484,3 +1484,401 @@ def test_sharded_capture_failure_raises(cuda, tmp_path):
     calls = got["calls"]
     assert got["route"] == "graph" and got["raised"], got
     assert calls and calls[-1] and calls.count(True) == 1, got
+
+
+# ---------------------------------------------------------------- C1, C2
+# CG's step kernel (C1) and q_mul's rank-1 epilogue (C2), csrc/cg_step.cu,
+# against their plain versions (cg.step_plain, hsde_ops.q_rank1_plain) on
+# the same CUDA tensors.  Tolerance: f32 as the file's (2e-4 + 2e-5 |plain|,
+# sums in another order; for C2's dot, 2e-5 of the sum of its terms'
+# magnitudes); f64 1e-9 + 1e-9 of the same.  k covers one block
+# (1, 161, 2001), a cluster (12345, 65537) and the split launches
+# (300001 > 2^18).
+CG_KS = [1, 161, 2001, 12345, 65537, 300001]
+# C2's (n, m): n + m + 1 = k
+RANK1_NM = {1: (0, 0), 161: (96, 64), 2001: (1000, 1000),
+            12345: (6000, 6344), 65537: (32768, 32768),
+            300001: (150000, 150000)}
+
+
+def _tol(dtype):
+    return (ATOL, RTOL) if dtype == torch.float32 else (1e-9, 1e-9)
+
+
+def _close_d(got, want, dtype, scales=None):
+    """|got - want| <= atol + rtol * scale, the scale |want| unless given
+    (per output)."""
+    atol, rtol = _tol(dtype)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if w is None:
+            assert g is None
+            continue
+        d = (g.double() - w.double()).abs()
+        scale = w.double().abs() if scales is None else scales[i]
+        assert bool((d <= atol + rtol * scale).all()), float(d.max())
+
+
+def _rank1_scale(want, z, ncb):
+    """C2's tolerance scale: |plain|, and for the dot -[c; b] . z[:n+m] the
+    sum of its terms' magnitudes (a cancelling dot's rounding scales with
+    it, not with its value)."""
+    scale = want.double().abs()
+    K = ncb.shape[-1]
+    scale[..., -1] = (lanes_lead(ncb, z).double().abs()
+                      * z[..., :K].double().abs()).sum(-1)
+    return [scale]
+
+
+def lanes_lead(t, like):
+    from fos_tpu_torch.linalg import lanes
+
+    return lanes.lead(t, like)
+
+
+def _randn(rng, shape, dtype, cuda):
+    return torch.as_tensor(rng.standard_normal(shape), dtype=dtype,
+                           device=cuda)
+
+
+def _step_inputs(shape, dtype, cuda, seed, tracked=True, it_hi=3):
+    """x, r, p, rn, it, tol2 and the products w, Qx, Qp for lanes
+    ``shape[:-1]``; rn is r.r (the loop's invariant), it below it_hi.  w is
+    the product of a positive diagonal (negated for the tracked step's p -
+    w), so that Ap is an SPD operator's product, as CG's are, and den = Ap.p
+    sums positive terms: with a random w, den cancels and two f32 sum
+    orders part by ~2e-5 of it at k = 65537."""
+    rng = np.random.default_rng(seed)
+    x, r, p, Qx, Qp = (_randn(rng, shape, dtype, cuda) for _ in range(5))
+    d = torch.as_tensor(rng.uniform(0.0, 2.0, shape), dtype=dtype,
+                        device=cuda)
+    w = (-d if tracked else d) * p
+    lanes = tuple(shape[:-1])
+    rn = (r.double() * r.double()).sum(-1).to(dtype)
+    it = torch.as_tensor(rng.integers(0, it_hi, lanes), dtype=torch.int32,
+                         device=cuda)
+    tol2 = (torch.full((), 1e-3, dtype=dtype, device=cuda) if not lanes else
+            torch.as_tensor(rng.uniform(0, 1e-3, lanes), dtype=dtype,
+                            device=cuda))
+    return dict(x=x, r=r, p=p, rn=rn, it=it, tol2=tol2, w=w,
+                Qx=Qx if tracked else None, Qp=Qp if tracked else None)
+
+
+def _run_step(inp, mode, max_iters=100, group=None):
+    """C1 on copies of the state (one step, ``first``): the new state."""
+    from fos_tpu_torch.linalg import cg_step
+
+    st = {k: (None if inp[k] is None else inp[k].clone())
+          for k in ("x", "Qx", "r", "p", "rn", "it")}
+    step = cg_step.CGStep(st["x"], st["r"], st["p"], st["rn"], st["it"],
+                          inp["tol2"], max_iters, Qx=st["Qx"], mode=mode,
+                          group=group)
+    step(inp["w"], inp["Qp"], first=True)
+    return tuple(st[k] for k in ("x", "Qx", "r", "p", "rn", "it")), step
+
+
+def _plain_step(inp, mode, max_iters=100):
+    from fos_tpu_torch.linalg.cg import step_plain
+
+    go = (None if inp["rn"].dim() == 0 else
+          (inp["rn"] > inp["tol2"]) & (inp["it"] < max_iters))
+    return step_plain(inp["x"], inp["r"], inp["p"], inp["rn"], inp["it"],
+                      inp["tol2"], inp["w"], mode, inp["Qx"], inp["Qp"], go)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", CG_KS)
+def test_cg_step_matches_plain(cuda, k, dtype):
+    """C1 at each geometry, tracked (p - Q(Qp), Qx) and standard (w, p +
+    w), against the plain step; the iteration counts exact, the bits
+    repeating, one launch a step (three more with the split sums past
+    2^18, counted on the device)."""
+    from fos_tpu_torch.linalg import cg_step
+
+    for mode, tracked in ((cg_step.P_MINUS_W, True), (cg_step.AP_IS_W, False),
+                          (cg_step.P_PLUS_W, False)):
+        inp = _step_inputs((k,), dtype, cuda, k + mode, tracked)
+        _cuda.device_launch_counts(reset=True)
+        got, _ = _run_step(inp, mode)
+        counts = _cuda.device_launch_counts(reset=True)
+        split = cg_step.geometry(k)["kind"] == cg_step.MULTI
+        assert counts["cg_step"] == (3 if split else 1)
+        assert counts["cg_step_sum"] == (2 if split else 0)
+        want = _plain_step(inp, mode)
+        _close_d(got, want, dtype)
+        assert torch.equal(got[5], want[5])
+        again, _ = _run_step(inp, mode)
+        assert all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(again, got))
+
+
+@pytest.mark.parametrize("lanes", [(1,), (2,), (31,), (128,), (1024,),
+                                   (128, 31)])
+def test_cg_step_lanes_bit_equal_to_single(cuda, lanes):
+    """C1 over lanes: one launch for all of them, each lane bit-equal to a
+    single-system call on its vectors (and to the plain step within the
+    tolerance); at 31 lanes also the dense LP's and the tile LPs' k."""
+    from fos_tpu_torch.linalg import cg_step
+
+    ks = [161] + ([2001, 65537] if lanes == (31,) else [])
+    for k in ks:
+        inp = _step_inputs(lanes + (k,), torch.float32, cuda, 7 * k, it_hi=1)
+        _cuda.device_launch_counts(reset=True)
+        got, _ = _run_step(inp, cg_step.P_MINUS_W)
+        assert _cuda.device_launch_counts(reset=True)["cg_step"] == 1
+        _close_d(got, _plain_step(inp, cg_step.P_MINUS_W), torch.float32)
+        flat = [t.reshape(-1, k) if t.dim() == len(lanes) + 1 else
+                t.reshape(-1) for t in got]
+        L = flat[0].shape[0]
+        for b in sorted({0, L // 2, L - 1}):
+            one = {key: (v if key == "tol2" and v.dim() == 0 else
+                         v.reshape(L, *v.shape[len(lanes):])[b])
+                   for key, v in inp.items() if v is not None}
+            one.setdefault("Qx", None)
+            one.setdefault("Qp", None)
+            single, _ = _run_step(one, cg_step.P_MINUS_W)
+            for a, s in zip(flat, single):
+                assert torch.equal(a[b], s)
+
+
+def test_cg_step_frozen_lanes_untouched(cuda):
+    """Lanes that fail the group's test (it at max_iters, or rn <= tol2)
+    keep every carried tensor's bits, also in a later step of the group
+    (first=False), and their next flag is false."""
+    from fos_tpu_torch.linalg import cg_step
+
+    inp = _step_inputs((64, 2001), torch.float32, cuda, 3, it_hi=1)
+    max_iters = 5
+    inp["it"][::3] = max_iters
+    inp["rn"][1::5] = 0.0
+    st = {k: inp[k].clone() for k in ("x", "Qx", "r", "p", "rn", "it")}
+    step = cg_step.CGStep(st["x"], st["r"], st["p"], st["rn"], st["it"],
+                          inp["tol2"], max_iters, Qx=st["Qx"],
+                          mode=cg_step.P_MINUS_W)
+    frozen = ~((inp["rn"] > inp["tol2"]) & (inp["it"] < max_iters))
+    for first in (True, False):
+        step(inp["w"], inp["Qp"], first=first)
+    for key in ("x", "Qx", "r", "p", "rn", "it"):
+        assert torch.equal(st[key][frozen], inp[key][frozen]), key
+        assert not torch.equal(st[key][~frozen], inp[key][~frozen]) or (
+            key == "it"), key
+    assert not bool(step.next[frozen].any())
+
+
+def test_cg_step_strided_lane_views(cuda):
+    """The state and the products as views into wider rows (z[..., :l]):
+    read and written in place at their lane strides, bit-equal to the same
+    step on contiguous copies; a view whose lanes do not flatten raises."""
+    from fos_tpu_torch.linalg import cg_step
+
+    rng = np.random.default_rng(11)
+    L, k = 31, 2001
+    wide = {key: _randn(rng, (L, 2 * k + 3), torch.float32, cuda)
+            for key in ("x", "Qx", "r", "p", "w", "Qp")}
+    views = {key: v[:, 1: k + 1] for key, v in wide.items()}
+    rn = (views["r"] * views["r"]).sum(-1)
+    it = torch.zeros(L, dtype=torch.int32, device=cuda)
+    tol2 = torch.full((), 1e-3, device=cuda)
+    inp = dict(views, rn=rn, it=it, tol2=tol2)
+    want, _ = _run_step({k2: (v.contiguous() if v.dim() == 2 else v)
+                         for k2, v in inp.items()}, cg_step.P_MINUS_W)
+    before = wide["x"].clone()
+    st = dict(views, rn=rn.clone(), it=it.clone())
+    step = cg_step.CGStep(st["x"], st["r"], st["p"], st["rn"], st["it"],
+                          tol2, 100, Qx=st["Qx"], mode=cg_step.P_MINUS_W)
+    step(views["w"], views["Qp"], first=True)
+    for key, w in zip(("x", "Qx", "r", "p", "rn", "it"), want):
+        assert torch.equal(st[key], w), key
+    # the wide rows' other columns are untouched
+    assert torch.equal(wide["x"][:, 0], before[:, 0])
+    assert torch.equal(wide["x"][:, k + 1:], before[:, k + 1:])
+    bad = _randn(rng, (4, 5, k), torch.float32, cuda).transpose(0, 1)
+    with pytest.raises(ValueError):
+        cg_step.CGStep(bad, bad.clone(), bad.clone(),
+                       torch.ones(5, 4, device=cuda),
+                       torch.zeros(5, 4, dtype=torch.int32, device=cuda),
+                       tol2, 10)
+
+
+def test_cg_step_and_rank1_raise(cuda):
+    """On CUDA tensors C1 and C2 launch or raise: an operand that needs a
+    gradient, f16, one on another device, a row that is not contiguous."""
+    from fos_tpu_torch.linalg import cg_step
+
+    inp = _step_inputs((161,), torch.float32, cuda, 1)
+    _, step = _run_step(inp, cg_step.P_MINUS_W)
+    with pytest.raises(ValueError, match="requires grad"):
+        step(inp["w"].clone().requires_grad_(), inp["Qp"])
+    with pytest.raises(TypeError):
+        step(inp["w"].double(), inp["Qp"])
+    with pytest.raises(ValueError, match="is on"):
+        step(inp["w"].cpu(), inp["Qp"])
+    h = {k: (v.half() if v is not None and v.is_floating_point() else v)
+         for k, v in inp.items()}
+    with pytest.raises(TypeError):
+        cg_step.CGStep(h["x"], h["r"], h["p"], h["rn"], h["it"], h["tol2"],
+                       10)
+    rng = np.random.default_rng(2)
+    n, m = 96, 64
+    z = _randn(rng, (n + m + 1,), torch.float32, cuda)
+    az, atz = _randn(rng, (m,), torch.float32, cuda), _randn(
+        rng, (n,), torch.float32, cuda)
+    b, c = _randn(rng, (m,), torch.float32, cuda), _randn(
+        rng, (n,), torch.float32, cuda)
+    ncb = -torch.cat([c, b])
+    with pytest.raises(ValueError, match="requires grad"):
+        cg_step.q_rank1(az.requires_grad_(), atz, z, b, c, ncb)
+    with torch.no_grad():   # no graph recorded: a leaf's values are taken
+        cg_step.q_rank1(az, atz, z, b, c, ncb)
+    with pytest.raises(TypeError):
+        cg_step.q_rank1(*(t.half() for t in (az.detach(), atz, z, b, c,
+                                              ncb)))
+    with pytest.raises(ValueError, match="is on"):
+        cg_step.q_rank1(az.detach(), atz.cpu(), z, b, c, ncb)
+    strided = _randn(rng, (2 * n,), torch.float32, cuda)[::2]
+    with pytest.raises(ValueError, match="not contiguous"):
+        cg_step.q_rank1(az.detach(), strided, z, b, c, ncb)
+
+
+def _rank1_inputs(lanes, inst, n, m, dtype, cuda, seed):
+    rng = np.random.default_rng(seed)
+    z = _randn(rng, lanes + (n + m + 1,), dtype, cuda)
+    az = _randn(rng, lanes + (m,), dtype, cuda)
+    atz = _randn(rng, lanes + (n,), dtype, cuda)
+    b = _randn(rng, inst + (m,), dtype, cuda)
+    c = _randn(rng, inst + (n,), dtype, cuda)
+    return az, atz, z, b, c, -torch.cat([c, b], -1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", CG_KS)
+def test_q_rank1_matches_plain(cuda, k, dtype):
+    """C2 at each geometry against q_mul's plain epilogue; bits repeat; one
+    launch (and one dependent sum past 2^18)."""
+    from fos_tpu_torch.linalg import cg_step, hsde_ops
+
+    n, m = RANK1_NM[k]
+    args = _rank1_inputs((), (), n, m, dtype, cuda, k)
+    _cuda.device_launch_counts(reset=True)
+    got = cg_step.q_rank1(*args)
+    counts = _cuda.device_launch_counts(reset=True)
+    split = cg_step.geometry(n + m)["kind"] == cg_step.MULTI
+    assert counts["q_rank1"] == 1
+    assert counts["q_rank1_sum"] == (1 if split else 0)
+    want = hsde_ops.q_rank1_plain(*args)
+    _close_d([got], [want], dtype, _rank1_scale(want, args[2], args[5]))
+    assert torch.equal(cg_step.q_rank1(*args), got)
+
+
+@pytest.mark.parametrize("lanes,inst", [((1,), ()), ((2,), (2,)),
+                                        ((31,), ()), ((128,), (128,)),
+                                        ((1024,), (1024,)),
+                                        ((128, 31), (128,))])
+def test_q_rank1_lanes_bit_equal_to_single(cuda, lanes, inst):
+    """C2 over lanes, instance data shared or one row per instance (the
+    batched line search's (B, P) candidates against (B,) instances): one
+    launch, each lane bit-equal to a single call with its instance's
+    data, and within the tolerance of the plain epilogue."""
+    from fos_tpu_torch.linalg import cg_step, hsde_ops
+
+    n, m = 96, 64
+    az, atz, z, b, c, ncb = _rank1_inputs(lanes, inst, n, m, torch.float32,
+                                          cuda, len(lanes) * 100 + lanes[0])
+    _cuda.device_launch_counts(reset=True)
+    got = cg_step.q_rank1(az, atz, z, b, c, ncb)
+    assert _cuda.device_launch_counts(reset=True)["q_rank1"] == 1
+    want = hsde_ops.q_rank1_plain(az, atz, z, b, c, ncb)
+    _close_d([got], [want], torch.float32, _rank1_scale(want, z, ncb))
+    L = got[..., 0].numel()
+    per = L // max(1, b[..., 0].numel())
+    flat = got.reshape(L, -1)
+    for j in sorted({0, L // 2, L - 1}):
+        d = j // per
+        data = [t if not inst else t.reshape(-1, t.shape[-1])[d]
+                for t in (b, c, ncb)]
+        one = cg_step.q_rank1(az.reshape(L, m)[j], atz.reshape(L, n)[j],
+                              z.reshape(L, -1)[j], *data)
+        assert torch.equal(flat[j], one)
+
+
+def test_q_rank1_strided_views(cuda):
+    """z and the products as rows of wider tensors (the state's slices):
+    bit-equal to contiguous copies."""
+    from fos_tpu_torch.linalg import cg_step
+
+    n, m, L = 1000, 1000, 31
+    az, atz, z, b, c, ncb = _rank1_inputs((L,), (), n, m, torch.float32,
+                                          cuda, 5)
+    wide = torch.cat([z, z], -1)
+    got = cg_step.q_rank1(az, atz, wide[:, : n + m + 1], b, c, ncb)
+    assert torch.equal(got, cg_step.q_rank1(az, atz, z, b, c, ncb))
+
+
+def test_q_rank1_derivative_rules(cuda):
+    """QRank1Fn (C2 under autograd) against numerical derivatives, reverse
+    and forward mode, in f64 on the card, with per-instance data and
+    lanes."""
+    from fos_tpu_torch.linalg import cg_step
+
+    args = _rank1_inputs((3, 2), (3,), 5, 4, torch.float64, cuda, 9)
+    args = tuple(t.detach().requires_grad_() for t in args)
+    assert torch.autograd.gradcheck(cg_step.rank1, args,
+                                    check_forward_ad=True)
+
+
+@pytest.mark.parametrize("k", [2001, 65537, 300001])
+def test_cg_step_split_bit_equal_at_world_size_1(cuda, nccl_mesh, k):
+    """With a process group the step runs split at its two reductions, an
+    all-reduce between the launches: over a world-size-1 NCCL group, bit-
+    equal to the fused launch, over lanes too."""
+    import torch.distributed as dist
+
+    from fos_tpu_torch.linalg import cg_step
+
+    for shape in ((k,), (3, k)):
+        inp = _step_inputs(shape, torch.float32, cuda, k, it_hi=1)
+        fused, _ = _run_step(inp, cg_step.P_MINUS_W)
+        split, _ = _run_step(inp, cg_step.P_MINUS_W, group=dist.group.WORLD)
+        assert all(torch.equal(a, b) for a, b in zip(fused, split))
+
+
+def test_cg_solves_through_c1_c2(cuda):
+    """Tracked and standard CG on the card (one system, lanes, nested
+    lanes) through C1 and C2: against the CPU's plain route in f64, each
+    lane's iteration count within one (at the tolerance, the card's sum
+    order can take one more or one fewer step) and its solution within
+    1e-8."""
+    from fos_tpu_torch.linalg import hsde_ops
+    from fos_tpu_torch.linalg.cg import (PlusProduct, conjugate_gradient,
+                                         conjugate_gradient_tracked)
+
+    rng = np.random.default_rng(4)
+    m, n = 40, 60
+    A = rng.standard_normal((m, n))
+    b, c = rng.standard_normal(m), rng.standard_normal(n)
+    l = m + n + 1
+    for lanes in ((), (5,), (2, 3)):
+        r0 = rng.standard_normal(lanes + (l,))
+        outs = {}
+        for on_card in (False, True):
+            dev = cuda if on_card else torch.device("cpu")
+            t = lambda v: torch.as_tensor(v, device=dev)  # noqa: E731
+            At, bt, ct = t(A), t(b), t(c)
+            q = lambda v: hsde_ops.q_mul(At, bt, ct, v)  # noqa: E731
+            x0 = torch.zeros(l, dtype=torch.float64, device=dev)
+            if on_card:
+                _cuda.device_launch_counts(reset=True)
+            res = conjugate_gradient_tracked(q, t(r0), x0, x0, tol=1e-9,
+                                             max_iters=200, unroll=2)
+            std = conjugate_gradient(PlusProduct(
+                lambda v: q(q(v)), -1), t(r0), x0, tol=1e-9, max_iters=200)
+            if on_card:
+                counts = _cuda.device_launch_counts(reset=True)
+                assert counts["cg_step"] > 0 and counts["q_rank1"] > 0
+            outs[on_card] = (res, std)
+        for want, got in zip(outs[False], outs[True]):
+            assert int((want.iters - got.iters.cpu()).abs().max()) <= 1
+            np.testing.assert_allclose(got.x.cpu().numpy(), want.x.numpy(),
+                                       rtol=1e-8, atol=1e-8)
+            # a converged residual norm is rounding (both below tol)
+            assert bool((got.rnorm <= 1e-9).all())
+            assert bool((want.rnorm <= 1e-9).all())
