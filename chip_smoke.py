@@ -201,7 +201,10 @@ batch's part; phase 9's,
 (``cg_step``, ``q_rank1``) are gated > 0 in every phase that runs a CG
 (2, 5 (``launches_phase5``, its three routes), 6-10 and the wrapped
 batch and diff cells; phase 3, which runs no q_mul, C1 alone); their
-``launches`` are phases 2 and 3's.  The line
+``launches`` are phases 2 and 3's, their ``launches_cones_path`` phase 6's,
+and their dependent sums (``cg_step_sum``, ``q_rank1_sum``: the split
+launches past 2^18, which phase 6's SDPs run) are gated > 0 in phase 6
+and printed as its ``sum_launches``.  The line
 before the kernels line gives each phase's seconds.  The wrappers' host
 counts (``_cuda.LAUNCHES``) count the calls that launched or captured a
 kernel (``captured_calls``): a replay calls no wrapper.
@@ -893,16 +896,22 @@ def tile_lane_cells(dev, band, ell, yardsticks):
 # shapes the paths give them, (name, lanes, k or (n, m), C1's mode): the
 # dense LP's HSDE (l = 2001), the 32768^2 tile LPs' (65537), the
 # feasibility S1's I + AA' (32768), batched_lp_128's instances (128 x 161,
-# per-instance b, c) and the dense LP's line-search probes (31 x 2001)
+# per-instance b, c), the dense LP's line-search probes (31 x 2001) and
+# phase 6's SDPs (n = L = d (d + 1) / 2, m = L + 1: l = 2 L + 2, past 2^18,
+# so the split launches and their dependent sums, lane_sums)
 CG_STEP_CELLS = (("dense_lp", (), 2001, "tracked"),
                  ("tile_lp", (), 65537, "tracked"),
                  ("feasibility", (), 32768, "plus"),
                  ("batched_lp_128", (128,), 161, "tracked"),
-                 ("dense_probes", (LINESEARCH_LANES,), 2001, "tracked"))
+                 ("dense_probes", (LINESEARCH_LANES,), 2001, "tracked"),
+                 ("sdp_512", (), 262658, "tracked"),
+                 ("sdp_1024", (), 1049602, "tracked"))
 Q_RANK1_CELLS = (("dense_lp", (), (), 1000, 1000),
                  ("tile_lp", (), (), 32768, 32768),
                  ("batched_lp_128", (128,), (128,), 96, 64),
-                 ("dense_probes", (LINESEARCH_LANES,), (), 1000, 1000))
+                 ("dense_probes", (LINESEARCH_LANES,), (), 1000, 1000),
+                 ("sdp_512", (), (), 131328, 131329),
+                 ("sdp_1024", (), (), 524800, 524801))
 CG_STEP_MAX_ITERS = 1000
 CG_KERNELS = ("cg_step", "q_rank1")
 # the XLA fusions the kernels take the place of (no Pallas kernel)
@@ -967,12 +976,26 @@ def cg_kernel_cells(dev):
     version (the PyTorch sequence it replaces) on the same inputs, bits
     repeating, each lane bit-equal to a single call; the step's device,
     call and graph-replay times beside the plain sequence's and the bound
-    (bytes; in practice a launch).  Returns the kernels line's entries
-    (the dense LP's shape)."""
+    (bytes; in practice a launch).  At the SDPs' lengths (the split
+    launches) the device must count each kernel's dependent sums
+    (``cg_step_sum`` 2, ``q_rank1_sum`` 1 a call), printed as
+    ``sum_launches``.  Returns the kernels line's entries (the dense LP's
+    shape)."""
     import torch
     from fos_tpu_torch.linalg import _cuda, cg_step, hsde_ops
     from fos_tpu_torch.linalg.cg import step_plain
     from fos_tpu_torch.linalg.lanes import lead as lanes_lead
+
+    def sums(name, launch, want):
+        """The device's counts of one ``launch``: ``name`` once and its
+        dependent sums ``want`` times (split geometry) or never."""
+        _cuda.device_launch_counts(reset=True)
+        launch()
+        got = _cuda.device_launch_counts(reset=True)
+        if got[name] != (3 if want == 2 else 1) or got[f"{name}_sum"] != want:
+            raise AssertionError(f"{name}: launched {dict(got)}, expected "
+                                 f"{want} dependent sums")
+        return got[f"{name}_sum"]
 
     entries = {}
     for name, lanes, k, kind in CG_STEP_CELLS:
@@ -1002,6 +1025,9 @@ def cg_kernel_cells(dev):
                    copying_call_ms=res["ms"])
         res["graph_us"], _ = graph_us(step)
         res["plain_graph_us"], _ = graph_us(plain)
+        split = cg_step.geometry(k)["kind"] == cg_step.MULTI
+        res["sum_launches"] = sums("cg_step", lambda: _cg_step_run(inp),
+                                   2 if split else 0)
         vectors = 10 if kind == "tracked" else 7   # in x r p w (Qx Qp), out
         res.update(bound(4 * L * (vectors * k + 4), 13 * L * k),
                    library_ms=None,
@@ -1038,11 +1064,12 @@ def cg_kernel_cells(dev):
         z = arr(lanes + (n + m + 1,))
         az, atz = arr(lanes + (m,)), arr(lanes + (n,))
         b, c = arr(inst + (m,)), arr(inst + (n,))
-        args = (az, atz, z, b, c, -torch.cat([c, b], -1))
+        args = (az, atz, z, b, c)
+
         def scales(want):
             # the dot -[c; b] . z[:n+m]: the sum of its terms' magnitudes
             s = want[0].abs()
-            s[..., -1] = (lanes_lead(args[5], z).abs()
+            s[..., -1] = (lanes_lead(torch.cat([c, b], -1), z).abs()
                           * z[..., : n + m].abs()).sum(-1)
             return [s]
 
@@ -1051,10 +1078,13 @@ def cg_kernel_cells(dev):
         res["graph_us"], _ = graph_us(lambda: cg_step.q_rank1(*args))
         res["plain_graph_us"], _ = graph_us(
             lambda: hsde_ops.q_rank1_plain(*args))
+        split = cg_step.geometry(n + m)["kind"] == cg_step.MULTI
+        res["sum_launches"] = sums("q_rank1", lambda: cg_step.q_rank1(*args),
+                                   1 if split else 0)
         L = max(1, z[..., 0].numel())
         D = max(1, b[..., 0].numel())
-        # z, A z1, A'z2 per lane, b, c, -[c; b] per instance, out per lane
-        nbytes = 4 * (L * (2 * (n + m + 1) + n + m) + D * 2 * (n + m))
+        # z, A z1, A'z2 and out per lane, b and c per instance
+        nbytes = 4 * (L * (2 * (n + m + 1) + n + m) + D * (n + m))
         res.update(bound(nbytes, 4 * L * (n + m)), library_ms=None,
                    library="none (the plain version is the PyTorch "
                            "sequence the kernel replaces)",
@@ -4891,7 +4921,12 @@ def main() -> int:
     if not all(cone_counts[k] for k in ("fused_matvec", "band_mv_pair",
                                         "bell_mv_pair")):
         raise AssertionError(f"phase 6 did not launch K1-K3: {cone_counts}")
-    _gate_cg_kernels("phase 6", cone_counts, CG_KERNELS)
+    # the SDPs' CG (l past 2^18) runs C1 and C2 split, with their sums
+    for name in CG_KERNELS:
+        kernels[name]["launches_cones_path"] = cone_counts[name]
+        kernels[name]["sum_launches"] = cone_counts[f"{name}_sum"]
+    _gate_cg_kernels("phase 6", cone_counts,
+                     (*CG_KERNELS, *(f"{k}_sum" for k in CG_KERNELS)))
 
     clock.append(("phase7", time.perf_counter()))
     # --- phase 7: refine, the wrappers and the batched solve (this slice's

@@ -18,7 +18,7 @@
 // the line search's candidate steps, a batched solve's instances, or both
 // nested, flattened to L lanes; each vector is one contiguous row per lane
 // at a lane stride (rows of a larger tensor will do).  C2's instance data
-// (b, c, -[c; b]) is shared by all lanes (stride 0) or one row per `per`
+// (b, c) is shared by all lanes (stride 0) or one row per `per`
 // consecutive lanes.
 //
 // What bounds them: the bytes (C1 reads six vectors of k and writes four,
@@ -341,13 +341,15 @@ lane_sums(const Acc* __restrict__ part, int parts, T* out, long long stride,
 template <class T>
 struct Rank1Args {
   int n, m, lanes, per, parts;
-  const T *z, *az, *atz, *b, *c, *ncb;
-  long long sz, saz, satz, sb, sc, sncb;
+  const T *z, *az, *atz, *b, *c;
+  long long sz, saz, satz, sb, sc;
   T* out;    // (lanes, n + m + 1), contiguous
   Acc* part;   // lanes * parts (kMulti)
 };
 
-// C2: out = [A'z2 + c z3, b z3 - A z1, ncb . z[:n+m]] for every lane.
+// C2: out = [A'z2 + c z3, b z3 - A z1, -[c; b] . z[:n+m]] for every lane.
+// The dot's terms are -c_i z1_i, then -b_j z2_j: negation is exact, so they
+// are the bits of -[c; b] . z[:n+m] formed from a stored -[c; b].
 template <class T, int kGeo>
 __global__ void __launch_bounds__(1024) q_rank1(Rank1Args<T> a) {
   __shared__ Acc red[32];
@@ -365,14 +367,14 @@ __global__ void __launch_bounds__(1024) q_rank1(Rank1Args<T> a) {
   const T* atz = a.atz + lane * a.satz;
   const T* b = a.b + d * a.sb;
   const T* c = a.c + d * a.sc;
-  const T* ncb = a.ncb + d * a.sncb;
   T* out = a.out + lane * (K + 1);
   const T z3 = z[K];
   Acc acc = Acc(0);
   for (long long i = s.start; i < s.end; i += s.stride) {
-    out[i] = i < n ? add_rn(atz[i], mul_rn(c[i], z3))
-                   : sub_rn(mul_rn(b[i - n], z3), az[i - n]);
-    acc = fma_rn(Acc(ncb[i]), Acc(z[i]), acc);
+    const T ci = i < n ? c[i] : b[i - n];
+    out[i] = i < n ? add_rn(atz[i], mul_rn(ci, z3))
+                   : sub_rn(mul_rn(ci, z3), az[i - n]);
+    acc = fma_rn(-Acc(ci), Acc(z[i]), acc);
   }
   if (kGeo == kMulti) {
     const Acc t = block_total(acc, red);
@@ -478,11 +480,9 @@ int rank1_launch(const long long* s) {
   a.sb = s[12];
   a.c = rec.ptr<const T>(13);
   a.sc = s[14];
-  a.ncb = rec.ptr<const T>(15);
-  a.sncb = s[16];
-  a.out = rec.ptr<T>(17);
-  a.part = rec.ptr<Acc>(18);
-  const cudaStream_t st = rec.stream(19);
+  a.out = rec.ptr<T>(15);
+  a.part = rec.ptr<Acc>(16);
+  const cudaStream_t st = rec.stream(17);
   const long long K = (long long)a.n + a.m;
   const Geometry g = geometry(K);
   a.parts = g.parts;
@@ -535,8 +535,8 @@ int fos_cg_step(const long long* slots) {
 // C2.  Record: 0 dtype, 1 n, 2 m, 3 lanes, 4 per (lanes per row of the
 // instance data), 5 z (lanes, n + m + 1), 6 its lane stride, 7 A z1
 // (lanes, m), 8, 9 A'z2 (lanes, n), 10, 11 b, 12 its row stride (0:
-// shared), 13 c, 14, 15 -[c; b], 16, 17 out (lanes, n + m + 1) contiguous,
-// 18 part (kMulti, f64) or 0, 19 stream.
+// shared), 13 c, 14, 15 out (lanes, n + m + 1) contiguous, 16 part
+// (kMulti, f64) or 0, 17 stream.
 int fos_q_rank1(const long long* slots) {
   return slots[0] ? rank1_launch<double>(slots) : rank1_launch<float>(slots);
 }

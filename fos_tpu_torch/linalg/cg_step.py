@@ -201,13 +201,12 @@ class CGStep:
 _rank1_slots = None
 
 
-def q_rank1(Az1, ATz2, z, b, c, neg_cb):
-    """C2: ``[ATz2 + c z3, b z3 - Az1, neg_cb . z[..., :n+m]]`` in one
+def q_rank1(Az1, ATz2, z, b, c):
+    """C2: ``[ATz2 + c z3, b z3 - Az1, -[c; b] . z[..., :n+m]]`` in one
     launch, where ``z3 = z[..., n+m]``; ``z`` ``(*lanes, n+m+1)``, ``Az1``
     ``(*lanes, m)``, ``ATz2`` ``(*lanes, n)``; ``b`` ``(*inst, m)``, ``c``
-    ``(*inst, n)``, ``neg_cb`` ``(*inst, n+m)`` with ``inst`` empty (shared
-    by all lanes) or leading ``lanes`` (one row per instance, its
-    candidates after it)."""
+    ``(*inst, n)`` with ``inst`` empty (shared by all lanes) or leading
+    ``lanes`` (one row per instance, its candidates after it)."""
     global _rank1_slots
     name = "q_rank1"
     dtype, device = z.dtype, z.device
@@ -221,15 +220,13 @@ def q_rank1(Az1, ATz2, z, b, c, neg_cb):
     if (z.shape[-1] != n + m + 1 or tuple(Az1.shape) != lane_shape + (m,)
             or tuple(ATz2.shape) != lane_shape + (n,)
             or tuple(c.shape[:-1]) != inst
-            or tuple(neg_cb.shape) != inst + (n + m,)
             or lane_shape[: len(inst)] != inst):
         raise ValueError(f"{name}: z {tuple(z.shape)}, A z1 "
                          f"{tuple(Az1.shape)}, A'z2 {tuple(ATz2.shape)}, b "
-                         f"{tuple(b.shape)}, c {tuple(c.shape)}, -[c; b] "
-                         f"{tuple(neg_cb.shape)} do not fit")
+                         f"{tuple(b.shape)}, c {tuple(c.shape)} do not fit")
     rows = {key: _rows(t, name, key, dtype, device)
             for key, t in (("z", z), ("A z1", Az1), ("A'z2", ATz2),
-                           ("b", b), ("c", c), ("-[c; b]", neg_cb))}
+                           ("b", b), ("c", c))}
     L = rows["z"][0].shape[0]
     per = L // rows["b"][0].shape[0]
     out = torch.empty(lane_shape + (n + m + 1,), dtype=dtype, device=device)
@@ -238,17 +235,17 @@ def q_rank1(Az1, ATz2, z, b, c, neg_cb):
                         device=device)
             if geo["kind"] == MULTI else None)
     if _rank1_slots is None:
-        _rank1_slots = (ctypes.c_longlong * 20)()
+        _rank1_slots = (ctypes.c_longlong * 18)()
     s = _rank1_slots
     s[0], s[1], s[2], s[3], s[4] = _DTYPES[dtype], n, m, L, per
     i = 5
-    for key in ("z", "A z1", "A'z2", "b", "c", "-[c; b]"):
+    for key in ("z", "A z1", "A'z2", "b", "c"):
         flat, stride = rows[key]
         s[i], s[i + 1] = flat.data_ptr(), stride
         i += 2
-    s[17] = out.data_ptr()
-    s[18] = 0 if part is None else part.data_ptr()
-    s[19] = torch._C._cuda_getCurrentRawStream(device.index)
+    s[15] = out.data_ptr()
+    s[16] = 0 if part is None else part.data_ptr()
+    s[17] = torch._C._cuda_getCurrentRawStream(device.index)
     rc = _cuda.library().fos_q_rank1(ctypes.addressof(s))
     if rc:
         _cuda.check(rc, name)
@@ -261,13 +258,13 @@ def unit_rows(t):
     return t if t.shape[-1] < 2 or t.stride(-1) == 1 else t.contiguous()
 
 
-def rank1(Az1, ATz2, z, b, c, neg_cb):
+def rank1(Az1, ATz2, z, b, c):
     """``q_mul``'s epilogue on the card: C2, through :class:`QRank1Fn`
     when autograd watches one of the operands."""
     Az1, ATz2 = unit_rows(Az1), unit_rows(ATz2)
-    if differentiated(Az1, ATz2, z, b, c, neg_cb):
-        return QRank1Fn.apply(Az1, ATz2, z, b, c, neg_cb)
-    return q_rank1(Az1, ATz2, z, b, c, neg_cb)
+    if differentiated(Az1, ATz2, z, b, c):
+        return QRank1Fn.apply(Az1, ATz2, z, b, c)
+    return q_rank1(Az1, ATz2, z, b, c)
 
 
 def _sum_to(g, like):
@@ -279,15 +276,15 @@ def _sum_to(g, like):
 class QRank1Fn(torch.autograd.Function):
     """C2 with derivative rules: the epilogue is linear in ``(Az1, ATz2,
     z)`` for fixed data and bilinear in the data.  Reverse: ``g_ATz2 =
-    g1``, ``g_Az1 = -g2``, ``g_z = [g3 neg_cb, c.g1 + b.g2]``, ``g_c = g1
-    z3``, ``g_b = g2 z3``, ``g_neg_cb = g3 z[:n+m]`` (summed over the lanes
-    that share an instance's row); forward: the same terms by the
-    tangents.  The TPU's XLA differentiated its fusion; the rules are
-    plain PyTorch on the saved operands."""
+    g1``, ``g_Az1 = -g2``, ``g_z = [-g3 [c; b], c.g1 + b.g2]``, ``g_c = g1
+    z3 - g3 z1``, ``g_b = g2 z3 - g3 z2`` (summed over the lanes that share
+    an instance's row); forward: the same terms by the tangents.  The
+    TPU's XLA differentiated its fusion; the rules are plain PyTorch on
+    the saved operands."""
 
     @staticmethod
-    def forward(Az1, ATz2, z, b, c, neg_cb):
-        return q_rank1(*(t.detach() for t in (Az1, ATz2, z, b, c, neg_cb)))
+    def forward(Az1, ATz2, z, b, c):
+        return q_rank1(*(t.detach() for t in (Az1, ATz2, z, b, c)))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -296,36 +293,33 @@ class QRank1Fn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        Az1, ATz2, z, b, c, ncb = ctx.saved_tensors
+        Az1, ATz2, z, b, c = ctx.saved_tensors
         n, m = c.shape[-1], b.shape[-1]
-        g1, g2, g3 = g[..., :n], g[..., n: n + m], g[..., n + m]
-        z3 = z[..., n + m, None]
-        bl, cl, nl = (lanes.lead(t, z) for t in (b, c, ncb))
+        g1, g2, g3 = g[..., :n], g[..., n: n + m], g[..., n + m, None]
+        z1, z2, z3 = z[..., :n], z[..., n: n + m], z[..., n + m, None]
+        bl, cl = (lanes.lead(t, z) for t in (b, c))
         need = ctx.needs_input_grad
-        out = [None] * 6
+        out = [None] * 5
         if need[0]:
             out[0] = -g2
         if need[1]:
             out[1] = g1
         if need[2]:
-            out[2] = torch.cat([g3[..., None] * nl,
+            out[2] = torch.cat([-g3 * cl, -g3 * bl,
                                 ((g1 * cl).sum(-1) + (g2 * bl).sum(-1))
                                 [..., None]], -1)
         if need[3]:
-            out[3] = _sum_to(g2 * z3, bl).reshape(b.shape)
+            out[3] = _sum_to(g2 * z3 - g3 * z2, bl).reshape(b.shape)
         if need[4]:
-            out[4] = _sum_to(g1 * z3, cl).reshape(c.shape)
-        if need[5]:
-            out[5] = _sum_to(g3[..., None] * z[..., : n + m],
-                             nl).reshape(ncb.shape)
+            out[4] = _sum_to(g1 * z3 - g3 * z1, cl).reshape(c.shape)
         return tuple(out)
 
     @staticmethod
-    def jvp(ctx, dAz1, dATz2, dz, db, dc, dncb):
-        Az1, ATz2, z, b, c, ncb = ctx.saved_tensors
+    def jvp(ctx, dAz1, dATz2, dz, db, dc):
+        Az1, ATz2, z, b, c = ctx.saved_tensors
         n, m = c.shape[-1], b.shape[-1]
-        z3 = z[..., n + m, None]
-        bl, cl, nl = (lanes.lead(t, z) for t in (b, c, ncb))
+        z1, z2, z3 = z[..., :n], z[..., n: n + m], z[..., n + m, None]
+        bl, cl = (lanes.lead(t, z) for t in (b, c))
         zeros = torch.zeros(z.shape[:-1], dtype=z.dtype, device=z.device)
         y1 = torch.zeros_like(ATz2) if dATz2 is None else dATz2
         y2 = torch.zeros_like(Az1) if dAz1 is None else -dAz1
@@ -334,11 +328,14 @@ class QRank1Fn(torch.autograd.Function):
             dz3 = dz[..., n + m, None]
             y1 = y1 + cl * dz3
             y2 = y2 + bl * dz3
-            y3 = y3 + (nl * dz[..., : n + m]).sum(-1)
+            y3 = y3 - (cl * dz[..., :n]).sum(-1) - (bl * dz[..., n: n + m]
+                                                    ).sum(-1)
         if dc is not None:
-            y1 = y1 + lanes.lead(dc, z) * z3
+            dcl = lanes.lead(dc, z)
+            y1 = y1 + dcl * z3
+            y3 = y3 - (dcl * z1).sum(-1)
         if db is not None:
-            y2 = y2 + lanes.lead(db, z) * z3
-        if dncb is not None:
-            y3 = y3 + (lanes.lead(dncb, z) * z[..., : n + m]).sum(-1)
+            dbl = lanes.lead(db, z)
+            y2 = y2 + dbl * z3
+            y3 = y3 - (dbl * z2).sum(-1)
         return torch.cat([y1, y2, y3[..., None]], -1)

@@ -115,26 +115,27 @@ def q_mul(A, b, c, z, neg_cb=None):
     ``neg_cb`` is ``-cat([c, b])``, which a caller applying Q many times
     precomputes: the last entry ``-c'z1 - b'z2`` is then one dot product.
     On the card the rank-1 terms are one launch of the kernel C2
-    (:func:`fos_tpu_torch.linalg.cg_step.rank1`), elsewhere its plain
-    version :func:`q_rank1_plain`.
+    (:func:`fos_tpu_torch.linalg.cg_step.rank1`, which forms that dot from
+    ``b`` and ``c``), elsewhere its plain version :func:`q_rank1_plain`.
     """
     n = c.shape[-1]
     m = b.shape[-1]
     z1 = z[..., :n]
     z2 = z[..., n: n + m]
     Az1, ATz2 = mv_pair(A, z1, z2)
-    if neg_cb is None:
-        neg_cb = -torch.cat([c, b], -1)
     if cg_step.takes(z):
-        return cg_step.rank1(Az1, ATz2, z, b, c, neg_cb)
+        return cg_step.rank1(Az1, ATz2, z, b, c)
     return q_rank1_plain(Az1, ATz2, z, b, c, neg_cb)
 
 
-def q_rank1_plain(Az1, ATz2, z, b, c, neg_cb):
+def q_rank1_plain(Az1, ATz2, z, b, c, neg_cb=None):
     """``q_mul``'s rank-1 epilogue in plain PyTorch (the version C2 is held
-    to): ``[ATz2 + c z3, b z3 - Az1, neg_cb . z[:n+m]]``."""
+    to): ``[ATz2 + c z3, b z3 - Az1, neg_cb . z[:n+m]]``, ``neg_cb`` being
+    ``-cat([c, b])`` (formed here unless given)."""
     n = c.shape[-1]
     m = b.shape[-1]
+    if neg_cb is None:
+        neg_cb = -torch.cat([c, b], -1)
     z3 = lanes.per_lane(z[..., n + m], z[..., :n])
     b, c, neg_cb = (lanes.lead(v, z) for v in (b, c, neg_cb))
     y3 = lanes.vdot(neg_cb, z[..., : n + m])

@@ -12,7 +12,8 @@ driven here with the plain step in the kernel's place.
   port's plain route.
 * ``hsde_ops.q_rank1_plain`` (the version C2 is held to) against
   ``fos_tpu.linalg.hsde_ops.q_mul``, over lanes with shared and
-  per-instance ``b``, ``c``.
+  per-instance ``b``, ``c``; C2's derivative rules (``QRank1Fn``) against
+  numerical derivatives, the plain epilogue in the kernel's place.
 * The routing: CPU tensors reach the plain versions and never C1 or C2;
   ``compensated=True`` and the pipelined variant never reach C1.
 
@@ -265,6 +266,27 @@ def test_q_rank1_plain_matches_jax(lanes, inst):
     np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0, atol=TOL)
     tq = hsde_ops.q_mul(_t(A), _t(b), _t(c), _t(z))
     np.testing.assert_allclose(_np(tq), np.asarray(want), rtol=0, atol=TOL)
+
+
+@pytest.mark.parametrize("lanes,inst", [((), ()), ((4,), ()),
+                                        ((3, 2), (3,))])
+def test_q_rank1_rules_match_numerical_derivatives(monkeypatch, lanes, inst):
+    """QRank1Fn's reverse and forward rules (C2 under autograd: the dot
+    -[c; b] . z[:n+m] formed from b and c) against numerical derivatives,
+    f64, shared and per-instance data; the forward is the plain epilogue
+    here, where the card launches C2."""
+    monkeypatch.setattr(cg_step, "q_rank1", hsde_ops.q_rank1_plain)
+    n, m = 5, 4
+    rng = np.random.default_rng(9)
+    shapes = (lanes + (m,), lanes + (n,), lanes + (n + m + 1,), inst + (m,),
+              inst + (n,))
+    args = tuple(_t(rng.standard_normal(s)).requires_grad_() for s in shapes)
+    got = cg_step.QRank1Fn.apply(*args)
+    want = hsde_ops.q_rank1_plain(*args)
+    np.testing.assert_allclose(_np(got.detach()), _np(want.detach()),
+                               rtol=0, atol=TOL)
+    assert torch.autograd.gradcheck(cg_step.QRank1Fn.apply, args,
+                                    check_forward_ad=True)
 
 
 def test_cpu_tensors_reach_the_plain_versions(monkeypatch):

@@ -1518,13 +1518,14 @@ def _close_d(got, want, dtype, scales=None):
         assert bool((d <= atol + rtol * scale).all()), float(d.max())
 
 
-def _rank1_scale(want, z, ncb):
+def _rank1_scale(want, z, b, c):
     """C2's tolerance scale: |plain|, and for the dot -[c; b] . z[:n+m] the
     sum of its terms' magnitudes (a cancelling dot's rounding scales with
     it, not with its value)."""
     scale = want.double().abs()
-    K = ncb.shape[-1]
-    scale[..., -1] = (lanes_lead(ncb, z).double().abs()
+    cb = torch.cat([c, b], -1)
+    K = cb.shape[-1]
+    scale[..., -1] = (lanes_lead(cb, z).double().abs()
                       * z[..., :K].double().abs()).sum(-1)
     return [scale]
 
@@ -1724,19 +1725,17 @@ def test_cg_step_and_rank1_raise(cuda):
         rng, (n,), torch.float32, cuda)
     b, c = _randn(rng, (m,), torch.float32, cuda), _randn(
         rng, (n,), torch.float32, cuda)
-    ncb = -torch.cat([c, b])
     with pytest.raises(ValueError, match="requires grad"):
-        cg_step.q_rank1(az.requires_grad_(), atz, z, b, c, ncb)
+        cg_step.q_rank1(az.requires_grad_(), atz, z, b, c)
     with torch.no_grad():   # no graph recorded: a leaf's values are taken
-        cg_step.q_rank1(az, atz, z, b, c, ncb)
+        cg_step.q_rank1(az, atz, z, b, c)
     with pytest.raises(TypeError):
-        cg_step.q_rank1(*(t.half() for t in (az.detach(), atz, z, b, c,
-                                              ncb)))
+        cg_step.q_rank1(*(t.half() for t in (az.detach(), atz, z, b, c)))
     with pytest.raises(ValueError, match="is on"):
-        cg_step.q_rank1(az.detach(), atz.cpu(), z, b, c, ncb)
+        cg_step.q_rank1(az.detach(), atz.cpu(), z, b, c)
     strided = _randn(rng, (2 * n,), torch.float32, cuda)[::2]
     with pytest.raises(ValueError, match="not contiguous"):
-        cg_step.q_rank1(az.detach(), strided, z, b, c, ncb)
+        cg_step.q_rank1(az.detach(), strided, z, b, c)
 
 
 def _rank1_inputs(lanes, inst, n, m, dtype, cuda, seed):
@@ -1746,7 +1745,7 @@ def _rank1_inputs(lanes, inst, n, m, dtype, cuda, seed):
     atz = _randn(rng, lanes + (n,), dtype, cuda)
     b = _randn(rng, inst + (m,), dtype, cuda)
     c = _randn(rng, inst + (n,), dtype, cuda)
-    return az, atz, z, b, c, -torch.cat([c, b], -1)
+    return az, atz, z, b, c
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1765,7 +1764,7 @@ def test_q_rank1_matches_plain(cuda, k, dtype):
     assert counts["q_rank1"] == 1
     assert counts["q_rank1_sum"] == (1 if split else 0)
     want = hsde_ops.q_rank1_plain(*args)
-    _close_d([got], [want], dtype, _rank1_scale(want, args[2], args[5]))
+    _close_d([got], [want], dtype, _rank1_scale(want, *args[2:]))
     assert torch.equal(cg_step.q_rank1(*args), got)
 
 
@@ -1781,20 +1780,20 @@ def test_q_rank1_lanes_bit_equal_to_single(cuda, lanes, inst):
     from fos_tpu_torch.linalg import cg_step, hsde_ops
 
     n, m = 96, 64
-    az, atz, z, b, c, ncb = _rank1_inputs(lanes, inst, n, m, torch.float32,
-                                          cuda, len(lanes) * 100 + lanes[0])
+    az, atz, z, b, c = _rank1_inputs(lanes, inst, n, m, torch.float32,
+                                     cuda, len(lanes) * 100 + lanes[0])
     _cuda.device_launch_counts(reset=True)
-    got = cg_step.q_rank1(az, atz, z, b, c, ncb)
+    got = cg_step.q_rank1(az, atz, z, b, c)
     assert _cuda.device_launch_counts(reset=True)["q_rank1"] == 1
-    want = hsde_ops.q_rank1_plain(az, atz, z, b, c, ncb)
-    _close_d([got], [want], torch.float32, _rank1_scale(want, z, ncb))
+    want = hsde_ops.q_rank1_plain(az, atz, z, b, c)
+    _close_d([got], [want], torch.float32, _rank1_scale(want, z, b, c))
     L = got[..., 0].numel()
     per = L // max(1, b[..., 0].numel())
     flat = got.reshape(L, -1)
     for j in sorted({0, L // 2, L - 1}):
         d = j // per
         data = [t if not inst else t.reshape(-1, t.shape[-1])[d]
-                for t in (b, c, ncb)]
+                for t in (b, c)]
         one = cg_step.q_rank1(az.reshape(L, m)[j], atz.reshape(L, n)[j],
                               z.reshape(L, -1)[j], *data)
         assert torch.equal(flat[j], one)
@@ -1806,11 +1805,10 @@ def test_q_rank1_strided_views(cuda):
     from fos_tpu_torch.linalg import cg_step
 
     n, m, L = 1000, 1000, 31
-    az, atz, z, b, c, ncb = _rank1_inputs((L,), (), n, m, torch.float32,
-                                          cuda, 5)
+    az, atz, z, b, c = _rank1_inputs((L,), (), n, m, torch.float32, cuda, 5)
     wide = torch.cat([z, z], -1)
-    got = cg_step.q_rank1(az, atz, wide[:, : n + m + 1], b, c, ncb)
-    assert torch.equal(got, cg_step.q_rank1(az, atz, z, b, c, ncb))
+    got = cg_step.q_rank1(az, atz, wide[:, : n + m + 1], b, c)
+    assert torch.equal(got, cg_step.q_rank1(az, atz, z, b, c))
 
 
 def test_q_rank1_derivative_rules(cuda):
